@@ -1,0 +1,427 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py        # from the root of a checkout, on a CUDA card
+
+Phases, one JSON line each:
+
+  env              card (``nvidia-smi`` name and power limit), torch / CUDA
+                   versions, and the build of every kernel from
+                   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at
+                   once, into the git-ignored ``build/kernels/``).
+  main_path        the port's request path at full size: a fiqa-sized corpus
+                   (25,000 chunks, dim 768) indexed by ``EdgeRAGIndex.build``
+                   (nlist 125), then batches of 16 requests through
+                   ``RAGEngine.answer_batch`` (k 10, nprobe 8) with the
+                   full-width sheared-llama-2.7b generator (fp32, random
+                   weights from a seed) decoding 16 greedy tokens each.  The
+                   kernels' launch counts are zeroed just before and read
+                   just after.  The retrieved ids are held against the
+                   port's own CPU run on the same data and tier decisions.
+  kernels_checked  each kernel against its plain PyTorch version on the card,
+                   at the main path's recorded inputs: scores within the
+                   stated tolerance and ids equal away from near-ties;
+                   bitwise on integer-valued inputs; a batch bitwise equal
+                   to its queries run one at a time; plus the padding and
+                   all-tie contracts.
+  breakdown        one more retrieval batch, and one request's generation,
+                   under ``torch.profiler``: device time (kernels and copies)
+                   against host wall time.
+
+Then the ``kernels`` line (per kernel: launches, error, time, plain and
+library time, and the bound from this run's inputs), the ``nvidia-smi``
+line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
+so the script exits non-zero without that last line; it also does so when
+no CUDA device is present or the package is missing beside it.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12          # fp32 outside the tensor cores
+
+DATASET, RECORDS, DIM, NLIST = "fiqa", 25_000, 768, 125
+BATCHES, BATCH, K, NPROBE = 4, 16, 10, 8
+GENERATOR, MAX_PROMPT, NEW_TOKENS = "sheared-llama-2.7b", 128, 16
+SEED = 0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def score_tol(e, q) -> float:
+    """Two fp32 sums of the same D products in different orders differ by
+    at most 2 * D * 2**-24 * sum|q_i e_i|; the largest bound of the batch."""
+    d = e.shape[1]
+    return float(2 * d * 2.0 ** -24 * (q.abs() @ e.abs().T).max())
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled(fn) -> dict:
+    """Host wall ms of one call of ``fn`` (ending in a device sync) under
+    ``torch.profiler``, the device time in it (kernels and copies only, so
+    nothing is counted twice) and the largest device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = {}
+    for ev in prof.key_averages():
+        t = (getattr(ev, "self_device_time_total", 0)
+             or getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        if t > 0 and str(ev.device_type).endswith("CUDA"):
+            dev[ev.key] = (ev.count, t)
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"wall_ms": wall_ms,
+            "device_ms": sum(t for _, t in dev.values()) if dev
+            else "not measured",
+            "top_device_events": [[k[:80], n, t] for k, (n, t) in top]}
+
+
+class Recorder:
+    """Passes every call through to a kernel wrapper and keeps a copy of
+    the first call's arguments (the main path's real kernel inputs)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.first = None
+
+    def __call__(self, *args):
+        if self.first is None:
+            self.first = [a.clone() if hasattr(a, "clone") else a
+                          for a in args]
+        return self.fn(*args)
+
+
+def isolated_ids_equal(vals, ids, ref_ids, full, tol) -> int:
+    """Checks ids lane by lane wherever the reference score is more than
+    2*tol from both neighbours in the full sorted list; returns how many
+    lanes were checked."""
+    srt = np.sort(full, axis=1)[:, ::-1]
+    n_checked = 0
+    for qi in range(vals.shape[0]):
+        s = srt[qi]
+        for i in range(vals.shape[1]):
+            lo = s[i] - s[i + 1] if i + 1 < len(s) else np.inf
+            hi = s[i - 1] - s[i] if i > 0 else np.inf
+            if min(lo, hi) > 2 * tol:
+                check(ids[qi, i] == ref_ids[qi, i],
+                      f"id mismatch at query {qi} lane {i}")
+                n_checked += 1
+    return n_checked
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    from repro_torch.configs import get_config
+    from repro_torch.convert import index_state_from_numpy
+    from repro_torch.core import edgerag as edgerag_mod
+    from repro_torch.core import EdgeCostModel, EdgeRAGIndex
+    from repro_torch.data.synthetic import scaled_beir
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_topk import topk_ip
+    from repro_torch.kernels.ivf_topk.ref import topk_ip_ref
+    from repro_torch.kernels.slab_topk import NOT_PROBED, ROW_PAD, slab_topk
+    from repro_torch.kernels.slab_topk.ref import NEG_INF, slab_topk_ref
+    from repro_torch.models import init_params, param_count, prefill
+    from repro_torch.models.cache import init_cache
+    from repro_torch.serving import GeneratorModel, RAGEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False      # fp32 means fp32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+
+    # ---- env: build every kernel, in parallel --------------------------
+    t0 = time.perf_counter()
+    per_kernel_s = _build.build()
+    build_s = time.perf_counter() - t0
+    emit({"phase": "env", "nvidia_smi": smi,
+          "device": torch.cuda.get_device_name(0),
+          "device_count": torch.cuda.device_count(),
+          "python": sys.version.split()[0], "torch": torch.__version__,
+          "cuda": torch.version.cuda, "build_s": build_s,
+          "build_s_per_kernel": per_kernel_s, "ptxas": _build.ptxas_report})
+
+    # ---- main path ------------------------------------------------------
+    t0 = time.perf_counter()
+    ds = scaled_beir(DATASET, n_records=RECORDS, dim=DIM,
+                     n_queries=(BATCHES + 1) * BATCH, seed=SEED)
+    data_s = time.perf_counter() - t0
+    cost = EdgeCostModel()
+    rec_ivf, rec_slab = Recorder(topk_ip), Recorder(slab_topk)
+    edgerag_mod.topk_ip, edgerag_mod.slab_topk = rec_ivf, rec_slab
+    gcfg = get_config(GENERATOR)
+    t0 = time.perf_counter()
+    gen = GeneratorModel(gcfg, seed=SEED, max_prompt=MAX_PROMPT, device=dev)
+    torch.cuda.synchronize()
+    gen_init_s = time.perf_counter() - t0
+    index = EdgeRAGIndex(DIM, ds.embedder, ds.get_chunks, cost,
+                         slo_s=ds.spec.slo_s, device=dev)
+    engine = RAGEngine(index, gen, cost_model=cost, k=K, nprobe=NPROBE,
+                       max_new_tokens=NEW_TOKENS)
+
+    topk_ip.launches = slab_topk.launches = 0
+    t0 = time.perf_counter()
+    assign = index.build(ds.chunk_ids, ds.texts, nlist=NLIST,
+                         embeddings=ds.embeddings, seed=SEED)
+    torch.cuda.synchronize()
+    build_index_s = time.perf_counter() - t0
+    stored_at_build = index.stats()["stored_clusters"]
+    responses, per_batch = [], []
+    for b in range(BATCHES):
+        qs = [f"query-{b * BATCH + i}" for i in range(BATCH)]
+        embs = ds.query_embs[b * BATCH:(b + 1) * BATCH]
+        p0, d0 = gen.prefill_wall_s, gen.decode_wall_s
+        t0 = time.perf_counter()
+        resp = engine.answer_batch(qs, embs, ds.get_chunks)
+        wall = time.perf_counter() - t0
+        responses.append(resp)
+        per_batch.append({
+            "wall_s": wall,
+            "retrieval_s": sum(r.ttft_wall_s for r in resp),
+            "prefill_s": gen.prefill_wall_s - p0,
+            "decode_s": gen.decode_wall_s - d0})
+    launches = {"ivf_topk": topk_ip.launches, "slab_topk": slab_topk.launches}
+    edgerag_mod.topk_ip, edgerag_mod.slab_topk = topk_ip, slab_topk
+
+    flat = [r for resp in responses for r in resp]
+    tiers = {"stored": sum(r.retrieval.n_storage_loads for r in flat),
+             "cached": sum(r.retrieval.n_cache_hits for r in flat),
+             "regenerated": sum(r.retrieval.n_generated for r in flat)}
+    check(all(v > 0 for v in tiers.values()), f"a tier never ran: {tiers}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel was not launched on the main path: {launches}")
+    check(all(len(r.output_tokens) == NEW_TOKENS
+              and all(0 <= t < gcfg.vocab_size for t in r.output_tokens)
+              for r in flat), "generated tokens out of range")
+    check(all(len(r.chunk_ids) == K for r in flat), "short retrieval")
+
+    # the port's own CPU run on the same clustering and the same batches
+    cpu_ix = EdgeRAGIndex(DIM, ds.embedder, ds.get_chunks, cost,
+                          slo_s=ds.spec.slo_s, device="cpu")
+    index_state_from_numpy(cpu_ix, index.centroids, assign, ds.chunk_ids,
+                           ds.texts, ds.embeddings)
+    swaps = mismatches = 0
+    for b, resp in enumerate(responses):
+        embs = ds.query_embs[b * BATCH:(b + 1) * BATCH]
+        ids, vals, _ = cpu_ix.search_batch(
+            embs, K, NPROBE, query_chars=[len(r.query) for r in resp])
+        for qi, r in enumerate(resp):
+            for lane in np.nonzero(np.asarray(r.chunk_ids) != ids[qi])[0]:
+                v = vals[qi]
+                near = any(abs(v[lane] - v[j]) <= 1e-4
+                           for j in (lane - 1, lane + 1) if 0 <= j < K)
+                swaps += int(near)
+                mismatches += int(not near)
+    check(mismatches == 0, f"{mismatches} ids differ from the CPU run "
+          f"outside near-ties")
+    check(cpu_ix.stats()["cache_hit_rate"] == index.stats()["cache_hit_rate"],
+          "the CPU run took other tier decisions")
+
+    # full-width logits are finite; a reduced copy agrees with the CPU
+    toks = torch.randint(0, gcfg.vocab_size, (1, MAX_PROMPT),
+                         generator=torch.Generator().manual_seed(1))
+    logits, _ = prefill(gen.params, {"tokens": toks.to(dev)},
+                        init_cache(gcfg, 1, MAX_PROMPT, device=dev))
+    check(bool(torch.isfinite(logits).all()), "non-finite full-width logits")
+    small = get_config(GENERATOR).reduced(num_layers=2, d_model=256)
+    m_cpu = init_params(small, seed=SEED, device="cpu")
+    m_gpu = init_params(small, seed=SEED, device="cpu").to(dev)
+    st = toks[:, :32] % small.vocab_size
+    l_cpu, _ = prefill(m_cpu, {"tokens": st},
+                       init_cache(small, 1, 32, device=torch.device("cpu")))
+    l_gpu, _ = prefill(m_gpu, {"tokens": st.to(dev)},
+                       init_cache(small, 1, 32, device=dev))
+    small_err = float((l_gpu.cpu() - l_cpu).abs().max())
+    check(small_err < 1e-3, f"reduced model on the card vs CPU: {small_err}")
+
+    emit({"phase": "main_path", "dataset": DATASET, "records": ds.n,
+          "dim": DIM, "nlist": index.nlist, "batches": BATCHES,
+          "batch": BATCH, "requests": len(flat), "k": K, "nprobe": NPROBE,
+          "generator": gcfg.name, "layers": gcfg.num_layers,
+          "d_model": gcfg.d_model, "head_dim": gcfg.head_dim,
+          "vocab": gcfg.vocab_size,
+          "param_bytes": param_count(gen.params) * 4,
+          "data_s": data_s, "generator_init_s": gen_init_s,
+          "index_build_s": build_index_s,
+          "stored_clusters_at_build": stored_at_build,
+          "per_batch": per_batch, "tiers": tiers, "launches": launches,
+          "slab_rows_first_batch": int(rec_slab.first[0].shape[0]),
+          "cache_hit_rate": index.stats()["cache_hit_rate"],
+          "gen_tokens": [r.output_tokens for r in flat[:3]],
+          "first_chunk_ids": [r.chunk_ids[:5] for r in flat[:3]],
+          "cpu_match": True, "near_tie_swaps": swaps,
+          "reduced_model_card_vs_cpu_max_err": small_err})
+
+    # ---- kernels against their plain versions, on the card --------------
+    report = {}
+    e1, q1, k1 = rec_ivf.first
+    e2, q2, v2, k2 = rec_slab.first
+    gen_int = torch.Generator(device=dev).manual_seed(2)
+    rint = lambda shape, lo, hi: torch.randint(
+        lo, hi, shape, generator=gen_int, device=dev).float()
+
+    # ivf_topk
+    tol1 = score_tol(e1, q1)
+    kv, ki = topk_ip(e1, q1, k1)
+    pv, pi = topk_ip_ref(e1, q1, k1)
+    err1 = float((kv - pv).abs().max())
+    check(err1 <= tol1, f"ivf_topk error {err1} > {tol1}")
+    full1 = (q1.double() @ e1.double().T).cpu().numpy()
+    n1 = isolated_ids_equal(kv.cpu().numpy(), ki.cpu().numpy(),
+                            pi.cpu().numpy(), full1, tol1)
+    ei, qi_ = rint(e1.shape, -3, 4), rint(q1.shape, -2, 3)
+    ei[7:15] = ei[3]                                    # exact ties
+    a, b = topk_ip(ei, qi_, k1), topk_ip_ref(ei, qi_, k1)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "ivf_topk integer inputs not bitwise equal to the plain version")
+    for i in range(q1.shape[0]):
+        s = topk_ip(e1, q1[i:i + 1], k1)
+        check(torch.equal(s[0][0], kv[i]) and torch.equal(s[1][0], ki[i]),
+              "ivf_topk batch != sequential")
+    pad_v, pad_i = topk_ip(e1[:5], q1, 8)
+    check(bool((pad_i[:, 5:] == -1).all() and torch.isinf(pad_v[:, 5:]).all()),
+          "ivf_topk k > N padding")
+    report["ivf_topk"] = {"max_abs_err": err1, "tol": tol1,
+                          "ids_checked": n1}
+
+    # slab_topk (fp32)
+    member = v2 < NOT_PROBED
+    n_valid = member.sum(1)
+    lane = torch.arange(k2, device=dev)[None, :] < n_valid[:, None]
+    tol2 = score_tol(e2, q2)
+    kv, kr = slab_topk(e2, q2, v2, k2)
+    pv, pr = slab_topk_ref(e2, q2, v2, k2)
+    err2 = float((kv - pv)[lane].abs().max())
+    check(err2 <= tol2, f"slab_topk error {err2} > {tol2}")
+    full2 = torch.where(member, q2.double() @ e2.double().T,
+                        NEG_INF).cpu().numpy()
+    n2 = isolated_ids_equal(torch.where(lane, kv, NEG_INF).cpu().numpy(),
+                            torch.where(lane, kr, -1).cpu().numpy(),
+                            torch.where(lane, pr, -1).cpu().numpy(), full2,
+                            tol2)
+    ei, qi_ = rint(e2.shape, -3, 4), rint(q2.shape, -2, 3)
+    a, b = slab_topk(ei, qi_, v2, k2), slab_topk_ref(ei, qi_, v2, k2)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "slab_topk integer inputs not bitwise equal to the plain version")
+    ones = torch.ones_like(e2)
+    a, b = slab_topk(ones, torch.ones_like(q2), v2, k2), \
+        slab_topk_ref(ones, torch.ones_like(q2), v2, k2)
+    check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+          "slab_topk all-tie rows")
+    for i in range(q2.shape[0]):
+        s = slab_topk(e2, q2[i:i + 1], v2[i:i + 1], k2)
+        check(torch.equal(s[0][0], kv[i]) and torch.equal(s[1][0], kr[i]),
+              "slab_topk batch != sequential")
+    ev, er = slab_topk(e2[:0], q2, v2[:, :0], k2)
+    check(bool(torch.isinf(ev).all() and (er == ROW_PAD).all()),
+          "slab_topk empty slab")
+    a = slab_topk(ei[:5], qi_, v2[:, :5], k2)
+    b = slab_topk_ref(ei[:5], qi_, v2[:, :5].contiguous(), 5)
+    check(bool((a[1][:, 5:] == ROW_PAD).all()
+               and torch.equal(a[1][:, :5], b[1])), "slab_topk k > N")
+    report["slab_topk"] = {"max_abs_err": err2, "tol": tol2,
+                           "ids_checked": n2,
+                           "member_pairs": int(member.sum())}
+    emit({"phase": "kernels_checked",
+          "ivf_topk_shape": [*e1.shape, q1.shape[0], k1],
+          "slab_topk_shape": [*e2.shape, q2.shape[0], k2],
+          "integer_inputs": "bitwise", "batch_vs_sequential": "bitwise",
+          "checks": report})
+
+    # ---- timing and bounds at the main path's shapes ---------------------
+    def bound(nbytes, flops):
+        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+        return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+    (n, d), nq = e1.shape, q1.shape[0]
+    b1 = bound((n * d + nq * d) * 4 + nq * k1 * 8, 2 * nq * n * d)
+    rows_used = int(member.any(0).sum())
+    (n2r, _), nq2 = e2.shape, q2.shape[0]
+    b2 = bound((rows_used * d + nq2 * d) * 4 + nq2 * n2r * 4 + nq2 * k2 * 8,
+               2 * d * int(member.sum()))
+    kernels = [
+        {"name": "ivf_topk", "route": "cuda",
+         "source": "src/repro_torch/csrc/ivf_topk.cu",
+         "replaces": "src/repro/kernels/ivf_topk/kernel.py:98",
+         "launches": launches["ivf_topk"], "max_abs_err": err1,
+         "ms": cuda_ms(lambda: topk_ip(e1, q1, k1), 200),
+         "plain_ms": cuda_ms(lambda: topk_ip_ref(e1, q1, k1), 10),
+         "bound_ms": b1[0], "bound_by": b1[1],
+         "library_ms": cuda_ms(lambda: torch.topk(q1 @ e1.T, k1), 200)},
+        {"name": "slab_topk", "route": "cuda",
+         "source": "src/repro_torch/csrc/slab_topk.cu",
+         "replaces": "src/repro/kernels/slab_topk/kernel.py:141",
+         "launches": launches["slab_topk"], "max_abs_err": err2,
+         "ms": cuda_ms(lambda: slab_topk(e2, q2, v2, k2), 200),
+         "plain_ms": cuda_ms(lambda: slab_topk_ref(e2, q2, v2, k2), 5),
+         "bound_ms": b2[0], "bound_by": b2[1],
+         "library_ms": cuda_ms(lambda: torch.topk(torch.where(
+             member, q2 @ e2.T, NEG_INF), k2), 200)},
+    ]
+
+    # ---- breakdown: one retrieval batch and one request's generation ----
+    embs = ds.query_embs[BATCHES * BATCH:(BATCHES + 1) * BATCH]
+    index.search_batch(embs, K, NPROBE)                 # warm
+    r0 = flat[0]
+    prompt = " ".join(ds.get_chunks(r0.chunk_ids) + [r0.query])
+    ret = profiled(lambda: index.search_batch(embs, K, NPROBE))
+    gen_prof = profiled(lambda: gen.generate(prompt, NEW_TOKENS))
+    emit({"phase": "breakdown", "retrieval_batch": ret,
+          "one_request_generation": gen_prof})
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""Carry weights and index state from the JAX package into the port.
+
+Both functions take numpy arrays (``jax.tree.map(np.asarray, params)`` on
+the JAX side), so the port itself never touches JAX.
+
+* :func:`params_from_jax` — the JAX params pytree stacks every block leaf
+  over depth with a leading ``L`` axis; the port keeps one
+  :class:`~repro_torch.models.model.AttnBlock` per layer, so the converter
+  unstacks.  Matrices keep the JAX (in, out) layout on both sides.
+* :func:`index_state_from_numpy` — loads another index's centroids and
+  cluster assignment into a port index (then runs Alg. 1 as ``build``
+  does).  Parity tests use it because k-means argmin near-ties make two
+  separately trained indexes a bad comparison.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import Model
+
+
+def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
+                    device: DeviceLike = None) -> Model:
+    """A :class:`Model` holding the JAX params ``tree`` (numpy leaves):
+    ``{"embed", "blocks": ({"norm1", "wq", "wk", "wv", "wo", "norm2",
+    "mlp": {"gate", "up", "down"}},), "final_norm"[, "lm_head"]}``."""
+    dev = resolve_device(device)
+    model = Model(cfg, device=dev)
+    as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
+    with torch.no_grad():
+        model.embed.copy_(as_t(tree["embed"]))
+        model.final_norm.copy_(as_t(tree["final_norm"]))
+        if model.lm_head is not None:
+            model.lm_head.copy_(as_t(tree["lm_head"]))
+        stacked = tree["blocks"][0]
+        leaves = {name: stacked[name] for name in
+                  ("norm1", "wq", "wk", "wv", "wo", "norm2")}
+        leaves.update(stacked["mlp"])
+        for layer, block in enumerate(model.blocks):
+            for name, arr in leaves.items():
+                getattr(block, name).copy_(as_t(arr[layer]))
+    return model
+
+
+def index_state_from_numpy(index, centroids: np.ndarray, assign: np.ndarray,
+                           chunk_ids: Sequence[int], texts: Sequence[str],
+                           embeddings: np.ndarray) -> None:
+    """Load first-level ``centroids`` (nlist, d) and the per-chunk cluster
+    ``assign`` (n,) of another index into the port ``index``; Alg. 1 then
+    stores the clusters whose regeneration exceeds the SLO."""
+    index._install(chunk_ids, texts, embeddings, np.asarray(centroids),
+                   np.asarray(assign))

@@ -1,0 +1,192 @@
+"""Decoder / encoder model of dense ``"attn"`` blocks, in PyTorch.
+
+Port of ``repro.models.model`` for dense attention blocks (the paper's
+generator and embedder); MoE, Mamba2, RWKV6, sliding-window and shared
+blocks come with later slices and raise here.  A :class:`Model` is an
+``nn.Module`` whose parameters keep the JAX package's names and (in, out)
+matrix layout, one :class:`AttnBlock` per layer (the JAX pytree stacks them
+over depth; ``repro_torch.convert`` unstacks).
+
+Public entry points, as in the JAX package:
+  init_params                          (random weights from a seed)
+  prefill / decode_step                (serving)
+  encode                               (mean-pooled sentence embedding)
+
+Semantics kept from the reference: ``rms_norm`` scales by ``1 + w``; RoPE
+rotates the two halves of the head dim; SwiGLU MLP; an untied ``lm_head``
+when the config says so; prefill attends causally with NO padding mask;
+decode inserts k / v at ``cache_len`` and attends over ``cache_len + 1``
+tokens.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_lib
+from repro_torch.models.cache import KVCache
+from repro_torch.models.layers import (apply_rope, dense_init, mlp,
+                                       rms_norm, rope_frequencies)
+
+# sequences at least this long use the online-softmax chunked attention
+CHUNKED_ATTN_MIN_SEQ = 2048
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
+class AttnBlock(nn.Module):
+    """Pre-norm attention + SwiGLU block (JAX block kind ``"attn"``)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        d = cfg.d_model
+        z = lambda n: torch.zeros((n,), dtype=torch.float32, device=device)
+        w = lambda shape: dense_init(shape, generator, device)
+        self.norm1 = _param(z(d))
+        self.wq = _param(w((d, cfg.q_dim)))
+        self.wk = _param(w((d, cfg.kv_dim)))
+        self.wv = _param(w((d, cfg.kv_dim)))
+        self.wo = _param(w((cfg.q_dim, d)))
+        self.norm2 = _param(z(d))
+        self.gate = _param(w((d, cfg.d_ff)))
+        self.up = _param(w((d, cfg.d_ff)))
+        self.down = _param(w((cfg.d_ff, d)))
+
+    def forward(self, x, cfg: ModelConfig, *, positions, inv_freq,
+                causal: bool, mode: str, cache: Optional[KVCache],
+                cache_len: int, attn_impl: str):
+        b, s, _ = x.shape
+        h = rms_norm(x, self.norm1, cfg.norm_eps)
+        q = (h @ self.wq).view(b, s, cfg.num_heads, cfg.head_dim)
+        k = (h @ self.wk).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = (h @ self.wv).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = apply_rope(q, positions, inv_freq)
+        k = apply_rope(k, positions, inv_freq)
+        cap = cfg.attn_logit_softcap
+        if mode == "decode":
+            assert cache is not None and s == 1
+            cache.insert(k, v, cache_len)
+            out = attn_lib.attend_decode(q, cache.k, cache.v, cache_len + 1,
+                                         logit_cap=cap)
+        else:
+            if cache is not None:
+                cache.insert(k, v, 0)
+            chunked = (attn_impl == "chunked"
+                       or (attn_impl == "auto" and s >= CHUNKED_ATTN_MIN_SEQ))
+            attend = (attn_lib.attend_chunked if chunked
+                      else attn_lib.attend_reference)
+            out = attend(q, k, v, causal=causal, logit_cap=cap)
+        x = x + out.reshape(b, s, cfg.q_dim) @ self.wo
+        h = rms_norm(x, self.norm2, cfg.norm_eps)
+        return x + mlp(self.gate, self.up, self.down, h)
+
+
+class Model(nn.Module):
+    """Token embedding, ``num_layers`` blocks, final norm, output head."""
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0,
+                 device: DeviceLike = None):
+        super().__init__()
+        bad = sorted(set(cfg.block_pattern) - {"attn"})
+        if bad:
+            raise NotImplementedError(
+                f"{cfg.name}: block kinds {bad} come with a later slice of "
+                f"the port (this one runs dense 'attn' blocks)")
+        dev = resolve_device(device)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        self.cfg = cfg
+        self.embed = _param(dense_init((cfg.vocab_size, cfg.d_model), g, dev,
+                                       scale=0.02))
+        self.blocks = nn.ModuleList(AttnBlock(cfg, g, dev)
+                                    for _ in range(cfg.num_layers))
+        self.final_norm = _param(torch.zeros((cfg.d_model,), device=dev))
+        self.lm_head = (None if cfg.tie_embeddings else
+                        _param(dense_init((cfg.d_model, cfg.vocab_size), g,
+                                          dev)))
+        self.register_buffer("inv_freq", torch.from_numpy(
+            rope_frequencies(cfg.head_dim, cfg.rope_theta)).to(dev),
+            persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def run(self, tokens: torch.Tensor, *, causal: bool, mode: str,
+            caches: Optional[List[KVCache]], cache_len: int,
+            attn_impl: str) -> torch.Tensor:
+        """Embed ``tokens`` (B, S) and apply every block; returns the
+        residual stream (B, S, d) before the final norm."""
+        x = self.embed[tokens]
+        b, s = tokens.shape
+        offset = cache_len if mode == "decode" else 0
+        positions = (torch.arange(s, device=x.device) + offset).expand(b, s)
+        for i, block in enumerate(self.blocks):
+            x = block(x, self.cfg, positions=positions,
+                      inv_freq=self.inv_freq, causal=causal,
+                      mode=mode, cache=None if caches is None else caches[i],
+                      cache_len=cache_len, attn_impl=attn_impl)
+        return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        if self.lm_head is None:
+            return x @ self.embed.T
+        return x @ self.lm_head
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: DeviceLike = None) -> Model:
+    """A :class:`Model` with random weights drawn on ``device`` (the card
+    unless ``"cpu"``) from ``torch.Generator().manual_seed(seed)``."""
+    return Model(cfg, seed=seed, device=device)
+
+
+def param_count(model: Model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+@torch.no_grad()
+def prefill(model: Model, batch: Dict[str, torch.Tensor],
+            caches: List[KVCache], *, attn_impl: str = "auto"
+            ) -> Tuple[torch.Tensor, List[KVCache]]:
+    """Run the full prompt ``batch["tokens"]`` (B, S), filling ``caches``
+    in place.  Returns (last-position logits (B, vocab), caches)."""
+    x = model.run(batch["tokens"], causal=True, mode="prefill",
+                  caches=caches, cache_len=0, attn_impl=attn_impl)
+    return model.logits(x[:, -1]), caches
+
+
+@torch.no_grad()
+def decode_step(model: Model, tokens: torch.Tensor, caches: List[KVCache],
+                cache_len: int) -> Tuple[torch.Tensor, List[KVCache]]:
+    """One-token serve step: tokens (B, 1) at position ``cache_len``.
+    Returns (logits (B, vocab), caches updated in place)."""
+    x = model.run(tokens, causal=True, mode="decode", caches=caches,
+                  cache_len=cache_len, attn_impl="auto")
+    return model.logits(x[:, 0]), caches
+
+
+@torch.no_grad()
+def encode(model: Model, batch: Dict[str, torch.Tensor], *,
+           attn_impl: str = "auto") -> torch.Tensor:
+    """Bidirectional mean-pooled, unit-norm sentence embedding.  Padded
+    tokens are attended; ``batch["attn_mask"]`` only selects what is
+    pooled."""
+    x = model.run(batch["tokens"], causal=False, mode="train", caches=None,
+                  cache_len=0, attn_impl=attn_impl)
+    x = rms_norm(x, model.final_norm, model.cfg.norm_eps)
+    mask = batch.get("attn_mask")
+    if mask is None:
+        emb = x.mean(dim=1)
+    else:
+        m = mask.to(x.dtype)[..., None]
+        emb = (x * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+    return emb / torch.clamp(torch.linalg.norm(emb, dim=-1, keepdim=True),
+                             min=1e-9)

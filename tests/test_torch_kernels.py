@@ -1,0 +1,278 @@
+"""Port kernels against the JAX package: the plain PyTorch versions of
+``ivf_topk`` and fp32 ``slab_topk`` against ``repro.kernels.*.ref`` and the
+Pallas kernels in interpret mode, the padding contracts, integer-valued tie
+inputs (bitwise), and batch == sequential inside the port (bitwise).  The
+CUDA kernels against the plain versions run only on the card (``gpu``).
+
+Tolerance: two fp32 sums of the same D products in different orders differ
+by at most 2 * D * 2**-24 * sum(|q_i e_i|) (each is within gamma_D of the
+exact sum); :func:`_tol` takes the largest such bound over the batch.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.ivf_topk.kernel import topk_ip_pallas  # noqa: E402
+from repro.kernels.ivf_topk.ref import topk_ip_ref as jax_topk_ref  # noqa: E402
+from repro.kernels.slab_topk.kernel import slab_topk_pallas  # noqa: E402
+from repro.kernels.slab_topk.ref import lex_topk as jax_lex_topk  # noqa: E402
+from repro.kernels.slab_topk.ref import slab_topk_ref as jax_slab_ref  # noqa: E402
+from repro_torch.kernels.ivf_topk import topk_ip  # noqa: E402
+from repro_torch.kernels.slab_topk import NOT_PROBED, ROW_PAD, slab_topk  # noqa: E402
+from repro_torch.kernels.slab_topk.ref import lex_topk  # noqa: E402
+
+
+def _tol(e: np.ndarray, q: np.ndarray) -> float:
+    d = e.shape[1]
+    return float(2 * d * 2.0 ** -24 * (np.abs(q) @ np.abs(e).T).max())
+
+
+def _virt(sizes, probes):
+    """(Q, N) virt of a slab packing clusters of ``sizes`` in order, for
+    per-query probe lists ``probes`` (as SlabLayout.query_layout does)."""
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    virt = np.full((len(probes), offs[-1]), NOT_PROBED, np.int32)
+    for qi, probed in enumerate(probes):
+        base = 0
+        for c in probed:
+            virt[qi, offs[c]:offs[c + 1]] = np.arange(base, base + sizes[c])
+            base += sizes[c]
+    return virt
+
+
+def _slab_case(seed, n_clusters=12, d=48, nq=5, nprobe=4, integer=False):
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(3, 40, n_clusters)
+    n = int(sizes.sum())
+    if integer:
+        emb = rng.integers(-3, 4, (n, d)).astype(np.float32)
+        q = rng.integers(-2, 3, (nq, d)).astype(np.float32)
+    else:
+        emb = rng.standard_normal((n, d)).astype(np.float32)
+        q = rng.standard_normal((nq, d)).astype(np.float32)
+    probes = [list(rng.permutation(n_clusters)[:nprobe]) for _ in range(nq)]
+    return emb, q, _virt(sizes, probes)
+
+
+def _assert_topk_close(vals, ids, ref_vals, ref_ids, full_ref, tol):
+    """Scores within ``tol``; ids equal at every lane whose score is more
+    than 2*tol away from both neighbours in the full sorted score list."""
+    np.testing.assert_allclose(vals, ref_vals, rtol=0, atol=tol)
+    srt = -np.sort(-full_ref, axis=1)
+    k = vals.shape[1]
+    for qi in range(vals.shape[0]):
+        s = srt[qi]
+        for i in range(k):
+            lo = s[i] - s[i + 1] if i + 1 < len(s) else np.inf
+            hi = s[i - 1] - s[i] if i > 0 else np.inf
+            if min(lo, hi) > 2 * tol:
+                assert ids[qi, i] == ref_ids[qi, i], (qi, i)
+
+
+# ---------------------------------------------------------------------------
+# ivf_topk
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("n,d,nq,k", [(1000, 64, 3, 10), (130, 128, 1, 100),
+                                      (77, 32, 5, 8), (300, 768, 4, 16)])
+def test_topk_ip_plain_matches_jax_ref_and_pallas(n, d, nq, k):
+    rng = np.random.default_rng(n + d)
+    e = rng.standard_normal((n, d)).astype(np.float32)
+    q = rng.standard_normal((nq, d)).astype(np.float32)
+    vals, idx = topk_ip(torch.from_numpy(e), torch.from_numpy(q), k)
+    vals, idx = vals.numpy(), idx.numpy()
+    tol = _tol(e, q)
+    full = q.astype(np.float64) @ e.T.astype(np.float64)
+    rv, ri = jax_topk_ref(jnp.asarray(e), jnp.asarray(q), k)
+    _assert_topk_close(vals, idx, np.asarray(rv), np.asarray(ri), full, tol)
+    pv, pi = topk_ip_pallas(jnp.asarray(e), jnp.asarray(q), k,
+                            interpret=True)
+    _assert_topk_close(vals, idx, np.asarray(pv), np.asarray(pi), full, tol)
+
+
+def test_topk_ip_pads_when_k_exceeds_n():
+    rng = np.random.default_rng(0)
+    e = torch.from_numpy(rng.standard_normal((5, 16)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((2, 16)).astype(np.float32))
+    vals, idx = topk_ip(e, q, 9)
+    assert vals.shape == (2, 9) and idx.dtype == torch.int32
+    assert (idx[:, 5:] == -1).all() and torch.isinf(vals[:, 5:]).all()
+    assert sorted(idx[0, :5].tolist()) == list(range(5))
+
+
+def test_topk_ip_integer_ties_bitwise():
+    """Integer-valued inputs: every sum is exact in any order, so the port
+    must equal the JAX reference and the Pallas kernel bit for bit, ties
+    (to the lower index) included."""
+    rng = np.random.default_rng(3)
+    e = rng.integers(-2, 3, (200, 24)).astype(np.float32)
+    e[50:60] = e[10]                                  # exact duplicates
+    q = rng.integers(-2, 3, (6, 24)).astype(np.float32)
+    vals, idx = topk_ip(torch.from_numpy(e), torch.from_numpy(q), 20)
+    rv, ri = jax_topk_ref(jnp.asarray(e), jnp.asarray(q), 20)
+    pv, pi = topk_ip_pallas(jnp.asarray(e), jnp.asarray(q), 20,
+                            interpret=True)
+    for v, i in ((rv, ri), (pv, pi)):
+        assert np.array_equal(vals.numpy(), np.asarray(v))
+        assert np.array_equal(idx.numpy(), np.asarray(i))
+
+
+def test_topk_ip_batch_equals_sequential_bitwise():
+    rng = np.random.default_rng(4)
+    e = torch.from_numpy(rng.standard_normal((700, 96)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((9, 96)).astype(np.float32))
+    vals, idx = topk_ip(e, q, 12)
+    for qi in range(9):
+        v1, i1 = topk_ip(e, q[qi:qi + 1], 12)
+        assert torch.equal(v1[0], vals[qi]) and torch.equal(i1[0], idx[qi])
+
+
+# ---------------------------------------------------------------------------
+# slab_topk (fp32)
+# ---------------------------------------------------------------------------
+def _valid_lanes(virt, k):
+    n_valid = (virt < NOT_PROBED).sum(1)
+    return np.arange(k)[None, :] < n_valid[:, None]
+
+
+@pytest.mark.parametrize("seed,k", [(0, 10), (1, 25), (2, 1)])
+def test_slab_topk_plain_matches_jax_ref_and_pallas(seed, k):
+    emb, q, virt = _slab_case(seed)
+    vals, rows = slab_topk(torch.from_numpy(emb), torch.from_numpy(q),
+                           torch.from_numpy(virt), k)
+    vals, rows = vals.numpy(), rows.numpy()
+    valid = _valid_lanes(virt, k)
+    tol = _tol(emb, q)
+    full = np.where(virt < NOT_PROBED,
+                    q.astype(np.float64) @ emb.T.astype(np.float64), -1e30)
+    for fn in (lambda: jax_slab_ref(jnp.asarray(emb), jnp.asarray(q),
+                                    jnp.asarray(virt), k),
+               lambda: slab_topk_pallas(jnp.asarray(emb), jnp.asarray(q),
+                                        jnp.asarray(virt), k,
+                                        block_n=128, interpret=True)):
+        rv, rr = (np.asarray(a) for a in fn())
+        np.testing.assert_allclose(vals[valid], rv[valid], rtol=0, atol=tol)
+        _assert_topk_close(np.where(valid, vals, -1e30),
+                           np.where(valid, rows, -1),
+                           np.where(valid, rv, -1e30),
+                           np.where(valid, rr, -1), full, tol)
+
+
+def test_slab_topk_integer_ties_bitwise():
+    emb, q, virt = _slab_case(5, integer=True)
+    k = 30
+    vals, rows = slab_topk(torch.from_numpy(emb), torch.from_numpy(q),
+                           torch.from_numpy(virt), k)
+    valid = _valid_lanes(virt, k)
+    for rv, rr in (jax_slab_ref(jnp.asarray(emb), jnp.asarray(q),
+                                jnp.asarray(virt), k),
+                   slab_topk_pallas(jnp.asarray(emb), jnp.asarray(q),
+                                    jnp.asarray(virt), k, block_n=64,
+                                    interpret=True)):
+        assert np.array_equal(vals.numpy()[valid], np.asarray(rv)[valid])
+        assert np.array_equal(rows.numpy()[valid], np.asarray(rr)[valid])
+
+
+def test_slab_topk_all_tie_rows_resolve_by_virt():
+    """Every member scores the same: the order is virt ascending."""
+    emb = np.ones((40, 8), np.float32)
+    q = np.ones((3, 8), np.float32)
+    virt = _virt([10, 10, 10, 10], [[2, 0], [3, 1, 0], [1]])
+    vals, rows = slab_topk(torch.from_numpy(emb), torch.from_numpy(q),
+                           torch.from_numpy(virt), 12)
+    rv, rr = jax_slab_ref(jnp.asarray(emb), jnp.asarray(q),
+                          jnp.asarray(virt), 12)
+    valid = _valid_lanes(virt, 12)
+    assert np.array_equal(rows.numpy()[valid], np.asarray(rr)[valid])
+    assert rows[0, :10].tolist() == list(range(20, 30))
+    assert (vals.numpy()[valid] == 8.0).all()
+
+
+def test_lex_topk_signed_zero_ties_by_tie_key():
+    """+0.0 and -0.0 tie and resolve by the tie key, and the returned
+    values keep their sign bits — as the JAX ``lex_topk``."""
+    masked = np.array([[0.0, -0.0, 1.0, -0.0, 0.0, -1e30],
+                       [-0.0, 0.0, -0.0, 0.0, -1.0, 2.0]], np.float32)
+    tie = np.array([[4, 1, 9, 0, 2, NOT_PROBED],
+                    [3, 2, 1, 0, 5, 7]], np.int32)
+    vals, cols = lex_topk(torch.from_numpy(masked), torch.from_numpy(tie), 5)
+    rv, rc = jax_lex_topk(jnp.asarray(masked), jnp.asarray(tie), 5)
+    assert np.array_equal(cols.numpy(), np.asarray(rc))
+    assert np.array_equal(np.signbit(vals.numpy()), np.signbit(np.asarray(rv)))
+    assert cols[0].tolist() == [2, 3, 1, 4, 0]
+
+
+def test_slab_topk_empty_slab_and_k_over_n():
+    q = torch.zeros((3, 8))
+    vals, rows = slab_topk(torch.zeros((0, 8)), q,
+                           torch.zeros((3, 0), dtype=torch.int32), 4)
+    assert vals.shape == (3, 4) and torch.isinf(vals).all()
+    assert (rows == ROW_PAD).all()
+    emb, qn, virt = _slab_case(6, n_clusters=2, nq=3, nprobe=1)
+    n = emb.shape[0]
+    vals, rows = slab_topk(torch.from_numpy(emb), torch.from_numpy(qn),
+                           torch.from_numpy(virt), n + 3)
+    assert (rows[:, n:] == ROW_PAD).all() and torch.isinf(vals[:, n:]).all()
+    assert ((rows[:, :n] >= 0) & (rows[:, :n] < n)).all()
+
+
+def test_slab_topk_rejects_quantized_slabs():
+    with pytest.raises(NotImplementedError):
+        slab_topk(torch.zeros((4, 8), dtype=torch.float16), torch.zeros(
+            (1, 8)), torch.zeros((1, 4), dtype=torch.int32), 2)
+
+
+def test_slab_topk_batch_equals_sequential_bitwise():
+    emb, q, virt = _slab_case(7, n_clusters=20, nq=8, nprobe=6)
+    e, qt, vt = (torch.from_numpy(a) for a in (emb, q, virt))
+    vals, rows = slab_topk(e, qt, vt, 10)
+    for qi in range(q.shape[0]):
+        v1, r1 = slab_topk(e, qt[qi:qi + 1], vt[qi:qi + 1], 10)
+        assert torch.equal(v1[0], vals[qi]) and torch.equal(r1[0], rows[qi])
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels (only on the card)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integer", [False, True])
+def test_cuda_topk_ip_matches_plain(cuda, integer):
+    rng = np.random.default_rng(11)
+    if integer:
+        e = rng.integers(-3, 4, (1300, 768)).astype(np.float32)
+        q = rng.integers(-2, 3, (16, 768)).astype(np.float32)
+    else:
+        e = rng.standard_normal((1300, 768)).astype(np.float32)
+        q = rng.standard_normal((16, 768)).astype(np.float32)
+    kv, ki = topk_ip(torch.from_numpy(e).to(cuda), torch.from_numpy(q).to(cuda), 8)
+    pv, pi = topk_ip(torch.from_numpy(e), torch.from_numpy(q), 8)
+    if integer:
+        assert torch.equal(kv.cpu(), pv) and torch.equal(ki.cpu(), pi)
+    else:
+        full = q.astype(np.float64) @ e.T.astype(np.float64)
+        _assert_topk_close(kv.cpu().numpy(), ki.cpu().numpy(), pv.numpy(),
+                           pi.numpy(), full, _tol(e, q))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integer", [False, True])
+def test_cuda_slab_topk_matches_plain(cuda, integer):
+    emb, q, virt = _slab_case(12, n_clusters=60, d=768, nq=16, nprobe=8,
+                              integer=integer)
+    args = [torch.from_numpy(a) for a in (emb, q, virt)]
+    kv, kr = slab_topk(*[a.to(cuda) for a in args], 10)
+    pv, pr = slab_topk(*args, 10)
+    if integer:
+        assert torch.equal(kv.cpu(), pv) and torch.equal(kr.cpu(), pr)
+    else:
+        np.testing.assert_allclose(kv.cpu().numpy(), pv.numpy(), rtol=0,
+                                   atol=_tol(emb, q))
