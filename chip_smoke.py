@@ -18,12 +18,26 @@ Phases, one JSON line each:
                    kernels' launch counts are zeroed just before and read
                    just after.  The retrieved ids are held against the
                    port's own CPU run on the same data and tier decisions.
-  kernels_checked  each kernel against its plain PyTorch version on the card,
-                   at the main path's recorded inputs: scores within the
-                   stated tolerance and ids equal away from near-ties;
-                   bitwise on integer-valued inputs; a batch bitwise equal
-                   to its queries run one at a time; plus the padding and
-                   all-tie contracts.
+  codec_paths      the same corpus, clustering, queries and generator under
+                   each quantized storage codec: ``EdgeRAGIndex(
+                   storage_codec="fp16" | "int8" | "pq")`` (pq in the memmap
+                   mode, on a temporary root inside ``build/``), 4 batches of
+                   16 through ``search_batch`` and one through
+                   ``RAGEngine.answer_batch``.  Checks that every tier ran,
+                   that ``slab_topk`` launched in the codec's mode and in
+                   fp32, that ids equal the port's CPU run (same codec,
+                   clustering and codebook) outside near-ties with the same
+                   tier decisions, and the stored bytes against the fp32
+                   index; prints recall@10 against the fp32 index's ids and,
+                   for one more warm batch, its stages' host seconds and
+                   its device time under ``torch.profiler``.
+  kernels_checked  each kernel (ivf_topk; slab_topk in fp32, fp16, int8 and
+                   pq) against its plain PyTorch version on the card, at the
+                   recorded inputs of the main path and the codec paths:
+                   scores within the stated tolerance and ids equal away from
+                   near-ties (pq: bitwise); bitwise on integer-valued inputs;
+                   a batch bitwise equal to its queries run one at a time;
+                   plus the empty-slab, k > N and all-tie contracts.
   breakdown        one more retrieval batch, and one request's generation,
                    under ``torch.profiler``: device time (kernels and copies)
                    against host wall time.
@@ -37,8 +51,10 @@ no CUDA device is present or the package is missing beside it.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -54,6 +70,8 @@ FP32_FLOPS_PER_S = 67e12          # fp32 outside the tensor cores
 DATASET, RECORDS, DIM, NLIST = "fiqa", 25_000, 768, 125
 BATCHES, BATCH, K, NPROBE = 4, 16, 10, 8
 GENERATOR, MAX_PROMPT, NEW_TOKENS = "sheared-llama-2.7b", 128, 16
+CODECS, CODEC_NEW_TOKENS = ("fp16", "int8", "pq"), 2
+NEAR_TIE = 1e-4           # |score gap| under which two ids may swap places
 SEED = 0
 
 
@@ -78,6 +96,13 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def bound(nbytes: float, ops: float) -> tuple:
+    """(least ms on the card, what bounds it): the bytes over HBM's rate
+    against the fp32 operations over the fp32 peak."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -121,17 +146,21 @@ def profiled(fn) -> dict:
 
 class Recorder:
     """Passes every call through to a kernel wrapper and keeps a copy of
-    the first call's arguments (the main path's real kernel inputs)."""
+    the first call's arguments for each ``key(*args, **kw)`` (the main
+    path's real kernel inputs, per slab mode for ``slab_topk``)."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, key=lambda *args, **kw: None):
         self.fn = fn
-        self.first = None
+        self.key = key
+        self.first = {}
 
-    def __call__(self, *args):
-        if self.first is None:
-            self.first = [a.clone() if hasattr(a, "clone") else a
-                          for a in args]
-        return self.fn(*args)
+    def __call__(self, *args, **kw):
+        key = self.key(*args, **kw)
+        if key not in self.first:
+            clone = lambda a: a.clone() if hasattr(a, "clone") else a
+            self.first[key] = ([clone(a) for a in args],
+                               {n: clone(a) for n, a in kw.items()})
+        return self.fn(*args, **kw)
 
 
 def isolated_ids_equal(vals, ids, ref_ids, full, tol) -> int:
@@ -152,6 +181,264 @@ def isolated_ids_equal(vals, ids, ref_ids, full, tol) -> int:
     return n_checked
 
 
+def near_tie_mismatches(ids, ref_ids, ref_vals) -> tuple:
+    """(swaps, mismatches): lanes whose id differs from the reference, split
+    by whether a neighbouring reference score lies within NEAR_TIE."""
+    swaps = mismatches = 0
+    for qi in range(len(ids)):
+        for lane in np.nonzero(np.asarray(ids[qi]) != ref_ids[qi])[0]:
+            v = ref_vals[qi]
+            near = any(abs(v[lane] - v[j]) <= NEAR_TIE
+                       for j in (lane - 1, lane + 1) if 0 <= j < len(v))
+            swaps += int(near)
+            mismatches += int(not near)
+    return swaps, mismatches
+
+
+def tier_decisions(lats) -> list:
+    return [(x.n_storage_loads, x.n_cache_hits, x.n_generated) for x in lats]
+
+
+def codec_path(codec, ctx) -> dict:
+    """One quantized storage tier on the card (module docstring,
+    ``codec_paths``), checked against the port's CPU run."""
+    import torch
+    from repro_torch.convert import index_state_from_numpy
+    from repro_torch.core import EdgeRAGIndex
+    from repro_torch.kernels.ivf_topk import topk_ip
+    from repro_torch.kernels.slab_topk import slab_topk
+    from repro_torch.serving import RAGEngine
+
+    ds, cost, dev = ctx["ds"], ctx["cost"], ctx["dev"]
+    mode = "memmap" if codec == "pq" else "memory"
+    roots = {side: tempfile.mkdtemp(prefix=f"{codec}_{side}_",
+                                    dir=ctx["scratch"])
+             if mode == "memmap" else None for side in ("card", "cpu")}
+    make = lambda device, side: EdgeRAGIndex(
+        DIM, ds.embedder, ds.get_chunks, cost, slo_s=ds.spec.slo_s,
+        storage_codec=codec, storage_mode=mode, storage_root=roots[side],
+        device=device)
+    t_phase = time.perf_counter()
+    ix = make(dev, "card")
+    t0 = time.perf_counter()
+    index_state_from_numpy(ix, ctx["centroids"], ctx["assign"], ds.chunk_ids,
+                           ds.texts, ds.embeddings)
+    torch.cuda.synchronize()
+    install_s = time.perf_counter() - t0
+    engine = RAGEngine(ix, ctx["gen"], cost_model=cost, k=K, nprobe=NPROBE,
+                       max_new_tokens=CODEC_NEW_TOKENS)
+    last = slice(BATCHES * BATCH, (BATCHES + 1) * BATCH)
+    queries = [f"query-{i}" for i in range(last.start, last.stop)]
+
+    topk_ip.launches = slab_topk.launches = 0
+    slab_topk.launches_by_mode = dict.fromkeys(slab_topk.launches_by_mode, 0)
+    card, walls = [], []
+    for b in range(BATCHES):
+        t0 = time.perf_counter()
+        ids, _, lats = ix.search_batch(
+            ds.query_embs[b * BATCH:(b + 1) * BATCH], K, NPROBE)
+        walls.append(time.perf_counter() - t0)
+        card.append((ids, tier_decisions(lats)))
+    resp = engine.answer_batch(queries, ds.query_embs[last], ds.get_chunks)
+    launches = dict(slab_topk.launches_by_mode, ivf_topk=topk_ip.launches)
+
+    check(all(len(r.chunk_ids) == K for r in resp), f"{codec}: short "
+          f"retrieval")
+    card.append(([r.chunk_ids for r in resp],
+                 tier_decisions([r.retrieval for r in resp])))
+    flat = [t for _, dec in card for t in dec]
+    tiers = {name: sum(t[i] for t in flat) for i, name in
+             enumerate(("stored", "cached", "regenerated"))}
+    check(all(v > 0 for v in tiers.values()),
+          f"{codec}: a tier never ran: {tiers}")
+    check(launches[codec] > 0 and launches["fp32"] > 0,
+          f"{codec}: slab_topk not launched in {codec} and fp32: {launches}")
+    check(all(len(r.output_tokens) == CODEC_NEW_TOKENS for r in resp),
+          f"{codec}: short generation")
+
+    # the port's own CPU run: same codec, clustering and codebook
+    cpu_ix = make("cpu", "cpu")
+    index_state_from_numpy(cpu_ix, ctx["centroids"], ctx["assign"],
+                           ds.chunk_ids, ds.texts, ds.embeddings,
+                           pq_codebook=ix.storage.pq)
+    swaps = mismatches = 0
+    for b, (ids, dec) in enumerate(card):
+        rows = slice(b * BATCH, (b + 1) * BATCH)
+        chars = ([len(q) for q in queries] if b == BATCHES else None)
+        c_ids, c_vals, c_lats = cpu_ix.search_batch(
+            ds.query_embs[rows], K, NPROBE, query_chars=chars)
+        check(tier_decisions(c_lats) == dec,
+              f"{codec}: the CPU run took other tier decisions in batch {b}")
+        s, m = near_tie_mismatches(ids, c_ids, c_vals)
+        swaps, mismatches = swaps + s, mismatches + m
+    check(mismatches == 0, f"{codec}: {mismatches} ids differ from the CPU "
+          f"run outside near-ties")
+
+    # where a warm batch's time goes: the three stages of search_batch on
+    # the host clock, then one more batch under the profiler
+    embs, stage_s = ds.query_embs[last], {}
+    t0 = time.perf_counter()
+    state = ix.search_begin(embs, K, NPROBE)
+    stage_s["probe_plan"] = time.perf_counter() - t0
+    ix.search_fetch(state)
+    stage_s["fetch"] = time.perf_counter() - t0 - stage_s["probe_plan"]
+    ix.search_finish(state)
+    stage_s["pack_score"] = (time.perf_counter() - t0 - stage_s["fetch"]
+                             - stage_s["probe_plan"])
+    prof = profiled(lambda: ix.search_batch(embs, K, NPROBE))
+
+    ratio = ix.storage_bytes() / ctx["fp32_storage_bytes"]
+    check(ratio == 0.5 if codec == "fp16" else ratio < 1.0,
+          f"{codec}: stored bytes {ratio} of the fp32 index's")
+    fp32_ids = ctx["fp32_ids"]
+    recall = float(np.mean([
+        len(set(ids[qi]) & set(fp32_ids[b * BATCH + qi])) / K
+        for b, (ids, _) in enumerate(card[:BATCHES])
+        for qi in range(BATCH)]))
+    out = {"codec": codec, "storage_mode": mode,
+           "stored_clusters": ix.stats()["stored_clusters"],
+           "stored_bytes": ix.storage_bytes(),
+           "stored_bytes_vs_fp32": ratio,
+           "recall_at_10_vs_fp32": recall,
+           "retrieval_wall_s_per_batch": walls,
+           "answer_batch_retrieval_s": sum(r.ttft_wall_s for r in resp),
+           "index_install_s": install_s, "tiers": tiers,
+           "launches": launches, "cpu_match": True,
+           "near_tie_swaps": swaps, "warm_batch_stage_s": stage_s,
+           "warm_batch_profile": prof,
+           "phase_s": time.perf_counter() - t_phase}
+    for root in roots.values():
+        if root:
+            shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+REPLACES = {"fp16": 116, "int8": 121, "pq": 102}   # kernel.py line per mode
+
+
+def check_quantized(mode, e, q, v, k, kw, rint) -> dict:
+    """``slab_topk`` in a quantized mode against its plain version on the
+    card at one recorded call (module docstring, ``kernels_checked``)."""
+    import torch
+    from repro_torch.kernels.slab_topk import NOT_PROBED, ROW_PAD, slab_topk
+    from repro_torch.kernels.slab_topk.ref import NEG_INF, slab_topk_ref
+
+    def both(e_, q_, v_, k_, kw_):
+        return (slab_topk(e_, q_, v_, k_, **kw_),
+                slab_topk_ref(e_, q_, v_, k_, **kw_))
+
+    def equal(a, b):
+        return torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    member = v < NOT_PROBED
+    lane = torch.arange(k, device=v.device)[None, :] < member.sum(1)[:, None]
+    (kv, kr), (pv, pr) = both(e, q, v, k, kw)
+    err = float((kv - pv)[lane].abs().max())
+    out = {"max_abs_err": err, "member_pairs": int(member.sum())}
+    if mode == "pq":             # gathers and adds in one order: bitwise
+        check(equal((kv, kr), (pv, pr)), "slab_topk pq not bitwise equal "
+              "to the plain version on the recorded inputs")
+        out["tol"] = 0.0
+        # m = 96 (dsub 8 at D = 768): 96 KB of tables, past the default
+        # 48 KB of shared memory a block gets without opting in
+        ew = rint((e.shape[0], 96), 0, 256).to(torch.uint8)
+        lw = rint((q.shape[0], 96, 256), -1000, 1000) / 7.0
+        check(equal(*both(ew, q, v, k, {"luts": lw})), "slab_topk pq with "
+              "m = 96 not bitwise equal to the plain version")
+        out["wide_m_checked"] = 96
+    else:
+        ef = e.float()
+        tol = score_tol(ef, q)
+        exact = q.double() @ ef.double().T
+        if mode == "int8":       # the scale multiplies the finished dot
+            tol *= float(kw["scales"].abs().max())
+            exact = exact * kw["scales"].double()[:, 0][None, :]
+        check(err <= tol, f"slab_topk {mode} error {err} > {tol}")
+        out["tol"] = tol
+        out["ids_checked"] = isolated_ids_equal(
+            torch.where(lane, kv, NEG_INF).cpu().numpy(),
+            torch.where(lane, kr, -1).cpu().numpy(),
+            torch.where(lane, pr, -1).cpu().numpy(),
+            torch.where(member, exact, NEG_INF).cpu().numpy(), tol)
+    # integer-valued inputs: small integers in fp16, int8 with power-of-two
+    # scales, integer tables: every score exact in any order
+    if mode == "fp16":
+        ei, kwi = rint(e.shape, -3, 4).half(), {}
+    elif mode == "int8":
+        ei = rint(e.shape, -3, 4).to(torch.int8)
+        kwi = {"scales": 2.0 ** rint(kw["scales"].shape, -4, 5)}
+    else:
+        ei, kwi = e, {"luts": rint(kw["luts"].shape, -8, 9)}
+    qi = rint(q.shape, -2, 3)
+    check(equal(*both(ei, qi, v, k, kwi)),
+          f"slab_topk {mode} integer inputs not bitwise equal to the plain "
+          f"version")
+    if mode == "pq":             # every member scores the same
+        et, kwt = e, {"luts": torch.ones_like(kw["luts"])}
+    else:
+        et = torch.ones_like(e)
+        kwt = ({"scales": torch.full_like(kw["scales"], 0.5)}
+               if mode == "int8" else {})
+    check(equal(*both(et, torch.ones_like(q), v, k, kwt)),
+          f"slab_topk {mode} all-tie rows")
+    for i in range(q.shape[0]):
+        one = {n: (a[i:i + 1] if n == "luts" else a) for n, a in kw.items()}
+        s1 = slab_topk(e, q[i:i + 1], v[i:i + 1], k, **one)
+        check(torch.equal(s1[0][0], kv[i]) and torch.equal(s1[1][0], kr[i]),
+              f"slab_topk {mode} batch != sequential")
+    rows = lambda extra, n: {name: (a[:n] if name == "scales" else a)
+                             for name, a in extra.items()}
+    ev, er = slab_topk(e[:0], q, v[:, :0], k, **rows(kw, 0))
+    check(bool(torch.isinf(ev).all() and (er == ROW_PAD).all()),
+          f"slab_topk {mode} empty slab")
+    a = slab_topk(ei[:5], qi, v[:, :5], k, **rows(kwi, 5))
+    b = slab_topk_ref(ei[:5], qi, v[:, :5].contiguous(), 5, **rows(kwi, 5))
+    check(bool((a[1][:, 5:] == ROW_PAD).all()
+               and torch.equal(a[1][:, :5], b[1])), f"slab_topk {mode} k > N")
+    return out
+
+
+def quantized_row(mode, e, q, v, k, kw, launches, checked) -> dict:
+    """The ``kernels`` line's row of ``slab_topk`` in a quantized mode, timed
+    at one recorded call of the codec path.  The bound reads each probed
+    row once (D x 2 bytes fp16, D + 4 int8 with its scale, m pq), the
+    queries or tables, ``virt`` and the outputs once; the library call is
+    ``torch.topk`` over the masked scores (for pq a composite: one gather
+    of the tables by the codes and a sum)."""
+    import torch
+    from repro_torch.kernels.slab_topk import NOT_PROBED, slab_topk
+    from repro_torch.kernels.slab_topk.ref import NEG_INF, slab_topk_ref
+
+    member = v < NOT_PROBED
+    pairs, rows_used = int(member.sum()), int(member.any(0).sum())
+    (n, w), nq = e.shape, q.shape[0]
+    rest = nq * n * 4 + nq * k * 8                   # virt in, results out
+    if mode == "pq":
+        luts = kw["luts"]
+        lim = bound(rows_used * w + luts.numel() * 4 + rest, pairs * w)
+        library = lambda: torch.topk(torch.where(member, luts.gather(
+            2, e.long().T[None].expand(nq, w, n)).sum(1), NEG_INF), k)
+    elif mode == "int8":
+        sc = kw["scales"]
+        lim = bound(rows_used * (w + 4) + nq * w * 4 + rest,
+                    (2 * w + 1) * pairs)
+        library = lambda: torch.topk(torch.where(
+            member, (q @ e.float().T) * sc.T, NEG_INF), k)
+    else:
+        lim = bound(rows_used * w * 2 + nq * w * 4 + rest, 2 * w * pairs)
+        library = lambda: torch.topk(torch.where(
+            member, q @ e.float().T, NEG_INF), k)
+    return {"name": f"slab_topk_{mode}", "route": "cuda",
+            "source": "src/repro_torch/csrc/slab_topk.cu",
+            "replaces": f"src/repro/kernels/slab_topk/kernel.py:"
+                        f"{REPLACES[mode]}",
+            "launches": launches, "max_abs_err": checked["max_abs_err"],
+            "ms": cuda_ms(lambda: slab_topk(e, q, v, k, **kw), 200),
+            "plain_ms": cuda_ms(lambda: slab_topk_ref(e, q, v, k, **kw), 5),
+            "bound_ms": lim[0], "bound_by": lim[1],
+            "library_ms": cuda_ms(library, 200)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -165,7 +452,8 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.ivf_topk import topk_ip
     from repro_torch.kernels.ivf_topk.ref import topk_ip_ref
-    from repro_torch.kernels.slab_topk import NOT_PROBED, ROW_PAD, slab_topk
+    from repro_torch.kernels.slab_topk import (NOT_PROBED, ROW_PAD,
+                                               slab_mode, slab_topk)
     from repro_torch.kernels.slab_topk.ref import NEG_INF, slab_topk_ref
     from repro_torch.models import init_params, param_count, prefill
     from repro_torch.models.cache import init_cache
@@ -193,7 +481,9 @@ def main() -> int:
                      n_queries=(BATCHES + 1) * BATCH, seed=SEED)
     data_s = time.perf_counter() - t0
     cost = EdgeCostModel()
-    rec_ivf, rec_slab = Recorder(topk_ip), Recorder(slab_topk)
+    rec_ivf = Recorder(topk_ip)
+    rec_slab = Recorder(slab_topk, lambda e, q, v, k, **kw: slab_mode(
+        e, q, v, **kw))
     edgerag_mod.topk_ip, edgerag_mod.slab_topk = rec_ivf, rec_slab
     gcfg = get_config(GENERATOR)
     t0 = time.perf_counter()
@@ -206,6 +496,7 @@ def main() -> int:
                        max_new_tokens=NEW_TOKENS)
 
     topk_ip.launches = slab_topk.launches = 0
+    slab_topk.launches_by_mode = dict.fromkeys(slab_topk.launches_by_mode, 0)
     t0 = time.perf_counter()
     assign = index.build(ds.chunk_ids, ds.texts, nlist=NLIST,
                          embeddings=ds.embeddings, seed=SEED)
@@ -227,7 +518,7 @@ def main() -> int:
             "prefill_s": gen.prefill_wall_s - p0,
             "decode_s": gen.decode_wall_s - d0})
     launches = {"ivf_topk": topk_ip.launches, "slab_topk": slab_topk.launches}
-    edgerag_mod.topk_ip, edgerag_mod.slab_topk = topk_ip, slab_topk
+    main_by_mode = dict(slab_topk.launches_by_mode)
 
     flat = [r for resp in responses for r in resp]
     tiers = {"stored": sum(r.retrieval.n_storage_loads for r in flat),
@@ -251,13 +542,8 @@ def main() -> int:
         embs = ds.query_embs[b * BATCH:(b + 1) * BATCH]
         ids, vals, _ = cpu_ix.search_batch(
             embs, K, NPROBE, query_chars=[len(r.query) for r in resp])
-        for qi, r in enumerate(resp):
-            for lane in np.nonzero(np.asarray(r.chunk_ids) != ids[qi])[0]:
-                v = vals[qi]
-                near = any(abs(v[lane] - v[j]) <= 1e-4
-                           for j in (lane - 1, lane + 1) if 0 <= j < K)
-                swaps += int(near)
-                mismatches += int(not near)
+        s, m = near_tie_mismatches([r.chunk_ids for r in resp], ids, vals)
+        swaps, mismatches = swaps + s, mismatches + m
     check(mismatches == 0, f"{mismatches} ids differ from the CPU run "
           f"outside near-ties")
     check(cpu_ix.stats()["cache_hit_rate"] == index.stats()["cache_hit_rate"],
@@ -291,17 +577,31 @@ def main() -> int:
           "index_build_s": build_index_s,
           "stored_clusters_at_build": stored_at_build,
           "per_batch": per_batch, "tiers": tiers, "launches": launches,
-          "slab_rows_first_batch": int(rec_slab.first[0].shape[0]),
+          "slab_topk_launches_by_mode": main_by_mode,
+          "slab_rows_first_batch": int(rec_slab.first["fp32"][0][0].shape[0]),
           "cache_hit_rate": index.stats()["cache_hit_rate"],
           "gen_tokens": [r.output_tokens for r in flat[:3]],
           "first_chunk_ids": [r.chunk_ids[:5] for r in flat[:3]],
           "cpu_match": True, "near_tie_swaps": swaps,
           "reduced_model_card_vs_cpu_max_err": small_err})
 
+    # ---- codec paths: fp16, int8, pq on the same corpus and generator ----
+    ctx = {"ds": ds, "cost": cost, "dev": dev, "gen": gen,
+           "centroids": index.centroids, "assign": assign,
+           "scratch": str(ROOT / "build"),
+           "fp32_storage_bytes": index.storage_bytes(),
+           "fp32_ids": [r.chunk_ids for r in flat]}
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    codecs = [codec_path(codec, ctx) for codec in CODECS]
+    edgerag_mod.topk_ip, edgerag_mod.slab_topk = topk_ip, slab_topk
+    emit({"phase": "codec_paths", "phase_s": time.perf_counter() - t0,
+          "codecs": codecs})
+
     # ---- kernels against their plain versions, on the card --------------
     report = {}
-    e1, q1, k1 = rec_ivf.first
-    e2, q2, v2, k2 = rec_slab.first
+    (e1, q1, k1), _ = rec_ivf.first[None]
+    (e2, q2, v2, k2), _ = rec_slab.first["fp32"]
     gen_int = torch.Generator(device=dev).manual_seed(2)
     rint = lambda shape, lo, hi: torch.randint(
         lo, hi, shape, generator=gen_int, device=dev).float()
@@ -368,17 +668,18 @@ def main() -> int:
     report["slab_topk"] = {"max_abs_err": err2, "tol": tol2,
                            "ids_checked": n2,
                            "member_pairs": int(member.sum())}
+    for mode in CODECS:
+        (e, q, v, k), kw = rec_slab.first[mode]
+        report[f"slab_topk_{mode}"] = check_quantized(mode, e, q, v, k, kw,
+                                                      rint)
     emit({"phase": "kernels_checked",
           "ivf_topk_shape": [*e1.shape, q1.shape[0], k1],
-          "slab_topk_shape": [*e2.shape, q2.shape[0], k2],
+          "slab_topk_shape": {m: [*a[0].shape, a[1].shape[0], a[3]]
+                              for m, (a, _) in rec_slab.first.items()},
           "integer_inputs": "bitwise", "batch_vs_sequential": "bitwise",
-          "checks": report})
+          "pq_recorded_inputs": "bitwise", "checks": report})
 
     # ---- timing and bounds at the main path's shapes ---------------------
-    def bound(nbytes, flops):
-        t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
-        return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
-
     (n, d), nq = e1.shape, q1.shape[0]
     b1 = bound((n * d + nq * d) * 4 + nq * k1 * 8, 2 * nq * n * d)
     rows_used = int(member.any(0).sum())
@@ -404,6 +705,11 @@ def main() -> int:
          "library_ms": cuda_ms(lambda: torch.topk(torch.where(
              member, q2 @ e2.T, NEG_INF), k2), 200)},
     ]
+    for mode in CODECS:
+        (e, q, v, k), kw = rec_slab.first[mode]
+        kernels.append(quantized_row(mode, e, q, v, k, kw,
+                                     codecs[CODECS.index(mode)]["launches"]
+                                     [mode], report[f"slab_topk_{mode}"]))
 
     # ---- breakdown: one retrieval batch and one request's generation ----
     embs = ds.query_embs[BATCHES * BATCH:(BATCHES + 1) * BATCH]

@@ -11,15 +11,22 @@ the JAX side), so the port itself never touches JAX.
   cluster assignment into a port index (then runs Alg. 1 as ``build``
   does).  Parity tests use it because k-means argmin near-ties make two
   separately trained indexes a bad comparison.
+* :func:`pq_codebook_from_numpy` — a JAX ``PQCodebook`` (its numpy
+  ``codebooks``, ``dim`` and ``version``) as the port's
+  :class:`~repro_torch.core.pq.PQCodebook`, for
+  ``index_state_from_numpy(..., pq_codebook=)`` (or
+  ``StorageBackend.install_pq``) to install; then both packages encode to,
+  and score, the same codes.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.pq import PQCodebook
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model
 
@@ -47,11 +54,28 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     return model
 
 
+def pq_codebook_from_numpy(codebooks: np.ndarray, dim: int,
+                           version: int) -> PQCodebook:
+    """The port's :class:`PQCodebook` holding ``codebooks`` (m, 256, dsub)
+    f32, for embeddings of width ``dim``, stamped ``version``."""
+    cb = PQCodebook(codebooks=np.array(codebooks, np.float32),
+                    dim=int(dim), version=int(version))
+    if cb.codebooks.ndim != 3 or cb.codebooks.shape[1] != 256:
+        raise ValueError(f"codebooks must be (m, 256, dsub), got "
+                         f"{cb.codebooks.shape}")
+    return cb
+
+
 def index_state_from_numpy(index, centroids: np.ndarray, assign: np.ndarray,
                            chunk_ids: Sequence[int], texts: Sequence[str],
-                           embeddings: np.ndarray) -> None:
+                           embeddings: np.ndarray, *,
+                           pq_codebook: Optional[PQCodebook] = None) -> None:
     """Load first-level ``centroids`` (nlist, d) and the per-chunk cluster
     ``assign`` (n,) of another index into the port ``index``; Alg. 1 then
-    stores the clusters whose regeneration exceeds the SLO."""
+    stores the clusters whose regeneration exceeds the SLO.  Under the pq
+    codec the stored clusters are encoded with ``pq_codebook`` (from
+    :func:`pq_codebook_from_numpy`, or another port index's
+    ``storage.pq``), or with a codebook trained on ``embeddings`` as
+    ``build`` does when it is None."""
     index._install(chunk_ids, texts, embeddings, np.asarray(centroids),
-                   np.asarray(assign))
+                   np.asarray(assign), pq_codebook=pq_codebook)

@@ -3,8 +3,10 @@
 Port of ``repro.core.edgerag`` to PyTorch.  The index's bookkeeping stays on
 the host in numpy, as in the JAX package; the centroid probe (``topk_ip``),
 k-means and the slab scoring (``slab_topk``) run on the index's ``device``
-(the card unless ``device="cpu"``).  This slice has the fp32 storage codec;
-the sharded ``mesh=`` route, durability and tenancy come with later slices.
+(the card unless ``device="cpu"``).  Stored clusters may use any storage
+codec (``storage_codec=`` fp32 / fp16 / int8 / pq, ``storage_mode=`` memory /
+disk / memmap); the sharded ``mesh=`` route, durability and tenancy come
+with later slices.
 
 Improves the two-level IVF index for memory-constrained serving:
 
@@ -71,7 +73,9 @@ PACKED-SLAB SCORING (kernels/slab_topk + resolver.SlabLayout): the
 second-level scoring step packs the batch's unique resolved clusters
 exactly ONCE into contiguous slabs (one per storage representation, with
 per-cluster (offset, length) extents and a parallel chunk-id slab) and
-scores ALL queries in one ragged multi-query kernel launch per slab —
+scores ALL queries in one ragged multi-query kernel launch per slab (fp16 /
+int8 / pq slabs scored in their compact form, with fused dequantization or
+PQ lookup tables) —
 per-(query, row) membership and the per-query virtual concat order ride
 in an int32 ``virt`` matrix whose entries double as the top-k tie-break
 key, so the results equal a per-query concat + top-k loop while shared
@@ -113,6 +117,7 @@ from repro_torch.core.faults import DegradationPolicy
 from repro_torch.core.kmeans import kmeans
 from repro_torch.core.maintenance import (OP_DROP_STORE, OP_MERGE, OP_RESTORE,
                                           OP_SPLIT, MaintenanceScheduler)
+from repro_torch.core.pq import PQCodebook, pq_luts
 from repro_torch.core.resolver import (ClusterResolver, ResolutionPlan,
                                        SlabPayload)
 from repro_torch.core.storage import StorageBackend
@@ -190,32 +195,50 @@ class BatchSearchState:
                               for d in plan.deadlines]
 
 
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """One host-to-device copy of ``a`` in its own dtype.  Read-only arrays
+    (memmap payloads) are copied on the host first: a tensor must not alias
+    a read-only mapping (torch warns, and on the CPU ``.to`` would not
+    copy)."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
 def slab_score_topk(slab, queries: np.ndarray, k: int,
                     probed_per_q: Sequence[Sequence], *,
                     device: torch.device
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The S3 scoring core: ONE ragged multi-query top-k launch per slab
-    segment, segments merged per query under the virt tie-break.  Each
-    segment, the queries and the virt matrix go to ``device`` in one copy
-    each; the (Q, k) results come back to the host.  Each (query, row)
-    pair's result depends only on that query's member rows (the virt mask
-    excludes everything else).  Returns ``(out_ids (Q,k), out_vals (Q,k),
-    n_valid (Q,))``.
+    segment (at most four: fp32 / fp16 / int8 / pq), segments merged per
+    query under the virt tie-break.  Each segment goes to ``device`` in one
+    copy in its own dtype (int8 with its scale column), as do the queries
+    and the virt matrix; the (Q, k) results come back to the host.  PQ
+    segments build the batch's ADC tables ONCE here (``pq_luts``) and score
+    codes by in-kernel gather+accumulate.  Each (query, row) pair's result
+    depends only on that query's member rows (the virt mask excludes
+    everything else).  Returns ``(out_ids (Q,k), out_vals (Q,k), n_valid
+    (Q,))``.
     """
     nq = queries.shape[0]
     out_ids = np.full((nq, k), -1, np.int64)
     out_vals = np.full((nq, k), -np.inf, np.float32)
     virts, n_valid, n_valid_seg = slab.query_layout(probed_per_q)
     lane = np.arange(k)[None, :]
-    q_dev = torch.from_numpy(np.ascontiguousarray(queries)).to(device)
+    q_dev = _to_device(queries, device)
     cand_vals, cand_virt, cand_ids = [], [], []
     for seg in slab.segments:
         if seg.rows == 0:
             continue
         virt = virts[seg.kind]
-        vals, rows = slab_topk(
-            torch.from_numpy(np.ascontiguousarray(seg.emb)).to(device),
-            q_dev, torch.from_numpy(virt).to(device), k)
+        kw = {}
+        if seg.scales is not None:
+            kw["scales"] = _to_device(seg.scales, device)
+        if seg.kind == "pq":                          # (Q, m, 256), once
+            kw["luts"] = _to_device(pq_luts(seg.codebook, queries), device)
+        vals, rows = slab_topk(_to_device(seg.emb, device), q_dev,
+                               _to_device(virt, device), k, **kw)
         vals, rows = vals.cpu().numpy(), rows.cpu().numpy()
         # mask the padding lanes BEFORE the id gather and insist
         # every remaining row is in-range — the old path's np.clip
@@ -273,7 +296,7 @@ class EdgeRAGIndex:
         self.cache = CostAwareLFUCache(cache_bytes)
         self.threshold = MinLatencyThresholdController()
         self.storage = StorageBackend(storage_mode, root=storage_root,
-                                      codec=storage_codec)
+                                      codec=storage_codec, device=self.device)
         self.resolver = ClusterResolver(self)
         self.centroids: Optional[np.ndarray] = None
         self.clusters: List[EdgeCluster] = []
@@ -298,15 +321,20 @@ class EdgeRAGIndex:
         embeddings = np.ascontiguousarray(embeddings, np.float32)
         centroids, assign = kmeans(embeddings, nlist, iters=kmeans_iters,
                                    seed=seed, device=self.device)
-        self._install(chunk_ids, texts, embeddings, centroids, assign)
+        self._install(chunk_ids, texts, embeddings, centroids, assign,
+                      pq_seed=seed)
         return assign
 
     def _install(self, chunk_ids: Sequence[int], texts: Sequence[str],
                  embeddings: np.ndarray, centroids: np.ndarray,
-                 assign: np.ndarray):
+                 assign: np.ndarray, *, pq_seed: int = 0,
+                 pq_codebook: Optional[PQCodebook] = None):
         """Index a corpus under GIVEN first-level centroids and cluster
         assignments (``build`` after its k-means; ``convert`` loads another
-        index's clustering this way).  Runs Alg. 1 on every cluster."""
+        index's clustering this way).  Under the pq codec the codebook is
+        trained on the whole corpus (seed ``pq_seed``) before the first put,
+        or ``pq_codebook`` is adopted as it is.  Runs Alg. 1 on every
+        cluster."""
         chunk_ids = np.asarray(chunk_ids, np.int64)
         embeddings = np.ascontiguousarray(embeddings, np.float32)
         assign = np.asarray(assign)
@@ -320,6 +348,14 @@ class EdgeRAGIndex:
             self.threshold.step_s, self.threshold.alpha)
         self._chunk_chars = {int(i): len(t)
                              for i, t in zip(chunk_ids, texts)}
+        if self.storage.codec == "pq":
+            # codebook lifecycle: TRAIN AT BUILD on the full corpus, before
+            # any Alg. 1 put encodes against it (a rebuild retrains — the
+            # version bump invalidates the cleared previous-corpus blobs)
+            if pq_codebook is None:
+                self.storage.train_pq(embeddings, seed=pq_seed)
+            else:
+                self.storage.install_pq(pq_codebook)
         self.centroids = np.array(centroids, np.float32)
         self.clusters = []
         self._chunk_cluster = {}
@@ -567,7 +603,13 @@ class EdgeRAGIndex:
             # per storage representation (slab_score_topk)
             out_ids, out_vals, n_valid = slab_score_topk(
                 slab, queries, k, probed_per_q, device=self.device)
+            # PQ segments: every query's ADC tables are built once per
+            # batch (l2_pq_lut_s) — charged INSTEAD of any dequant
+            has_pq = any(seg.kind == "pq" and seg.rows
+                         for seg in slab.segments)
             for qi in range(nq):
+                if has_pq:
+                    lats[qi].l2_pq_lut_s += self.cost.pq_lut_latency(self.dim)
                 if n_valid[qi]:
                     lats[qi].l2_search_s = self.cost.search_latency(
                         int(n_valid[qi]), self.dim)
@@ -751,6 +793,28 @@ class EdgeRAGIndex:
         self.storage.delete(cid)
         cl.stored = False
         cl.stored_generation = -1
+
+    def retrain_pq(self, embeddings: np.ndarray, *, seed: int = 0):
+        """Drift retrain of the PQ codebook (train at build, RETRAIN ON
+        DRIFT).  Bumps the codebook version — every stored blob is now
+        stale (its ``cbv`` pins the old version) — then routes one restore
+        per stored cluster through the maintenance path (inline under
+        ``maintenance='sync'``, queued under ``'deferred'``): regenerate at
+        full precision, re-encode under the new codebook, re-persist.  A
+        read racing an un-restored blob is safe: the stale payload
+        quarantine-drops and falls back to regeneration."""
+        if self.storage.codec != "pq":
+            raise ValueError("retrain_pq requires the pq storage codec")
+        self.storage.train_pq(embeddings, seed=seed)
+        for cid, cl in enumerate(self.clusters):
+            if not (cl.active and cl.stored):
+                continue
+            cl.generation += 1
+            cl.stored_generation = -1       # stale under the new codebook
+            if self.maintenance_mode == "sync":
+                self._restore_cluster(cid)
+            else:
+                self.maintenance.enqueue(OP_RESTORE, cid)
 
     def _reconcile_storage(self, cid: int):
         """Make the Alg. 1 invariant true for one cluster: (re)store it if

@@ -1,9 +1,9 @@
 """Tiered cluster-resolution pipeline: probe → PLAN → EXECUTE → score.
 
-Port of ``repro.core.resolver`` (fp32 storage codec only in this slice:
-every payload is an fp32 matrix and the slab has one segment kind).  The
-slab is packed on the host as in the JAX package; ``slab_score_topk``
-sends one copy of each segment to the index's device.
+Port of ``repro.core.resolver``.  The slab is packed on the host as in the
+JAX package, one segment per storage representation (fp32 / fp16 / int8 /
+pq); ``slab_score_topk`` sends one copy of each segment to the index's
+device in the segment's own dtype.
 
 EdgeRAG's central decision — where does a probed cluster's embedding matrix
 come from? — used to live inline in ``EdgeRAGIndex.search_batch``.  This
@@ -50,11 +50,14 @@ PACKED-SLAB SCORING (kernels/slab_topk): :meth:`ClusterResolver.execute_slab`
 runs ``execute`` in RAW mode (storage payloads as stored,
 ``StorageBackend.get_many_raw``) and packs every resolved cluster exactly
 once into a :class:`SlabLayout`: one contiguous (N_total, d) embedding slab
-per storage representation present in the batch, a parallel chunk-id slab,
-and per-cluster (offset, length) extents.  Scoring then runs ONE ragged
+per storage representation present in the batch (fp16 / int8 payloads stay
+undecoded, int8 with its per-row scale column; pq payloads as their uint8
+codes plus the backend's codebook), a parallel chunk-id slab, and
+per-cluster (offset, length) extents.  Scoring then runs ONE ragged
 multi-query kernel launch per segment instead of Q concat-and-top-k rounds.
 Owners are charged the slab-pack copy (``l2_slab_pack_s``) once per slab,
-not once per probing query.
+not once per probing query, plus the in-kernel decode of fp16 / int8 rows
+(``l2_fused_dequant_s``) or the PQ code gather (``l2_pq_gather_s``).
 """
 from __future__ import annotations
 
@@ -65,6 +68,7 @@ import numpy as np
 
 from repro_torch.core.costs import LatencyBreakdown
 from repro_torch.core.faults import DegradationPolicy, IOOutcome
+from repro_torch.core.pq import PQCodebook
 from repro_torch.kernels.slab_topk.ref import NOT_PROBED
 
 TIER_STORAGE = "storage"
@@ -140,11 +144,16 @@ class ResolutionPlan:
 class SlabPayload:
     """One resolved cluster in its scoring representation.
 
-    ``kind`` is the slab segment it packs into; this slice has "fp32" only
-    (cache / regen / fp32 storage).
+    ``kind`` is the slab segment it packs into: "fp32" (cache / regen /
+    fp32 storage), "fp16", "int8", or "pq" (undecoded storage payloads).
+    ``scales`` is the int8 codec's per-row scale column, (n, 1) f32; for
+    "pq", ``emb`` holds the (n, m) uint8 code matrix and ``codebook`` the
+    backend's :class:`~repro_torch.core.pq.PQCodebook` the codes index into.
     """
     kind: str
     emb: np.ndarray
+    scales: Optional[np.ndarray] = None
+    codebook: Optional[PQCodebook] = None   # kind == "pq" only
 
     @property
     def rows(self) -> int:
@@ -152,21 +161,36 @@ class SlabPayload:
 
     @property
     def nbytes(self) -> int:
-        return self.emb.nbytes
+        return self.emb.nbytes + (0 if self.scales is None
+                                  else self.scales.nbytes)
 
     @classmethod
-    def from_raw(cls, payload: Dict[str, np.ndarray]) -> "SlabPayload":
-        """Wrap a ``StorageBackend`` payload as stored."""
-        return cls("fp32", np.ascontiguousarray(payload["emb"], np.float32))
+    def from_raw(cls, payload: Dict[str, np.ndarray],
+                 codebook: Optional[PQCodebook] = None) -> "SlabPayload":
+        """Wrap an undecoded ``StorageBackend`` codec payload."""
+        if "q" in payload:
+            return cls("int8", payload["q"],
+                       np.ascontiguousarray(payload["scale"], np.float32))
+        if "codes" in payload:
+            if codebook is None:
+                raise ValueError("a pq payload needs its codebook")
+            return cls("pq", payload["codes"], codebook=codebook)
+        emb = payload["emb"]
+        if emb.dtype == np.float16:
+            return cls("fp16", emb)
+        return cls("fp32", np.ascontiguousarray(emb, np.float32))
 
 
 @dataclasses.dataclass
 class SlabSegment:
     """One contiguous packed slab: every cluster of one representation."""
-    kind: str                       # "fp32"
-    emb: np.ndarray                 # (rows, d) packed
+    kind: str                       # "fp32" | "fp16" | "int8" | "pq"
+    emb: np.ndarray                 # (rows, d) packed, segment dtype —
+    #                                 (rows, m) uint8 codes for "pq"
+    scales: Optional[np.ndarray]    # (rows, 1) f32 — int8 segments only
     ids: np.ndarray                 # (rows,) int64 parallel chunk-id slab
     clusters: List[int]             # cluster ids in pack order
+    codebook: Optional[PQCodebook] = None   # pq segments only
 
     @property
     def rows(self) -> int:
@@ -180,7 +204,8 @@ class SlabLayout:
     ``extent`` maps cluster id -> (kind, row offset, row length) into the
     segment of that representation; clusters that resolved to zero rows
     (merged away between plan and execute) get a zero-length extent and
-    never reach scoring.  An fp32 batch packs one segment.
+    never reach scoring.  At most four segments exist (fp32 / fp16 / int8 /
+    pq); a pure-fp32 batch packs one.
     """
     dim: int
     segments: List[SlabSegment]
@@ -207,7 +232,10 @@ class SlabLayout:
         if length == 0:
             return 0
         seg = self.segment(kind)
-        return length * seg.emb.shape[1] * seg.emb.itemsize
+        n = length * seg.emb.shape[1] * seg.emb.itemsize
+        if seg.scales is not None:
+            n += length * seg.scales.itemsize
+        return n
 
     @classmethod
     def pack(cls, dim: int, order: Sequence[int],
@@ -220,7 +248,8 @@ class SlabLayout:
         rows (asserted here as defense in depth).
 
         A single-cluster segment adopts its payload array as the slab by
-        reference instead of copying.
+        reference instead of copying — with memmap-mode storage the slab is
+        then a slice of the on-disk mapping.
         """
         by_kind: Dict[str, List[int]] = {}
         extent: Dict[int, Tuple[str, int, int]] = {}
@@ -233,6 +262,7 @@ class SlabLayout:
         segments: List[SlabSegment] = []
         for kind, cids in by_kind.items():
             first = payloads[cids[0]]
+            cb = first.codebook if kind == "pq" else None
             if len(cids) == 1:
                 cid = cids[0]
                 cl_ids = ids_of(cid)
@@ -240,12 +270,15 @@ class SlabLayout:
                     f"cluster {cid}: {len(cl_ids)} ids vs {first.rows} rows"
                 extent[cid] = (kind, 0, first.rows)
                 segments.append(SlabSegment(
-                    kind=kind, emb=first.emb,
-                    ids=np.asarray(cl_ids, np.int64), clusters=[cid]))
+                    kind=kind, emb=first.emb, scales=first.scales,
+                    ids=np.asarray(cl_ids, np.int64), clusters=[cid],
+                    codebook=cb))
                 continue
             rows = sum(payloads[c].rows for c in cids)
             d = first.emb.shape[1]
             emb = np.empty((rows, d), first.emb.dtype)
+            scales = (np.empty((rows, 1), np.float32) if kind == "int8"
+                      else None)
             ids = np.empty((rows,), np.int64)
             off = 0
             for cid in cids:
@@ -255,10 +288,13 @@ class SlabLayout:
                     f"cluster {cid}: {len(cl_ids)} ids vs {p.rows} rows"
                 emb[off:off + p.rows] = p.emb
                 ids[off:off + p.rows] = cl_ids
+                if scales is not None:
+                    scales[off:off + p.rows] = p.scales
                 extent[cid] = (kind, off, p.rows)
                 off += p.rows
-            segments.append(SlabSegment(kind=kind, emb=emb, ids=ids,
-                                        clusters=list(cids)))
+            segments.append(SlabSegment(kind=kind, emb=emb, scales=scales,
+                                        ids=ids, clusters=list(cids),
+                                        codebook=cb))
         return cls(dim=dim, segments=segments, extent=extent)
 
     def query_layout(self, probed_per_q: Sequence[Sequence[int]]):
@@ -454,8 +490,7 @@ class ClusterResolver:
                 lat = lats[plan.owner[cid]]
                 lat.l2_storage_load_s += ix.cost.storage_load_latency(nbytes)
                 lat.n_storage_loads += 1
-                resolved[cid] = (SlabPayload.from_raw(payload) if raw
-                                 else ix.storage.decode(payload))
+                resolved[cid] = self._resolve_payload(payload, lat, raw)
         for cid, embs in plan.cached.items():
             # generation guard (same-size mutations included) + row-count
             # defense: a cluster mutated since plan time would misalign the
@@ -565,6 +600,19 @@ class ClusterResolver:
                 resolved[cid] = SlabPayload("fp32", sub) if raw else sub
         return resolved
 
+    def _resolve_payload(self, payload: Dict[str, np.ndarray],
+                         lat: LatencyBreakdown, raw: bool):
+        """A loaded storage payload as the caller wants it: undecoded
+        (``raw``, for the slab) or decoded to f32, with the decode charged
+        as compute (``l2_dequant_s``) for a quantized codec."""
+        storage = self.index.storage
+        if raw:
+            return SlabPayload.from_raw(payload, codebook=storage.pq)
+        embs = storage.decode(payload)
+        if storage.codec != "fp32":
+            lat.l2_dequant_s += self.index.cost.dequant_latency(embs.size)
+        return embs
+
     @staticmethod
     def _charge_io(lat: LatencyBreakdown,
                    outcome: Optional[IOOutcome]) -> None:
@@ -600,8 +648,7 @@ class ClusterResolver:
                 lat.l2_storage_load_s += ix.cost.storage_load_latency(nbytes)
                 lat.n_storage_loads += 1
                 lat.stale_served += 1
-                resolved[cid] = (SlabPayload.from_raw(payload) if raw
-                                 else ix.storage.decode(payload))
+                resolved[cid] = self._resolve_payload(payload, lat, raw)
                 return
         lat.degraded_clusters += 1
         empty = np.zeros((0, ix.dim), np.float32)
@@ -630,8 +677,11 @@ class ClusterResolver:
         cluster lands exactly once in the segment of its storage
         representation; the per-cluster payloads become views into the
         slab (:meth:`SlabLayout.view`).  Each cluster's owner is charged
-        the pack copy (``l2_slab_pack_s``) once per slab, not once per
-        probing query.
+        the pack copy (``l2_slab_pack_s``) and, for fp16 / int8 payloads,
+        the in-kernel decode (``l2_fused_dequant_s``) once per slab, not
+        once per probing query.  PQ payloads are charged the in-kernel code
+        gather (``l2_pq_gather_s``, rows × m lookups) instead: no decode
+        ever happens.
         """
         ix = self.index
         slab = SlabLayout.pack(ix.dim, list(plan.owner), payloads,
@@ -640,8 +690,13 @@ class ClusterResolver:
             p = payloads[cid]
             if p.rows == 0:
                 continue
-            lats[owner_qi].l2_slab_pack_s += ix.cost.slab_pack_latency(
-                p.nbytes)
+            lat = lats[owner_qi]
+            lat.l2_slab_pack_s += ix.cost.slab_pack_latency(p.nbytes)
+            if p.kind == "pq":
+                lat.l2_pq_gather_s += ix.cost.pq_gather_latency(p.emb.size)
+            elif p.kind != "fp32":
+                lat.l2_fused_dequant_s += ix.cost.fused_dequant_latency(
+                    p.emb.size)
         return slab
 
     def execute_slab(self, plan: ResolutionPlan,

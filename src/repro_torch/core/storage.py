@@ -1,22 +1,47 @@
-"""Second-level embedding storage backend (fp32 codec).
+"""Second-level embedding storage backend with quantized codecs.
 
-Port of ``repro.core.storage`` for the first slice: the ``memory`` and
-``disk`` modes with the bit-exact ``fp32`` codec.  The ``fp16``, ``int8``
-and ``pq`` codecs and the ``memmap`` mode come with the storage-codec slice
-of the port and raise :class:`NotImplementedError` until then; per-tenant
-keys come with the tenancy slice.
+Port of ``repro.core.storage`` (per-tenant keys and ``TenantStorageView``
+come with the tenancy slice).  Models the paper's split between DRAM
+(first-level centroids, cache) and SD-card storage (precomputed
+heavy-cluster embeddings).  The ``disk`` mode writes .npz files so
+persistence is real; the ``memory`` mode keeps payloads in a dict.  Either
+way the *edge* latency of a load comes from the cost model, not this
+machine's disk.  Both packages write the same files, so a root written by
+one reads back in the other.
 
-Models the paper's split between DRAM (first-level centroids, cache) and
-SD-card storage (precomputed heavy-cluster embeddings).  The ``disk`` mode
-writes .npz files so persistence is real; the ``memory`` mode keeps payloads
-in a dict.  Either way the *edge* latency of a load comes from the cost
-model, not this machine's disk.
+Codecs — the stored payload can be narrowed below fp32:
 
-``get``/``get_many`` return contiguous f32 matrices; ``get_many_raw``
-returns each payload dict as stored (``{"emb": f32}``, read-only), with a
-missing key yielding ``None``.  ``stored_bytes``/``total_bytes`` report the
-payload size in memory mode and the ``os.stat`` size on disk, and never read
-payload data.
+  fp32   bit-exact roundtrip (default)
+  fp16   half-precision embeddings                       (2x fewer bytes)
+  int8   per-row symmetric int8 + fp16 scales
+         (``models/quantization.py``)                    (~3.9x fewer bytes)
+  pq     product quantization (core/pq.py): one uint8 code per subspace
+         against a backend-held codebook                 (8-32x fewer bytes)
+
+PQ CODEC: payloads are ``{"codes": uint8 (n, m), "cbv": version}``; the
+codebook lives on the backend (``self.pq``), trained once at index build
+(``train_pq``, Lloyd steps on ``device``) and persisted next to on-disk
+roots as ``pq_codebook.npz`` so a reopened root still decodes.  ``cbv`` pins
+each blob to the codebook version that encoded it; after a retrain (version
+bump) a stale blob fails its read like a corrupt one
+(:class:`StaleCodebookError`) and is quarantine-dropped WITHOUT retries
+(the mismatch is deterministic), so the resolver regenerates and self-heals
+a fresh copy under the new codebook.  A ``put`` with no codebook yet trains
+one on that put's rows; the index trains on the full corpus before its
+first put.
+
+MODES: ``memory`` (dict), ``disk`` (.npz files), and ``memmap`` — the disk
+layout and atomic writes, but reads return read-only ``np.memmap`` views
+into the uncompressed npz members instead of loading arrays, so payloads
+are never resident: ``get_many_raw`` hands the slab packer memmap-backed
+payloads.  Checksum verification still touches every byte.
+
+``get``/``get_many`` return contiguous f32 matrices (decode on load);
+``get_many_raw`` returns each payload dict as stored (``{"emb": f32|f16}``,
+``{"q": int8, "scale": f16}`` or ``{"codes": uint8, "cbv": int32}``,
+read-only), with a missing key yielding ``None``.  ``stored_bytes`` /
+``total_bytes`` report the payload size in memory mode and the ``os.stat``
+size in disk/memmap modes, and never read payload data.
 
 FAILURE MODEL (core/faults.py): every ``put`` stores a CRC-32 checksum
 beside the payload (a ``"crc"`` member, stripped before any payload reaches
@@ -27,17 +52,19 @@ backoff (modeled edge seconds, no sleep), recorded in the caller's
 retries degrades to a missing key, and a checksum failure that survives
 every retry quarantine-drops the blob so the resolver regenerates and
 re-persists it.  ``self.faults`` takes a
-:class:`~repro_torch.core.faults.FaultInjector`.  Disk ``put`` writes a temp
-file and ``os.replace``s it, so a crash never tears a blob.  The first disk
-``put`` claims its ``(root, namespace)`` slot; a second live writer on the
-same slot raises instead of interleaving blobs.
+:class:`~repro_torch.core.faults.FaultInjector`.  On-disk ``put`` writes a
+temp file and ``os.replace``s it, so a crash never tears a blob.  The first
+on-disk write claims its ``(root, namespace)`` slot; a second live writer on
+the same slot raises instead of interleaving blobs.
 """
 from __future__ import annotations
 
 import os
 import re
+import struct
 import tempfile
 import weakref
+import zipfile
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -45,12 +72,19 @@ import numpy as np
 
 from repro_torch.core.faults import (CorruptPayloadError, FaultInjector,
                                      InjectedFault, IOOutcome)
+from repro_torch.core.pq import (PQCodebook, codebook_from_payload,
+                                 codebook_to_payload, pq_decode, pq_encode,
+                                 train_pq)
+from repro_torch.device import DeviceLike
+from repro_torch.models.quantization import dequantize_rows, quantize_rows
 
-CODECS = ("fp32",)
-MODES = ("memory", "disk")
-_LATER = {"fp16": "codec", "int8": "codec", "pq": "codec", "memmap": "mode"}
+CODECS = ("fp32", "fp16", "int8", "pq")
+MODES = ("memory", "disk", "memmap")
+_CODEBOOK_FILE = "pq_codebook.npz"
 _CLUSTER_FILE = re.compile(r"^cluster_(\d+)\.npz$")
-_STALE_TMP = re.compile(r"^cluster_\d+\.npz\.tmp$")
+# tmp files our writers leave behind when a put/train dies mid-write — the
+# only .tmp names clear() sweeps (foreign files stay)
+_STALE_TMP = re.compile(r"^(cluster_\d+\.npz|pq_codebook\.npz)\.tmp$")
 _NAMESPACE_RE = re.compile(r"^[A-Za-z0-9._-]*$")
 _CHECKSUM_KEY = "crc"
 
@@ -66,6 +100,13 @@ def payload_checksum(payload: Dict[str, np.ndarray]) -> int:
     return crc
 
 
+class StaleCodebookError(CorruptPayloadError):
+    """PQ payload encoded under an older codebook version.  Deterministic —
+    retrying the read cannot help — so reads skip the backoff ladder and
+    quarantine-drop at once, putting the cluster on the regen + re-encode
+    self-heal path."""
+
+
 class StorageBackend:
     """Keyed blob store for per-cluster embedding matrices."""
 
@@ -76,12 +117,8 @@ class StorageBackend:
     def __init__(self, mode: str = "memory", root: Optional[str] = None,
                  codec: str = "fp32", *, retry_limit: int = 3,
                  backoff_base_s: float = 0.002, namespace: str = "",
-                 budget_bytes: Optional[int] = None):
-        for value in (mode, codec):
-            if value in _LATER:
-                raise NotImplementedError(
-                    f"storage {_LATER[value]} {value!r} comes with the "
-                    f"storage-codec slice of the port")
+                 budget_bytes: Optional[int] = None, pq_m: int = 8,
+                 device: DeviceLike = None):
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode}")
         if codec not in CODECS:
@@ -93,15 +130,23 @@ class StorageBackend:
         self.codec = codec
         self.namespace = namespace
         self.budget_bytes = budget_bytes
+        self.pq_m = pq_m
+        self.pq: Optional[PQCodebook] = None
+        self.device = device            # where train_pq runs its Lloyd steps
         self._mem: Dict[int, Dict[str, np.ndarray]] = {}
         self._nbytes: Dict[int, int] = {}           # stored payload bytes
         self.root: Optional[str] = None
         self._base: Optional[str] = None            # root[/namespace]
-        if mode == "disk":
+        if mode != "memory":
             self.root = root or tempfile.mkdtemp(prefix="edgerag_store_")
             self._base = (os.path.join(self.root, namespace) if namespace
                           else self.root)
             os.makedirs(self._base, exist_ok=True)
+            cb_path = os.path.join(self._base, _CODEBOOK_FILE)
+            if os.path.exists(cb_path):      # reopened root: restore codebook
+                with np.load(cb_path) as z:
+                    self.pq = codebook_from_payload(
+                        {name: z[name] for name in z.files})
         self.faults: Optional[FaultInjector] = None
         self.retry_limit = retry_limit
         self.backoff_base_s = backoff_base_s
@@ -111,21 +156,64 @@ class StorageBackend:
             "stall_s": 0.0, "put_rejected": 0}
 
     # ---- codec ----------------------------------------------------------
-    @staticmethod
-    def _encode(emb: np.ndarray) -> Dict[str, np.ndarray]:
-        return {"emb": np.ascontiguousarray(emb, np.float32)}
+    def _encode(self, emb: np.ndarray) -> Dict[str, np.ndarray]:
+        emb = np.ascontiguousarray(emb, np.float32)
+        if self.codec == "fp32":
+            return {"emb": emb}
+        if self.codec == "fp16":
+            return {"emb": emb.astype(np.float16)}
+        if self.codec == "pq":
+            if self.pq is None:      # standalone-backend convenience: the
+                self.train_pq(emb)   # index trains on the corpus at build
+            return {"codes": pq_encode(self.pq, emb),
+                    "cbv": np.array([self.pq.version], np.int32)}
+        q, scale = quantize_rows(emb)
+        return {"q": q, "scale": scale}
 
-    @staticmethod
-    def decode(payload: Dict[str, np.ndarray]) -> np.ndarray:
+    def decode(self, payload: Dict[str, np.ndarray]) -> np.ndarray:
         """Decode a raw payload (from ``get_many_raw``) to f32 (n, d)."""
+        if "q" in payload:
+            return dequantize_rows(payload["q"], payload["scale"])
+        if "codes" in payload:
+            if self.pq is None:
+                raise CorruptPayloadError(
+                    "pq payload but no codebook on this backend")
+            return pq_decode(self.pq, payload["codes"])
         return np.ascontiguousarray(payload["emb"], np.float32)
 
     @staticmethod
     def payload_rows(payload: Dict[str, np.ndarray]) -> int:
         """Row count of a raw payload without decoding it."""
-        return len(payload["emb"])
+        for name in ("q", "codes", "emb"):
+            if name in payload:
+                return len(payload[name])
+        raise KeyError("payload holds none of q / codes / emb")
 
-    # ---- filesystem (disk mode only) ------------------------------------
+    # ---- PQ codebook lifecycle ------------------------------------------
+    def train_pq(self, embeddings: np.ndarray, *, iters: int = 12,
+                 seed: int = 0) -> PQCodebook:
+        """(Re)train the product-quantization codebook on ``embeddings``.
+
+        First call -> version 0; later calls (drift retrains) bump the
+        version, which invalidates every blob encoded under the old one:
+        their next read raises :class:`StaleCodebookError`, quarantine-
+        drops, and the resolver self-heals a fresh copy."""
+        version = 0 if self.pq is None else self.pq.version + 1
+        return self.install_pq(train_pq(
+            embeddings, m=self.pq_m, iters=iters, seed=seed,
+            version=version, device=self.device))
+
+    def install_pq(self, cb: PQCodebook) -> PQCodebook:
+        """Adopt ``cb`` as this backend's codebook (a trained or carried-over
+        one); on-disk modes persist it next to the root so reopens decode."""
+        self.pq = cb
+        if self.mode != "memory":
+            self._claim_root()
+            self._atomic_savez(os.path.join(self._base, _CODEBOOK_FILE),
+                               codebook_to_payload(cb))
+        return cb
+
+    # ---- filesystem (disk and memmap modes) ------------------------------------
     def _path(self, key: int) -> str:
         if self.root is None:
             raise RuntimeError(
@@ -146,6 +234,19 @@ class StorageBackend:
                 f"namespace= (or root)")
         StorageBackend._disk_claims[slot] = weakref.ref(self)
 
+    @staticmethod
+    def _atomic_savez(path: str, arrays: Dict[str, np.ndarray]) -> None:
+        """Temp file + ``os.replace``: a crash never tears the file."""
+        tmp = path + ".tmp"
+        try:
+            with open(tmp, "wb") as f:
+                np.savez(f, **arrays)
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
+
     def _load(self, key: int) -> Optional[Dict[str, np.ndarray]]:
         """Raw physical read (checksum member included).  An unreadable
         disk blob raises :class:`CorruptPayloadError`."""
@@ -154,9 +255,53 @@ class StorageBackend:
         path = self._path(key)
         if not os.path.exists(path):
             return None
+        if self.mode == "memmap":
+            return self._load_memmap(path, key)
         try:
             with np.load(path) as z:
                 return {name: z[name] for name in z.files}
+        except Exception as e:
+            raise CorruptPayloadError(f"unreadable blob for key {key}: {e}")
+
+    @staticmethod
+    def _load_memmap(path: str, key: int) -> Dict[str, np.ndarray]:
+        """Open an npz as read-only ``np.memmap`` views, one per member.
+
+        ``np.savez`` stores members uncompressed (ZIP_STORED), so each
+        array's data is a contiguous byte range of the container file:
+        local-file-header offset + 30 + name/extra lengths + the .npy
+        header.  Mapping that range gives a zero-copy view; nothing is read
+        until a consumer touches pages."""
+        try:
+            out: Dict[str, np.ndarray] = {}
+            with zipfile.ZipFile(path) as z, open(path, "rb") as raw:
+                for info in z.infolist():
+                    name = info.filename
+                    if name.endswith(".npy"):
+                        name = name[:-4]
+                    with z.open(info) as f:
+                        version = np.lib.format.read_magic(f)
+                        read_header = getattr(
+                            np.lib.format,
+                            "read_array_header_%d_%d" % version)
+                        shape, fortran, dtype = read_header(f)
+                        header_len = f.tell()
+                    if info.compress_type != zipfile.ZIP_STORED or fortran:
+                        raise ValueError(
+                            f"member {name} is not memmap-able")
+                    # the central directory's header_offset points at the
+                    # local file header: 30 fixed bytes, then name + extra
+                    raw.seek(info.header_offset + 26)
+                    n_name, n_extra = struct.unpack("<HH", raw.read(4))
+                    offset = (info.header_offset + 30 + n_name + n_extra
+                              + header_len)
+                    if int(np.prod(shape, dtype=np.int64)) == 0:
+                        out[name] = np.empty(shape, dtype)
+                    else:
+                        out[name] = np.memmap(path, mode="r", dtype=dtype,
+                                              shape=tuple(shape),
+                                              offset=offset)
+            return out
         except Exception as e:
             raise CorruptPayloadError(f"unreadable blob for key {key}: {e}")
 
@@ -177,6 +322,10 @@ class StorageBackend:
         body = {k: v for k, v in payload.items() if k != _CHECKSUM_KEY}
         if payload_checksum(body) != int(np.asarray(crc).reshape(-1)[0]):
             raise CorruptPayloadError(key)
+        if "codes" in body and self.pq is not None:
+            cbv = int(np.asarray(body.get("cbv", -1)).reshape(-1)[0])
+            if cbv != self.pq.version:
+                raise StaleCodebookError(key)
         self.io_stats["verified"] += 1
         return body
 
@@ -195,6 +344,12 @@ class StorageBackend:
                 self.io_stats["backoff_s"] += backoff
             try:
                 payload = self._read_once(key, outcome)
+            except StaleCodebookError:
+                # deterministic mismatch: retries cannot help, fall through
+                # to the quarantine-drop below without burning backoff
+                last_err = "corrupt"
+                self.io_stats["failed_attempts"] += 1
+                break
             except CorruptPayloadError:
                 last_err = "corrupt"
             except InjectedFault as e:
@@ -223,7 +378,7 @@ class StorageBackend:
     # ---- public API ------------------------------------------------------
     def put(self, key: int, embeddings: np.ndarray) -> int:
         """Returns the stored byte size (payload bytes in memory mode, the
-        file size on disk), or 0 if ``budget_bytes`` refused the write
+        file size in disk/memmap modes), or 0 if ``budget_bytes`` refused the write
         (nothing stored; the caller keeps the cluster on the regen path)."""
         payload = self._encode(embeddings)
         nbytes = sum(a.nbytes for a in payload.values())
@@ -240,15 +395,7 @@ class StorageBackend:
         else:
             self._claim_root()
             path = self._path(key)
-            tmp = path + ".tmp"
-            try:
-                with open(tmp, "wb") as f:
-                    np.savez(f, **stored)
-                os.replace(tmp, path)
-            except BaseException:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-                raise
+            self._atomic_savez(path, stored)
             nbytes = os.stat(path).st_size
         self._nbytes[key] = nbytes
         return nbytes
@@ -291,12 +438,17 @@ class StorageBackend:
                 os.remove(p)
 
     def clear(self):
-        """Drop every stored cluster (index rebuilds), plus on disk any
-        stale ``.tmp`` file a crashed put left behind."""
+        """Drop every stored cluster (index rebuilds), plus on disk roots
+        the persisted PQ codebook file and any stale ``.tmp`` file a crashed
+        put left behind.  The in-memory codebook is kept: a rebuild's
+        ``train_pq`` bumps its version, so stale blobs stay detectable."""
         for key in self.keys():
             self.delete(key)
         self._nbytes.clear()
-        if self.mode == "disk":
+        if self.mode != "memory":
+            cb_path = os.path.join(self._base, _CODEBOOK_FILE)
+            if os.path.exists(cb_path):
+                os.remove(cb_path)
             for f in os.listdir(self._base):
                 if _STALE_TMP.match(f):
                     os.remove(os.path.join(self._base, f))

@@ -16,7 +16,8 @@
 // top-k across sequential grid steps has no counterpart here (blocks run in
 // parallel, in no order), so each block selects its chunk's top k and a
 // second pass merges them under the same total order: topk::launch<false>
-// in topk_common.cuh, where every row competes and the tie key is the row.
+// in topk_common.cuh with the fp32 Dense scorer, where every row competes
+// and the tie key is the row.
 #include "topk_common.cuh"
 
 extern "C" int ivf_topk_chunk_rows() { return topk::kChunk; }
@@ -26,6 +27,7 @@ extern "C" int ivf_topk_chunk_rows() { return topk::kChunk; }
 extern "C" int ivf_topk(const float* emb, const float* q, int n, int d, int nq,
                         int k, float* part_v, int* part_t, int* part_i,
                         float* out_v, int* out_i, cudaStream_t stream) {
-  return topk::launch<false>(emb, q, nullptr, n, d, nq, k, part_v, part_t,
-                             part_i, out_v, out_i, stream);
+  return topk::launch<false>(topk::Dense<float, false>{emb, nullptr, d}, q, d,
+                             nullptr, n, nq, k, part_v, part_t, part_i, out_v,
+                             out_i, stream);
 }

@@ -25,7 +25,10 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax_or_repro():
     mods = list(_modules())
-    assert "repro_torch.kernels.slab_topk.ops" in mods
+    for name in ("repro_torch.kernels.slab_topk.ops", "repro_torch.core.pq",
+                 "repro_torch.core.storage",
+                 "repro_torch.models.quantization"):
+        assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

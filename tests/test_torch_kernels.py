@@ -1,12 +1,16 @@
 """Port kernels against the JAX package: the plain PyTorch versions of
-``ivf_topk`` and fp32 ``slab_topk`` against ``repro.kernels.*.ref`` and the
-Pallas kernels in interpret mode, the padding contracts, integer-valued tie
-inputs (bitwise), and batch == sequential inside the port (bitwise).  The
-CUDA kernels against the plain versions run only on the card (``gpu``).
+``ivf_topk`` and ``slab_topk`` (fp32, fp16, int8 and pq modes) against
+``repro.kernels.*.ref`` and the Pallas kernels in interpret mode, the
+padding contracts, integer-valued tie inputs (bitwise), and batch ==
+sequential inside the port (bitwise).  The CUDA kernels against the plain
+versions run only on the card (``gpu``).
 
 Tolerance: two fp32 sums of the same D products in different orders differ
 by at most 2 * D * 2**-24 * sum(|q_i e_i|) (each is within gamma_D of the
-exact sum); :func:`_tol` takes the largest such bound over the batch.
+exact sum); :func:`_tol` takes the largest such bound over the batch.  For
+int8 slabs the products are those of the widened int8 values, and the
+bound is multiplied by the largest scale.  PQ scores are gathers and adds
+in one fixed order on both sides, so they are compared bitwise.
 """
 import numpy as np
 import pytest
@@ -23,6 +27,7 @@ from repro.kernels.slab_topk.ref import slab_topk_ref as jax_slab_ref  # noqa: E
 from repro_torch.kernels.ivf_topk import topk_ip  # noqa: E402
 from repro_torch.kernels.slab_topk import NOT_PROBED, ROW_PAD, slab_topk  # noqa: E402
 from repro_torch.kernels.slab_topk.ref import lex_topk  # noqa: E402
+from repro_torch.kernels.slab_topk.ref import slab_topk_ref  # noqa: E402
 
 
 def _tol(e: np.ndarray, q: np.ndarray) -> float:
@@ -219,9 +224,16 @@ def test_slab_topk_empty_slab_and_k_over_n():
 
 
 def test_slab_topk_rejects_quantized_slabs():
-    with pytest.raises(NotImplementedError):
-        slab_topk(torch.zeros((4, 8), dtype=torch.float16), torch.zeros(
-            (1, 8)), torch.zeros((1, 4), dtype=torch.int32), 2)
+    """A quantized slab without its operand, or with one that does not
+    belong to its dtype, raises instead of being scored."""
+    q, virt = torch.zeros((1, 8)), torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="scales"):
+        slab_topk(torch.zeros((4, 8), dtype=torch.int8), q, virt, 2)
+    with pytest.raises(ValueError, match="scales"):
+        slab_topk(torch.zeros((4, 8), dtype=torch.float16), q, virt, 2,
+                  scales=torch.ones((4, 1)))
+    with pytest.raises(ValueError, match="luts"):
+        slab_topk(torch.zeros((4, 8), dtype=torch.uint8), q, virt, 2)
 
 
 def test_slab_topk_batch_equals_sequential_bitwise():
@@ -276,3 +288,208 @@ def test_cuda_slab_topk_matches_plain(cuda, integer):
     else:
         np.testing.assert_allclose(kv.cpu().numpy(), pv.numpy(), rtol=0,
                                    atol=_tol(emb, q))
+
+
+# ---------------------------------------------------------------------------
+# slab_topk: fp16, int8 (scaled) and pq modes
+# ---------------------------------------------------------------------------
+def _quantized_case(mode, seed, integer=False, pq_m=8, **kw):
+    """(slab, queries, virt, extra) of one mode: the fp32 case of
+    :func:`_slab_case` narrowed to fp16, or row-quantized to int8 with f32
+    scales (powers of two when ``integer``), or turned into uint8 codes
+    with (Q, m, 256) tables (small integers when ``integer``)."""
+    emb, q, virt = _slab_case(seed, integer=integer, **kw)
+    rng = np.random.default_rng(seed + 100)
+    if mode == "fp16":
+        return emb.astype(np.float16), q, virt, {}
+    if mode == "int8":
+        if integer:
+            scales = 2.0 ** rng.integers(-4, 5, (len(emb), 1))
+            return emb.astype(np.int8), q, virt, {
+                "scales": scales.astype(np.float32)}
+        amax = np.abs(emb).max(1, keepdims=True)
+        scales = (amax / 127.0).astype(np.float32)
+        return (np.round(emb / scales).astype(np.int8), q, virt,
+                {"scales": scales})
+    m = pq_m
+    codes = rng.integers(0, 256, (len(emb), m)).astype(np.uint8)
+    luts = (rng.integers(-8, 9, (len(q), m, 256)) if integer
+            else rng.standard_normal((len(q), m, 256))).astype(np.float32)
+    return codes, q, virt, {"luts": luts}
+
+
+def _scores64(mode, emb, q, extra):
+    """Exact (float64) scores of every (query, row) pair."""
+    if mode == "pq":
+        luts = extra["luts"].astype(np.float64)
+        m = emb.shape[1]
+        return sum(luts[:, j, emb[:, j]] for j in range(m))
+    s = q.astype(np.float64) @ emb.astype(np.float64).T
+    return s * extra["scales"][:, 0][None, :] if mode == "int8" else s
+
+
+def _mode_tol(mode, emb, q, extra):
+    if mode == "pq":
+        return 0.0
+    tol = _tol(emb.astype(np.float32), q)
+    return tol * float(np.abs(extra["scales"]).max()) if mode == "int8" \
+        else tol
+
+
+def _port(emb, q, virt, k, extra, dev="cpu"):
+    kw = {n: torch.from_numpy(a).to(dev) for n, a in extra.items()}
+    vals, rows = slab_topk(*(torch.from_numpy(a).to(dev)
+                             for a in (emb, q, virt)), k, **kw)
+    return vals.cpu().numpy(), rows.cpu().numpy()
+
+
+def _jax(fn, emb, q, virt, k, extra, **kw):
+    jx = {n: jnp.asarray(a) for n, a in extra.items()}
+    rv, rr = fn(jnp.asarray(emb), jnp.asarray(q), jnp.asarray(virt), k,
+                jx.get("scales"), jx.get("luts"), **kw)
+    return np.asarray(rv), np.asarray(rr)
+
+
+QUANT_MODES = ["fp16", "int8", "pq"]
+
+
+@pytest.mark.parametrize("mode", QUANT_MODES)
+@pytest.mark.parametrize("seed,k", [(0, 10), (1, 25)])
+def test_slab_topk_quantized_plain_matches_jax_ref_and_pallas(mode, seed, k):
+    emb, q, virt, extra = _quantized_case(mode, seed)
+    vals, rows = _port(emb, q, virt, k, extra)
+    valid = _valid_lanes(virt, k)
+    tol = _mode_tol(mode, emb, q, extra)
+    full = np.where(virt < NOT_PROBED, _scores64(mode, emb, q, extra), -1e30)
+    for rv, rr in (_jax(jax_slab_ref, emb, q, virt, k, extra),
+                   _jax(slab_topk_pallas, emb, q, virt, k, extra,
+                        block_n=128, interpret=True)):
+        if mode == "pq":        # same gathers and adds, in the same order
+            assert np.array_equal(vals[valid], rv[valid])
+            assert np.array_equal(rows[valid], rr[valid])
+            continue
+        np.testing.assert_allclose(vals[valid], rv[valid], rtol=0, atol=tol)
+        _assert_topk_close(np.where(valid, vals, -1e30),
+                           np.where(valid, rows, -1),
+                           np.where(valid, rv, -1e30),
+                           np.where(valid, rr, -1), full, tol)
+
+
+@pytest.mark.parametrize("mode", QUANT_MODES)
+def test_slab_topk_quantized_integer_inputs_bitwise(mode):
+    """Small integers in fp16, int8 with power-of-two scales, pq tables of
+    small integers: every score is exact in any order, so the port equals
+    the JAX reference and the Pallas kernel bit for bit, ties included."""
+    emb, q, virt, extra = _quantized_case(mode, 5, integer=True)
+    k = 30
+    vals, rows = _port(emb, q, virt, k, extra)
+    valid = _valid_lanes(virt, k)
+    for rv, rr in (_jax(jax_slab_ref, emb, q, virt, k, extra),
+                   _jax(slab_topk_pallas, emb, q, virt, k, extra,
+                        block_n=64, interpret=True)):
+        assert np.array_equal(vals[valid], rv[valid])
+        assert np.array_equal(rows[valid], rr[valid])
+
+
+@pytest.mark.parametrize("mode", QUANT_MODES)
+def test_slab_topk_quantized_batch_equals_sequential_bitwise(mode):
+    emb, q, virt, extra = _quantized_case(mode, 7, n_clusters=20, nq=8,
+                                          nprobe=6)
+    vals, rows = _port(emb, q, virt, 10, extra)
+    for qi in range(q.shape[0]):
+        one = {n: (a[qi:qi + 1] if n == "luts" else a)
+               for n, a in extra.items()}
+        v1, r1 = _port(emb, q[qi:qi + 1], virt[qi:qi + 1], 10, one)
+        assert np.array_equal(v1[0], vals[qi]) and np.array_equal(r1[0],
+                                                                  rows[qi])
+
+
+@pytest.mark.parametrize("mode", QUANT_MODES)
+def test_slab_topk_quantized_empty_k_over_n_and_all_ties(mode):
+    emb, q, virt, extra = _quantized_case(mode, 6, n_clusters=2, nq=3,
+                                          nprobe=1)
+    n = emb.shape[0]
+    vals, rows = _port(emb[:0], q, virt[:, :0], 4,
+                       {n_: (a[:0] if n_ == "scales" else a)
+                        for n_, a in extra.items()})
+    assert np.isinf(vals).all() and (rows == ROW_PAD).all()
+    vals, rows = _port(emb, q, virt, n + 3, extra)
+    assert (rows[:, n:] == ROW_PAD).all() and np.isinf(vals[:, n:]).all()
+    # every member scores the same: the order is virt ascending
+    tie = np.full((40, emb.shape[1]), 0 if mode == "pq" else 1, emb.dtype)
+    if mode == "pq":
+        extra = {"luts": np.ones((3, emb.shape[1], 256), np.float32)}
+    elif mode == "int8":
+        extra = {"scales": np.full((40, 1), 0.5, np.float32)}
+    virt = _virt([10, 10, 10, 10], [[2, 0], [3, 1, 0], [1]])
+    q = np.ones((3, q.shape[1]), np.float32)
+    vals, rows = _port(tie, q, virt, 12, extra)
+    rv, rr = slab_topk_ref(*(torch.from_numpy(a) for a in (tie, q, virt)),
+                           12, **{n_: torch.from_numpy(a)
+                                  for n_, a in extra.items()})
+    valid = _valid_lanes(virt, 12)
+    assert np.array_equal(rows[valid], rr.numpy()[valid])
+    assert rows[0, :10].tolist() == list(range(20, 30))
+
+
+@pytest.mark.parametrize("bad", ["scales_shape", "scales_dtype", "luts_shape",
+                                 "luts_queries", "slab_dtype",
+                                 "queries_dtype"])
+def test_slab_topk_rejects_malformed_operands(bad):
+    emb, q, virt, extra = _quantized_case("int8", 0)
+    codes, _, _, pq = _quantized_case("pq", 0)
+    t = torch.from_numpy
+    args = dict(emb=t(emb), queries=t(q), virt=t(virt),
+                scales=t(extra["scales"]))
+    if bad == "scales_shape":
+        args["scales"] = args["scales"][:-1]
+    elif bad == "scales_dtype":
+        args["scales"] = args["scales"].half()
+    elif bad in ("luts_shape", "luts_queries"):
+        luts = t(pq["luts"])
+        args.update(emb=t(codes), scales=None,
+                    luts=luts[:, :-1] if bad == "luts_shape" else luts[:-1])
+    elif bad == "slab_dtype":
+        args.update(emb=t(emb).double(), scales=None)
+    else:
+        args["queries"] = t(q).half()
+    with pytest.raises((TypeError, ValueError)):
+        slab_topk(args.pop("emb"), args.pop("queries"), args.pop("virt"), 5,
+                  **args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [47, 96, 224])
+def test_cuda_slab_topk_pq_wide_tables(cuda, m):
+    """Tables past the default 48 KB of shared memory (m > 46) launch, up to
+    the H100's per-block maximum, bitwise equal to the plain version; wider
+    ones raise, and the launch after a refusal still runs."""
+    emb, q, virt, extra = _quantized_case("pq", 13, pq_m=m, n_clusters=40,
+                                          d=64, nq=8, nprobe=6)
+    pv, pr = _port(emb, q, virt, 10, extra)
+    kv, kr = _port(emb, q, virt, 10, extra, dev=cuda)
+    assert np.array_equal(kv, pv) and np.array_equal(kr, pr)
+    wide = _quantized_case("pq", 13, pq_m=300, n_clusters=40, d=64, nq=8,
+                           nprobe=6)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        _port(*wide[:3], 10, wide[3], dev=cuda)
+    kv, kr = _port(emb, q, virt, 10, extra, dev=cuda)
+    assert np.array_equal(kv, pv) and np.array_equal(kr, pr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", QUANT_MODES)
+@pytest.mark.parametrize("integer", [False, True])
+def test_cuda_slab_topk_quantized_matches_plain(cuda, mode, integer):
+    emb, q, virt, extra = _quantized_case(mode, 12, integer=integer,
+                                          n_clusters=60, d=768, nq=16,
+                                          nprobe=8)
+    before = slab_topk.launches_by_mode[mode]
+    kv, kr = _port(emb, q, virt, 10, extra, dev=cuda)
+    assert slab_topk.launches_by_mode[mode] == before + 1
+    pv, pr = _port(emb, q, virt, 10, extra)
+    if integer or mode == "pq":
+        assert np.array_equal(kv, pv) and np.array_equal(kr, pr)
+    else:
+        np.testing.assert_allclose(kv, pv, rtol=0,
+                                   atol=_mode_tol(mode, emb, q, extra))
