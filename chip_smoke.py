@@ -18,6 +18,25 @@ Phases, one JSON line each:
                    kernels' launch counts are zeroed just before and read
                    just after.  The retrieved ids are held against the
                    port's own CPU run on the same data and tier decisions.
+                   Every attention layer of every prefill runs the prefill
+                   attention kernel (``flash_attention``, causal) and of
+                   every decode step the decode kernel (``decode_attention``);
+                   their launches must be exactly layers x requests and
+                   layers x new tokens x requests.
+  generator_parity the full-width generator cut to 2 layers (head dim 80, 32
+                   heads, vocab 32000), one set of weights drawn on the CPU
+                   from the seed and copied to the card: prefill of 128
+                   tokens and 16 decode steps on the card (the kernels) and
+                   on the CPU (plain), the same tokens fed to both; the
+                   logits of every step agree within ``GEN_TOL`` and the
+                   greedy tokens are equal wherever the top-2 margin exceeds
+                   2 x ``GEN_TOL``.  Then one decode step of 4 slots at
+                   different (B,) lengths, on both.
+  encode           gte-base-en-v1.5 at full width (12 layers, d_model 768,
+                   12 heads of 64; random weights from the seed): ``encode``
+                   of 256 chunk texts of the corpus at 128 tokens on the card
+                   (12 non-causal ``flash_attention`` launches), unit norm,
+                   the first 8 rows within ``ENC_TOL`` of the CPU's.
   codec_paths      the same corpus, clustering, queries and generator under
                    each quantized storage codec: ``EdgeRAGIndex(
                    storage_codec="fp16" | "int8" | "pq")`` (pq in the memmap
@@ -37,7 +56,16 @@ Phases, one JSON line each:
                    scores within the stated tolerance and ids equal away from
                    near-ties (pq: bitwise); bitwise on integer-valued inputs;
                    a batch bitwise equal to its queries run one at a time;
-                   plus the empty-slab, k > N and all-tie contracts.
+                   plus the empty-slab, k > N and all-tie contracts.  The
+                   attention kernels against their plain versions at the
+                   recorded prefill, encode and decode inputs and at extra
+                   shapes (GQA, windows, ragged and unequal lengths, D = 128,
+                   bf16, mixed per-slot lengths, a length >= Smax), within
+                   :func:`attn_tol` (bf16: + one ulp), which K and V
+                   rounded to bf16 must miss at the recorded inputs;
+                   batch == sequential, bitwise; and each
+                   refusal (a head dim not built, a length of 0, a logit
+                   softcap) raises, with the next launch running.
   breakdown        one more retrieval batch, and one request's generation,
                    under ``torch.profiler``: device time (kernels and copies)
                    against host wall time.
@@ -73,6 +101,16 @@ GENERATOR, MAX_PROMPT, NEW_TOKENS = "sheared-llama-2.7b", 128, 16
 CODECS, CODEC_NEW_TOKENS = ("fp16", "int8", "pq"), 2
 NEAR_TIE = 1e-4           # |score gap| under which two ids may swap places
 SEED = 0
+PARITY_LAYERS, SLOT_LENS = 2, (128, 100, 77, 140)
+ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
+# Logits (|x| < ~10) of one 2-layer model on the card and the CPU: fp32
+# matmuls of up to 6,912 terms summed in other orders, a few ulps apart per
+# op, drift by ~1e-5; 1e-4 leaves an order of magnitude over that, and is
+# well under what a lower-precision attention kernel would move them.
+GEN_TOL = 1e-4
+# Unit-norm embeddings (elements ~0.036) after 12 fp32 layers: relative
+# drift ~1e-6 of the elements, so 1e-5 leaves an order of magnitude.
+ENC_TOL = 1e-5
 
 
 def emit(obj) -> None:
@@ -137,7 +175,7 @@ def profiled(fn) -> dict:
              or getattr(ev, "self_cuda_time_total", 0)) / 1e3
         if t > 0 and str(ev.device_type).endswith("CUDA"):
             dev[ev.key] = (ev.count, t)
-    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:6]
+    top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]
     return {"wall_ms": wall_ms,
             "device_ms": sum(t for _, t in dev.values()) if dev
             else "not measured",
@@ -439,6 +477,368 @@ def quantized_row(mode, e, q, v, k, kw, launches, checked) -> dict:
             "library_ms": cuda_ms(library, 200)}
 
 
+def attn_tol(d: int) -> float:
+    """Bound on |kernel - plain| for an f32 attention output at head dim
+    ``d``: the JAX package's own bound for its attention kernels against
+    their references (2e-5 at D = 64, ``tests/test_kernels.py``), scaled by
+    D / 64 for wider heads (a score's rounding grows with its terms).  The
+    kernels measure 2e-7 to 2e-6 at every shape checked here.  A kernel
+    that staged K and V in bf16 would err by about 2**-9 |out|; the
+    ``bf16_kv_control`` entries show that such an error exceeds this
+    bound at the main path's prefill, encode and decode inputs."""
+    return 2e-5 * max(1.0, d / 64)
+
+
+def attn_err(got, ref) -> tuple:
+    """(max |got - ref|, the largest |got - ref| / allowance over the
+    elements; the check holds when it is <= 1).  The allowance is
+    :func:`attn_tol` for f32 outputs; bf16 outputs, rounded once from f32 on
+    each side, may also land one bf16 ulp of the plain element apart."""
+    import torch
+    diff = (got.float() - ref.float()).abs()
+    allow = torch.full_like(diff, attn_tol(got.shape[-1]))
+    if got.dtype == torch.bfloat16:
+        r = ref.float()
+        _, e = torch.frexp(r)
+        allow = allow + torch.where(r == 0, 0.0, torch.ldexp(
+            torch.ones_like(r), e - 8))
+    return float(diff.max()), float((diff / allow).max())
+
+
+def flash_plain(q, k, v, causal=True, window=0):
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window).transpose(1, 2)
+
+
+def decode_plain(q, k, v, lengths, window=0):
+    from repro_torch.kernels.decode_attention import decode_attention_ref
+    return decode_attention_ref(q[:, 0], k, v, lengths, window=window)[:, None]
+
+
+def generator_parity(dev) -> dict:
+    """The 2-layer full-width generator on the card and on the CPU (module
+    docstring, ``generator_parity``)."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill)
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(get_config(GENERATOR), num_layers=PARITY_LAYERS)
+    m_cpu = init_params(cfg, seed=SEED, device="cpu")
+    m_card = copy.deepcopy(m_cpu).to(dev)
+    smax = MAX_PROMPT + NEW_TOKENS
+    toks = torch.randint(0, cfg.vocab_size, (1, MAX_PROMPT),
+                         generator=torch.Generator().manual_seed(3))
+    c_cpu = init_cache(cfg, 1, smax, device=cpu)
+    c_card = init_cache(cfg, 1, smax, device=dev)
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    l_cpu, _ = prefill(m_cpu, {"tokens": toks}, c_cpu)
+    l_card, _ = prefill(m_card, {"tokens": toks.to(dev)}, c_card)
+    errs, tokens_checked, near_ties = [], 0, 0
+    for step in range(NEW_TOKENS + 1):
+        lc, lk = l_cpu[0], l_card[0].cpu()
+        errs.append(float((lk - lc).abs().max()))
+        top2 = torch.topk(lc, 2).values
+        if float(top2[0] - top2[1]) > 2 * GEN_TOL:
+            check(int(lk.argmax()) == int(lc.argmax()),
+                  f"generator parity: greedy token differs at step {step}")
+            tokens_checked += 1
+        else:
+            near_ties += 1
+        if step == NEW_TOKENS:
+            break
+        nxt = lc.argmax().reshape(1, 1)     # the same token into both
+        l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, MAX_PROMPT + step)
+        l_card, _ = decode_step(m_card, nxt.to(dev), c_card,
+                                MAX_PROMPT + step)
+    check(max(errs) <= GEN_TOL, f"generator parity: logits differ by "
+          f"{max(errs)} > {GEN_TOL}")
+    launches = {"flash_attention": flash_attention.launches - f0,
+                "decode_attention": decode_attention.launches - d0}
+    check(launches == {"flash_attention": PARITY_LAYERS,
+                       "decode_attention": PARITY_LAYERS * NEW_TOKENS},
+          f"generator parity: attention launches {launches}")
+
+    # one decode step of 4 slots at different lengths
+    b = len(SLOT_LENS)
+    toks4 = torch.randint(0, cfg.vocab_size, (b, MAX_PROMPT),
+                          generator=torch.Generator().manual_seed(4))
+    nxt4 = torch.randint(0, cfg.vocab_size, (b, 1),
+                         generator=torch.Generator().manual_seed(5))
+    lens = torch.tensor(SLOT_LENS)
+    c_cpu = init_cache(cfg, b, smax, device=cpu)
+    c_card = init_cache(cfg, b, smax, device=dev)
+    prefill(m_cpu, {"tokens": toks4}, c_cpu)
+    prefill(m_card, {"tokens": toks4.to(dev)}, c_card)
+    d0 = decode_attention.launches
+    l_cpu, _ = decode_step(m_cpu, nxt4, c_cpu, lens)
+    l_card, _ = decode_step(m_card, nxt4.to(dev), c_card, lens.to(dev))
+    check(decode_attention.launches - d0 == PARITY_LAYERS,
+          "per-slot decode did not launch decode_attention")
+    slot_err = float((l_card.cpu() - l_cpu).abs().max())
+    check(slot_err <= GEN_TOL, f"per-slot decode: logits differ by "
+          f"{slot_err} > {GEN_TOL}")
+    return {"phase": "generator_parity", "generator": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+            "vocab": cfg.vocab_size, "prompt": MAX_PROMPT,
+            "decode_steps": NEW_TOKENS, "tol": GEN_TOL,
+            "max_abs_err_per_step": errs, "tokens_checked": tokens_checked,
+            "near_ties": near_ties, "launches": launches,
+            "slot_lengths": list(SLOT_LENS), "slot_step_max_abs_err": slot_err,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def encode_phase(dev, texts) -> dict:
+    """gte-base at full width, ``encode`` on the card against the CPU
+    (module docstring, ``encode``)."""
+    import copy
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokenizer import HashingTokenizer
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import encode, init_params
+
+    t_phase = time.perf_counter()
+    cfg = get_config(ENCODER)
+    m_cpu = init_params(cfg, seed=SEED, device="cpu")
+    m_card = copy.deepcopy(m_cpu).to(dev)
+    ids, mask = HashingTokenizer(vocab_size=cfg.vocab_size).encode_batch(
+        texts, ENC_LEN)
+    ids, mask = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+    flash_attention.launches = 0
+    flash_attention.launches_by_mask = dict.fromkeys(
+        flash_attention.launches_by_mask, 0)
+    t0 = time.perf_counter()
+    emb = encode(m_card, {"tokens": ids.to(dev), "attn_mask": mask.to(dev)})
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(flash_attention.launches_by_mask)
+    check(launches == {"causal": 0, "non_causal": cfg.num_layers},
+          f"encode: flash_attention launches {launches}")
+    check(emb.shape == (len(texts), cfg.d_model)
+          and bool(torch.isfinite(emb).all()), "encode: bad embeddings")
+    norm_err = float((emb.norm(dim=-1) - 1).abs().max())
+    check(norm_err < 1e-5, f"encode: rows not unit norm ({norm_err})")
+    e_cpu = encode(m_cpu, {"tokens": ids[:8], "attn_mask": mask[:8]})
+    err = float((emb[:8].cpu() - e_cpu).abs().max())
+    check(err <= ENC_TOL, f"encode: card vs CPU {err} > {ENC_TOL}")
+    return {"phase": "encode", "encoder": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+            "texts": len(texts), "tokens_per_text": ENC_LEN,
+            "encode_wall_s": wall_s, "launches": launches,
+            "unit_norm_max_err": norm_err, "rows_vs_cpu": 8,
+            "max_abs_err_vs_cpu": err, "tol": ENC_TOL,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def check_attention(rec_flash, rec_dec, dev) -> dict:
+    """The attention kernels against their plain versions on the card
+    (module docstring, ``kernels_checked``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import init_cache, init_params, prefill
+
+    out = {}
+
+    def held(name, got, ref, entry):
+        err, ratio = attn_err(got, ref)
+        check(ratio <= 1, f"{name}: error {err} is {ratio} x its allowance")
+        entry.update(dtype=str(got.dtype)[6:], max_abs_err=err,
+                     tol=attn_tol(got.shape[-1]), err_over_allowance=ratio)
+        out[name] = entry
+
+    def control(name, plain, q, k, v, *args):
+        """The plain version on K and V rounded to bf16 must miss the f32
+        bound: a kernel that staged them so would fail these checks."""
+        bf = lambda t: t.bfloat16().float()
+        ref = plain(q, k, v, *args)
+        _, ratio = attn_err(plain(q, bf(k), bf(v), *args), ref)
+        check(ratio > 1, f"{name}: K, V rounded to bf16 stay within the f32 "
+              f"bound ({ratio} x), so the bound cannot catch them")
+        out[name]["bf16_kv_control_err_over_allowance"] = ratio
+
+    def flash_case(name, q, k, v, causal=True, window=0):
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        held(f"flash_attention_{name}", got,
+             flash_plain(q, k, v, causal, window),
+             {"shape": list(q.shape), "kv": list(k.shape), "causal": causal,
+              "window": window})
+        return got
+
+    def decode_case(name, q, k, v, lengths, window=0):
+        got = decode_attention(q, k, v, lengths, window=window)
+        lens = lengths.tolist() if hasattr(lengths, "tolist") else lengths
+        held(f"decode_attention_{name}", got,
+             decode_plain(q, k, v, lengths, window),
+             {"shape": list(q.shape), "cache": list(k.shape),
+              "lengths": lens, "window": window})
+        return got
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # the recorded main-path and encode inputs
+    (q, k, v), kw = rec_flash.first[True]
+    flash_case("prefill", q, k, v, **kw)
+    control("flash_attention_prefill", flash_plain, q, k, v, True)
+    (qe, ke, ve), kw = rec_flash.first[False]
+    enc = flash_case("encode", qe, ke, ve, **kw)
+    control("flash_attention_encode", flash_plain, qe, ke, ve, False)
+    (qd, kd, vd, lens), kw = rec_dec.first[None]
+    decode_case("decode", qd, kd, vd, lens, **kw)
+    control("decode_attention_decode", decode_plain, qd, kd, vd, lens)
+    # GQA with a window; ragged, unequal lengths; D = 128; bf16
+    flash_case("gqa4_window", rand(2, 256, 32, 80), rand(2, 256, 8, 80),
+               rand(2, 256, 8, 80), True, 100)
+    flash_case("ragged_77x150", rand(2, 77, 8, 80), rand(2, 150, 2, 80),
+               rand(2, 150, 2, 80), True)
+    flash_case("ragged_150x77_window", rand(1, 150, 8, 64),
+               rand(1, 77, 4, 64), rand(1, 77, 4, 64), False, 20)
+    flash_case("d128", rand(2, 130, 8, 128), rand(2, 130, 8, 128),
+               rand(2, 130, 8, 128), True)
+    flash_case("bf16", *(rand(2, 128, 8, 80, dtype=torch.bfloat16)
+                         for _ in range(3)), True)
+    # mixed per-slot lengths with GQA, a window, lengths >= Smax
+    kc, vc = rand(4, 144, 8, 80), rand(4, 144, 8, 80)
+    qc = rand(4, 1, 32, 80)
+    mixed = torch.tensor([1, 77, 144, 300], dtype=torch.int32, device=dev)
+    dec = decode_case("mixed_gqa4", qc, kc, vc, mixed)
+    decode_case("mixed_window", qc, kc, vc, mixed, 16)
+    decode_case("all_past_smax", qc, kc, vc, 10_000)
+    decode_case("bf16", qc.bfloat16(), kc.bfloat16(), vc.bfloat16(), mixed)
+
+    # batch == sequential, bitwise: row b's output does not depend on B
+    for i in range(16):
+        one = flash_attention(qe[i:i + 1], ke[i:i + 1], ve[i:i + 1],
+                              causal=False)
+        check(torch.equal(one[0], enc[i]),
+              f"flash_attention batch != sequential at row {i}")
+    for i in range(4):
+        one = decode_attention(qc[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                               mixed[i:i + 1])
+        check(torch.equal(one[0], dec[i]),
+              f"decode_attention batch != sequential at slot {i}")
+
+    # refusals raise, and the next launch runs
+    refused = []
+    q96 = rand(1, 16, 4, 96)
+    for name, call, exc in (
+            ("flash_d96", lambda: flash_attention(q96, q96, q96), ValueError),
+            ("decode_d96", lambda: decode_attention(q96[:, :1], q96, q96, 4),
+             ValueError),
+            ("decode_len0", lambda: decode_attention(qc, kc, vc, 0),
+             ValueError),
+            ("decode_len0_slot", lambda: decode_attention(
+                qc, kc, vc, mixed * torch.tensor([1, 1, 0, 1], device=dev,
+                                                 dtype=torch.int32)),
+             ValueError)):
+        try:
+            call()
+        except exc:
+            refused.append(name)
+        else:
+            raise AssertionError(f"{name} was not refused")
+        check(torch.equal(decode_attention(qc, kc, vc, mixed), dec),
+              f"decode_attention after the refusal {name}")
+        check(torch.equal(flash_attention(qe[:16], ke[:16], ve[:16],
+                                          causal=False), enc[:16]),
+              f"flash_attention after the refusal {name}")
+    cfg = dataclasses.replace(get_config(GENERATOR).reduced(
+        num_layers=1, d_model=128), attn_logit_softcap=30.0)
+    try:
+        prefill(init_params(cfg, device=dev),
+                {"tokens": torch.zeros((1, 8), dtype=torch.long, device=dev)},
+                init_cache(cfg, 1, 8, device=dev))
+    except NotImplementedError:
+        refused.append("model_softcap")
+    else:
+        raise AssertionError("a logit softcap on the card was not refused")
+    check(torch.equal(flash_attention(qe[:16], ke[:16], ve[:16],
+                                      causal=False), enc[:16]),
+          "flash_attention after the softcap refusal")
+    out["batch_vs_sequential"] = "bitwise"
+    out["refused"] = refused
+    return out
+
+
+def attention_rows(rec_flash, rec_dec, launches, checked) -> list:
+    """The ``kernels`` line's rows of the attention kernels at the recorded
+    prefill, encode and decode inputs.  Bound: q, k, v read once and the
+    output written once (for decode, only the valid cache rows of K and V)
+    at HBM's rate, against 4 D flops per (query, valid key) pair per head
+    (q . k and p v) at the fp32 peak.  Library: PyTorch's
+    ``scaled_dot_product_attention`` with the same mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def sdpa(q, k, v, **kw):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=q.shape[2] != k.shape[2], **kw)
+
+    rows = []
+    for name, causal, n_launch, err in (
+            ("flash_attention", True, launches["flash_attention_causal"],
+             checked["flash_attention_prefill"]["max_abs_err"]),
+            ("flash_attention_encode", False,
+             launches["flash_attention_encode"],
+             checked["flash_attention_encode"]["max_abs_err"])):
+        (q, k, v), _ = rec_flash.first[causal]
+        (b, sq, h, d), skv = q.shape, k.shape[1]
+        pairs = sq * skv
+        if causal:
+            pairs = int(torch.tril(torch.ones(sq, skv)).sum())
+        lim = bound((2 * q.numel() + k.numel() + v.numel())
+                    * q.element_size(), 4 * b * h * d * pairs)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+            "launches": n_launch, "max_abs_err": err,
+            "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                          200),
+            "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal), 10),
+            "bound_ms": lim[0], "bound_by": lim[1],
+            "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=causal),
+                                  200)})
+    (q, kc, vc, lens), _ = rec_dec.first[None]
+    (b, _, h, d), (smax, kh) = q.shape, kc.shape[1:3]
+    valid = (torch.arange(smax, device=q.device)[None, :]
+             < torch.as_tensor(lens, device=q.device).reshape(-1, 1))
+    n_valid = int(valid.expand(b, smax).sum())
+    mask = valid[:, None, None, :]
+    lim = bound((n_valid * kh * d * 2 + 2 * q.numel()) * q.element_size(),
+                4 * h * d * n_valid)
+    rows.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention/kernel.py:86",
+        "launches": launches["decode_attention"],
+        "max_abs_err": checked["decode_attention_decode"]["max_abs_err"],
+        "ms": cuda_ms(lambda: decode_attention(q, kc, vc, lens), 200),
+        "plain_ms": cuda_ms(lambda: decode_plain(q, kc, vc, lens), 10),
+        "bound_ms": lim[0], "bound_by": lim[1],
+        "library_ms": cuda_ms(lambda: sdpa(q, kc, vc, attn_mask=mask), 200)})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -450,12 +850,15 @@ def main() -> int:
     from repro_torch.core import EdgeCostModel, EdgeRAGIndex
     from repro_torch.data.synthetic import scaled_beir
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ivf_topk import topk_ip
     from repro_torch.kernels.ivf_topk.ref import topk_ip_ref
     from repro_torch.kernels.slab_topk import (NOT_PROBED, ROW_PAD,
                                                slab_mode, slab_topk)
     from repro_torch.kernels.slab_topk.ref import NEG_INF, slab_topk_ref
     from repro_torch.models import init_params, param_count, prefill
+    from repro_torch.models import model as model_mod
     from repro_torch.models.cache import init_cache
     from repro_torch.serving import GeneratorModel, RAGEngine
 
@@ -485,6 +888,11 @@ def main() -> int:
     rec_slab = Recorder(slab_topk, lambda e, q, v, k, **kw: slab_mode(
         e, q, v, **kw))
     edgerag_mod.topk_ip, edgerag_mod.slab_topk = rec_ivf, rec_slab
+    rec_flash = Recorder(flash_attention,
+                         lambda q, k, v, causal=True, window=0: causal)
+    rec_dec = Recorder(decode_attention)
+    model_mod.flash_attention = rec_flash
+    model_mod.decode_attention = rec_dec
     gcfg = get_config(GENERATOR)
     t0 = time.perf_counter()
     gen = GeneratorModel(gcfg, seed=SEED, max_prompt=MAX_PROMPT, device=dev)
@@ -497,6 +905,9 @@ def main() -> int:
 
     topk_ip.launches = slab_topk.launches = 0
     slab_topk.launches_by_mode = dict.fromkeys(slab_topk.launches_by_mode, 0)
+    flash_attention.launches = decode_attention.launches = 0
+    flash_attention.launches_by_mask = dict.fromkeys(
+        flash_attention.launches_by_mask, 0)
     t0 = time.perf_counter()
     assign = index.build(ds.chunk_ids, ds.texts, nlist=NLIST,
                          embeddings=ds.embeddings, seed=SEED)
@@ -517,8 +928,11 @@ def main() -> int:
             "retrieval_s": sum(r.ttft_wall_s for r in resp),
             "prefill_s": gen.prefill_wall_s - p0,
             "decode_s": gen.decode_wall_s - d0})
-    launches = {"ivf_topk": topk_ip.launches, "slab_topk": slab_topk.launches}
+    launches = {"ivf_topk": topk_ip.launches, "slab_topk": slab_topk.launches,
+                "flash_attention": flash_attention.launches,
+                "decode_attention": decode_attention.launches}
     main_by_mode = dict(slab_topk.launches_by_mode)
+    main_by_mask = dict(flash_attention.launches_by_mask)
 
     flat = [r for resp in responses for r in resp]
     tiers = {"stored": sum(r.retrieval.n_storage_loads for r in flat),
@@ -527,6 +941,13 @@ def main() -> int:
     check(all(v > 0 for v in tiers.values()), f"a tier never ran: {tiers}")
     check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
+    n_req = BATCHES * BATCH
+    want = {"causal": gcfg.num_layers * n_req, "non_causal": 0}
+    check(main_by_mask == want and launches["decode_attention"]
+          == gcfg.num_layers * NEW_TOKENS * n_req,
+          f"attention launches {main_by_mask}, {launches['decode_attention']}"
+          f" on the main path; want {want} and "
+          f"{gcfg.num_layers * NEW_TOKENS * n_req}")
     check(all(len(r.output_tokens) == NEW_TOKENS
               and all(0 <= t < gcfg.vocab_size for t in r.output_tokens)
               for r in flat), "generated tokens out of range")
@@ -578,12 +999,18 @@ def main() -> int:
           "stored_clusters_at_build": stored_at_build,
           "per_batch": per_batch, "tiers": tiers, "launches": launches,
           "slab_topk_launches_by_mode": main_by_mode,
+          "flash_attention_launches_by_mask": main_by_mask,
           "slab_rows_first_batch": int(rec_slab.first["fp32"][0][0].shape[0]),
           "cache_hit_rate": index.stats()["cache_hit_rate"],
           "gen_tokens": [r.output_tokens for r in flat[:3]],
           "first_chunk_ids": [r.chunk_ids[:5] for r in flat[:3]],
           "cpu_match": True, "near_tie_swaps": swaps,
           "reduced_model_card_vs_cpu_max_err": small_err})
+
+    # ---- the generator on the card against the CPU; encode -------------
+    emit(generator_parity(dev))
+    enc = encode_phase(dev, ds.texts[:ENC_TEXTS])
+    emit(enc)
 
     # ---- codec paths: fp16, int8, pq on the same corpus and generator ----
     ctx = {"ds": ds, "cost": cost, "dev": dev, "gen": gen,
@@ -595,6 +1022,8 @@ def main() -> int:
     t0 = time.perf_counter()
     codecs = [codec_path(codec, ctx) for codec in CODECS]
     edgerag_mod.topk_ip, edgerag_mod.slab_topk = topk_ip, slab_topk
+    model_mod.flash_attention = flash_attention
+    model_mod.decode_attention = decode_attention
     emit({"phase": "codec_paths", "phase_s": time.perf_counter() - t0,
           "codecs": codecs})
 
@@ -672,6 +1101,7 @@ def main() -> int:
         (e, q, v, k), kw = rec_slab.first[mode]
         report[f"slab_topk_{mode}"] = check_quantized(mode, e, q, v, k, kw,
                                                       rint)
+    report.update(check_attention(rec_flash, rec_dec, dev))
     emit({"phase": "kernels_checked",
           "ivf_topk_shape": [*e1.shape, q1.shape[0], k1],
           "slab_topk_shape": {m: [*a[0].shape, a[1].shape[0], a[3]]
@@ -710,6 +1140,11 @@ def main() -> int:
         kernels.append(quantized_row(mode, e, q, v, k, kw,
                                      codecs[CODECS.index(mode)]["launches"]
                                      [mode], report[f"slab_topk_{mode}"]))
+    kernels += attention_rows(
+        rec_flash, rec_dec,
+        {"flash_attention_causal": main_by_mask["causal"],
+         "flash_attention_encode": enc["launches"]["non_causal"],
+         "decode_attention": launches["decode_attention"]}, report)
 
     # ---- breakdown: one retrieval batch and one request's generation ----
     embs = ds.query_embs[BATCHES * BATCH:(BATCHES + 1) * BATCH]

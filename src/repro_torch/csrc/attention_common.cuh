@@ -1,0 +1,63 @@
+// Support shared by the attention kernels (flash_attention.cu,
+// decode_attention.cu): element strides of a (B, S, H, D) operand, f32 /
+// bf16 loads and stores, and the dispatch from the C interface's dtype code
+// and head dim to a kernel instantiated for them.
+#pragma once
+
+#include <cmath>
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <type_traits>
+
+namespace attn {
+
+constexpr float kNegInf = -1e30f;  // score of a masked key
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Strides {
+  long long b, s, h;  // element strides of the batch, sequence, head dims
+};
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+template <class T>
+struct Type {
+  using type = T;
+};
+template <int D>
+using Dim = std::integral_constant<int, D>;
+
+template <class T, class F>
+int by_dim(int d, F&& launch) {
+  switch (d) {
+    case 64:
+      return launch(Type<T>{}, Dim<64>{});
+    case 80:
+      return launch(Type<T>{}, Dim<80>{});
+    case 128:
+      return launch(Type<T>{}, Dim<128>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Calls launch(Type<T>{}, Dim<D>{}) for dtype code 0 (float32) or 1
+// (bfloat16) and a head dim D of 64, 80 or 128; cudaErrorInvalidValue for
+// anything else.  The launcher reads T and D back as
+// typename decltype(t)::type and decltype(d)::value.
+template <class F>
+int dispatch(int dtype, int d, F&& launch) {
+  if (dtype == 0) return by_dim<float>(d, launch);
+  if (dtype == 1) return by_dim<__nv_bfloat16>(d, launch);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace attn

@@ -1,0 +1,7 @@
+from repro_torch.kernels.decode_attention.ops import (  # noqa
+    DecodeLengths, decode_attention, decode_lengths)
+from repro_torch.kernels.decode_attention.ref import (  # noqa
+    decode_attention_ref)
+
+__all__ = ["decode_attention", "decode_attention_ref", "decode_lengths",
+           "DecodeLengths"]

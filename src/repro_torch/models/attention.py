@@ -2,8 +2,10 @@
 
 Port of ``repro.models.attention``.  The JAX model computes attention in
 ``jnp`` outside any Pallas kernel, and so does this module (einsum and
-softmax; no fused library attention).  The hand-written Hopper kernels for
-prefill and decode attention replace these functions in a later slice.
+softmax; no fused library attention): it is what the model runs on the CPU.
+On the card the model runs the hand-written kernels instead
+(``repro_torch.kernels.flash_attention`` for prefill and encode,
+``repro_torch.kernels.decode_attention`` for decode).
 
 All functions take q (B, Sq, H, D), k / v (B, Skv, KH, D) with H % KH == 0
 and return (B, Sq, H, D).  Masks: ``causal`` plus an optional ``window``
@@ -81,11 +83,12 @@ def attend_chunked(q, k, v, *, causal=True, window=0, logit_cap=0.0,
     return out.transpose(1, 2).to(q.dtype)
 
 
-def attend_decode(q, k_cache, v_cache, cache_len: int, *, window=0,
+def attend_decode(q, k_cache, v_cache, cache_len, *, window=0,
                   logit_cap=0.0):
     """One-token decode: q (B, 1, H, D) against a full (non-ring) cache
-    (B, Smax, KH, D).  ``cache_len`` counts the valid tokens INCLUDING the
-    current one (the caller inserts its k / v before attending)."""
+    (B, Smax, KH, D).  ``cache_len`` (an int, or (B,) per-slot lengths)
+    counts the valid tokens INCLUDING the current one (the caller inserts
+    its k / v before attending)."""
     b, sq, h, d = q.shape
     assert sq == 1
     k = _expand_kv(k_cache, h).to(torch.float32)
@@ -93,11 +96,12 @@ def attend_decode(q, k_cache, v_cache, cache_len: int, *, window=0,
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32) * d ** -0.5,
                           k)
     scores = softcap(scores, logit_cap)
-    idx = torch.arange(k_cache.shape[1], device=q.device)
-    valid = idx < cache_len
+    idx = torch.arange(k_cache.shape[1], device=q.device)[None, :]
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = idx < clen                                     # (B | 1, Smax)
     if window and window > 0:
-        valid &= idx > (cache_len - 1 - window)
-    scores = torch.where(valid, scores, NEG_INF)
+        valid &= idx > (clen - 1 - window)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)
     return out.to(q.dtype)

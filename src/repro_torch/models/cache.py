@@ -8,7 +8,7 @@ of the whole cache per decoded token).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Union
 
 import torch
 
@@ -21,11 +21,21 @@ class KVCache:
         self.v = v
 
     def insert(self, k_new: torch.Tensor, v_new: torch.Tensor,
-               cache_len: int) -> "KVCache":
-        """Write (B, S_new, KH, D) at position ``cache_len``, in place."""
+               pos: Union[int, torch.Tensor]) -> "KVCache":
+        """Write (B, S_new, KH, D) in place: at position ``pos`` in every
+        slot, or, for a (B,) tensor ``pos`` (S_new == 1), slot b's one
+        token at ``pos[b]``."""
+        if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+            if k_new.shape[1] != 1:
+                raise ValueError("per-slot positions insert one token per "
+                                 "slot")
+            rows = torch.arange(self.k.shape[0], device=self.k.device)
+            self.k[rows, pos] = k_new[:, 0].to(self.k.dtype)
+            self.v[rows, pos] = v_new[:, 0].to(self.v.dtype)
+            return self
         s = k_new.shape[1]
-        self.k[:, cache_len:cache_len + s] = k_new.to(self.k.dtype)
-        self.v[:, cache_len:cache_len + s] = v_new.to(self.v.dtype)
+        self.k[:, pos:pos + s] = k_new.to(self.k.dtype)
+        self.v[:, pos:pos + s] = v_new.to(self.v.dtype)
         return self
 
 

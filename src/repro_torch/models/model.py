@@ -15,18 +15,30 @@ Public entry points, as in the JAX package:
 Semantics kept from the reference: ``rms_norm`` scales by ``1 + w``; RoPE
 rotates the two halves of the head dim; SwiGLU MLP; an untied ``lm_head``
 when the config says so; prefill attends causally with NO padding mask;
-decode inserts k / v at ``cache_len`` and attends over ``cache_len + 1``
-tokens.
+decode inserts k / v at ``cache_len`` (an int, or (B,) per-slot lengths)
+and attends over ``cache_len + 1`` tokens.
+
+Attention on the card is the hand-written kernels, whatever ``attn_impl``
+says (``"reference"`` and ``"chunked"`` are two plain formulations of the
+one function the prefill kernel computes): ``flash_attention`` in prefill
+(causal) and ``encode`` (non-causal), ``decode_attention`` in decode.  On
+the CPU the model runs the plain functions of ``models.attention``.  The
+kernels have no logit softcap (nor have the TPU kernels), so a config with
+one raises on the card.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.decode_attention import (DecodeLengths,
+                                                  decode_attention,
+                                                  decode_lengths)
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.cache import KVCache
 from repro_torch.models.layers import (apply_rope, dense_init, mlp,
@@ -61,7 +73,11 @@ class AttnBlock(nn.Module):
 
     def forward(self, x, cfg: ModelConfig, *, positions, inv_freq,
                 causal: bool, mode: str, cache: Optional[KVCache],
-                cache_len: int, attn_impl: str):
+                cache_len: Union[int, torch.Tensor],
+                lengths: Union[int, torch.Tensor, DecodeLengths],
+                attn_impl: str):
+        """``cache_len``: where decode inserts the token; ``lengths``: the
+        valid tokens it attends over, the current one included."""
         b, s, _ = x.shape
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         q = (h @ self.wq).view(b, s, cfg.num_heads, cfg.head_dim)
@@ -70,19 +86,31 @@ class AttnBlock(nn.Module):
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
         cap = cfg.attn_logit_softcap
+        card = q.is_cuda
+        if card and cap:
+            raise NotImplementedError(
+                f"{cfg.name}: attn_logit_softcap={cap} has no attention "
+                f"kernel on the card (the TPU kernels have no softcap)")
         if mode == "decode":
             assert cache is not None and s == 1
             cache.insert(k, v, cache_len)
-            out = attn_lib.attend_decode(q, cache.k, cache.v, cache_len + 1,
-                                         logit_cap=cap)
+            if card:
+                out = decode_attention(q, cache.k, cache.v, lengths)
+            else:
+                out = attn_lib.attend_decode(q, cache.k, cache.v, lengths,
+                                             logit_cap=cap)
         else:
             if cache is not None:
                 cache.insert(k, v, 0)
-            chunked = (attn_impl == "chunked"
-                       or (attn_impl == "auto" and s >= CHUNKED_ATTN_MIN_SEQ))
-            attend = (attn_lib.attend_chunked if chunked
-                      else attn_lib.attend_reference)
-            out = attend(q, k, v, causal=causal, logit_cap=cap)
+            if card:
+                out = flash_attention(q, k, v, causal=causal)
+            elif attn_impl == "chunked" or (attn_impl == "auto"
+                                            and s >= CHUNKED_ATTN_MIN_SEQ):
+                out = attn_lib.attend_chunked(q, k, v, causal=causal,
+                                              logit_cap=cap)
+            else:
+                out = attn_lib.attend_reference(q, k, v, causal=causal,
+                                                logit_cap=cap)
         x = x + out.reshape(b, s, cfg.q_dim) @ self.wo
         h = rms_norm(x, self.norm2, cfg.norm_eps)
         return x + mlp(self.gate, self.up, self.down, h)
@@ -119,19 +147,29 @@ class Model(nn.Module):
         return self.embed.device
 
     def run(self, tokens: torch.Tensor, *, causal: bool, mode: str,
-            caches: Optional[List[KVCache]], cache_len: int,
+            caches: Optional[List[KVCache]],
+            cache_len: Union[int, torch.Tensor],
             attn_impl: str) -> torch.Tensor:
         """Embed ``tokens`` (B, S) and apply every block; returns the
-        residual stream (B, S, d) before the final norm."""
+        residual stream (B, S, d) before the final norm.  In decode the
+        positions start at ``cache_len``: one offset, or (B,) per slot; the
+        lengths the layers attend over are checked once here, not once per
+        layer."""
         x = self.embed[tokens]
         b, s = tokens.shape
         offset = cache_len if mode == "decode" else 0
+        if isinstance(offset, torch.Tensor):
+            offset = offset.reshape(-1, 1)              # per-slot (B, 1)
         positions = (torch.arange(s, device=x.device) + offset).expand(b, s)
+        lengths = cache_len + 1
+        if mode == "decode" and x.is_cuda:
+            lengths = decode_lengths(lengths, b, x.device)
         for i, block in enumerate(self.blocks):
             x = block(x, self.cfg, positions=positions,
                       inv_freq=self.inv_freq, causal=causal,
                       mode=mode, cache=None if caches is None else caches[i],
-                      cache_len=cache_len, attn_impl=attn_impl)
+                      cache_len=cache_len, lengths=lengths,
+                      attn_impl=attn_impl)
         return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
@@ -165,9 +203,13 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def decode_step(model: Model, tokens: torch.Tensor, caches: List[KVCache],
-                cache_len: int) -> Tuple[torch.Tensor, List[KVCache]]:
-    """One-token serve step: tokens (B, 1) at position ``cache_len``.
+                cache_len: Union[int, torch.Tensor]
+                ) -> Tuple[torch.Tensor, List[KVCache]]:
+    """One-token serve step: tokens (B, 1) at position ``cache_len``, one
+    for every slot or a (B,) integer tensor of per-slot positions.
     Returns (logits (B, vocab), caches updated in place)."""
+    if isinstance(cache_len, torch.Tensor):
+        cache_len = cache_len.to(device=model.device, dtype=torch.long)
     x = model.run(tokens, causal=True, mode="decode", caches=caches,
                   cache_len=cache_len, attn_impl="auto")
     return model.logits(x[:, 0]), caches

@@ -27,7 +27,10 @@ def test_importing_every_module_loads_no_jax_or_repro():
     mods = list(_modules())
     for name in ("repro_torch.kernels.slab_topk.ops", "repro_torch.core.pq",
                  "repro_torch.core.storage",
-                 "repro_torch.models.quantization"):
+                 "repro_torch.models.quantization",
+                 "repro_torch.kernels.flash_attention.ops",
+                 "repro_torch.kernels._attention",
+                 "repro_torch.kernels.decode_attention.ops"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

@@ -11,7 +11,14 @@ exact sum); :func:`_tol` takes the largest such bound over the batch.  For
 int8 slabs the products are those of the widened int8 values, and the
 bound is multiplied by the largest scale.  PQ scores are gathers and adds
 in one fixed order on both sides, so they are compared bitwise.
+
+The attention kernels (``flash_attention``, ``decode_attention``) are held
+against their plain versions here only on the card; their CPU parity with
+the JAX package is ``tests/test_torch_attention.py``.  Their tolerance is
+:func:`_attn_ratio`.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -24,10 +31,18 @@ from repro.kernels.ivf_topk.ref import topk_ip_ref as jax_topk_ref  # noqa: E402
 from repro.kernels.slab_topk.kernel import slab_topk_pallas  # noqa: E402
 from repro.kernels.slab_topk.ref import lex_topk as jax_lex_topk  # noqa: E402
 from repro.kernels.slab_topk.ref import slab_topk_ref as jax_slab_ref  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_lengths  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.ivf_topk import topk_ip  # noqa: E402
 from repro_torch.kernels.slab_topk import NOT_PROBED, ROW_PAD, slab_topk  # noqa: E402
 from repro_torch.kernels.slab_topk.ref import lex_topk  # noqa: E402
 from repro_torch.kernels.slab_topk.ref import slab_topk_ref  # noqa: E402
+from repro_torch.models import (decode_step, encode, init_cache,  # noqa: E402
+                                init_params, prefill)
 
 
 def _tol(e: np.ndarray, q: np.ndarray) -> float:
@@ -493,3 +508,199 @@ def test_cuda_slab_topk_quantized_matches_plain(cuda, mode, integer):
     else:
         np.testing.assert_allclose(kv, pv, rtol=0,
                                    atol=_mode_tol(mode, emb, q, extra))
+
+
+# ---------------------------------------------------------------------------
+# attention kernels (only on the card)
+# ---------------------------------------------------------------------------
+def _attn_ratio(got, ref):
+    """The largest |got - ref| over its allowance: 2e-5 * max(1, D / 64),
+    the JAX package's bound for its attention kernels against their
+    references (``tests/test_kernels.py``), scaled with the head dim; bf16
+    outputs, each rounded once from f32, may also land one bf16 ulp of the
+    plain element apart.  The checks hold when it is <= 1."""
+    diff = (got.float() - ref.float()).abs()
+    allow = torch.full_like(diff, 2e-5 * max(1.0, got.shape[-1] / 64))
+    if got.dtype == torch.bfloat16:
+        r = ref.float()
+        _, e = torch.frexp(r)
+        allow = allow + torch.where(r == 0, 0.0, torch.ldexp(
+            torch.ones_like(r), e - 8))
+    return float((diff / allow).max())
+
+
+def _flash_plain(q, k, v, causal, window):
+    return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window).transpose(1, 2)
+
+
+def _qkv(dev, b, sq, skv, h, kh, d, dtype=torch.float32, seed=0):
+    rng = np.random.default_rng(seed)
+    mk = lambda s, n: torch.from_numpy(rng.standard_normal(
+        (b, s, n, d)).astype(np.float32)).to(device=dev, dtype=dtype)
+    return mk(sq, h), mk(skv, kh), mk(skv, kh)
+
+
+# b, sq, skv, h, kh, d, causal, window, dtype: the model's prefill and
+# encode shapes, GQA with a window, ragged lengths (Sq != Skv, rows with no
+# valid key under the window), D = 128 (past 48 KB of shared memory), bf16
+FLASH_CASES = [
+    (1, 128, 128, 32, 32, 80, True, 0, torch.float32),
+    (4, 128, 128, 12, 12, 64, False, 0, torch.float32),
+    (2, 96, 96, 8, 2, 64, True, 40, torch.float32),
+    (2, 77, 150, 4, 1, 80, True, 0, torch.float32),
+    (1, 150, 77, 4, 2, 80, False, 20, torch.float32),
+    (1, 130, 130, 4, 4, 128, True, 0, torch.float32),
+    (2, 128, 128, 4, 2, 64, True, 0, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,skv,h,kh,d,causal,window,dtype", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain(cuda, b, sq, skv, h, kh, d,
+                                            causal, window, dtype):
+    q, k, v = _qkv(cuda, b, sq, skv, h, kh, d, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    ref = _flash_plain(q, k, v, causal, window)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert _attn_ratio(out, ref) <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 30)])
+def test_cuda_flash_attention_batch_equals_sequential(cuda, causal, window):
+    q, k, v = _qkv(cuda, 5, 100, 100, 8, 2, 80)
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    for i in range(5):
+        one = flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                              causal=causal, window=window)
+        assert torch.equal(one[0], out[i]), i
+
+
+def _decode_case(dev, b, smax, h, kh, d, dtype=torch.float32, seed=1):
+    q, k, v = _qkv(dev, b, 1, smax, h, kh, d, dtype, seed)
+    return q, k, v
+
+
+# b, smax, h, kh, d, lengths, window: the main path's decode shape, mixed
+# per-slot lengths with GQA, a window, a length >= Smax, a window that
+# leaves no valid position (the mean of V), D = 128, bf16
+DECODE_CASES = [
+    (1, 144, 32, 32, 80, [129], 0, torch.float32),
+    (4, 144, 8, 2, 80, [1, 77, 144, 130], 0, torch.float32),
+    (3, 200, 4, 1, 64, [50, 200, 9], 16, torch.float32),
+    (2, 64, 4, 4, 64, [1000, 64], 0, torch.float32),
+    (2, 64, 4, 2, 64, [1000, 70], 5, torch.float32),
+    (3, 96, 8, 4, 128, [96, 3, 40], 0, torch.float32),
+    (2, 128, 4, 2, 64, [128, 31], 8, torch.bfloat16),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,smax,h,kh,d,lens,window,dtype", DECODE_CASES)
+def test_cuda_decode_attention_matches_plain(cuda, b, smax, h, kh, d, lens,
+                                             window, dtype):
+    q, k, v = _decode_case(cuda, b, smax, h, kh, d, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, lengths, window=window)
+    assert decode_attention.launches == before + 1
+    ref = decode_attention_ref(q[:, 0], k, v, lengths, window=window)[:, None]
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert _attn_ratio(out, ref) <= 1
+    if len(set(lens)) == 1:       # one int for every slot: the same result
+        assert torch.equal(decode_attention(q, k, v, lens[0], window=window),
+                           out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 24])
+def test_cuda_decode_attention_batch_equals_sequential(cuda, window):
+    q, k, v = _decode_case(cuda, 6, 160, 16, 4, 80)
+    lengths = torch.tensor([160, 1, 33, 97, 150, 64], dtype=torch.int32,
+                           device=cuda)
+    out = decode_attention(q, k, v, lengths, window=window)
+    for i in range(6):
+        one = decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                               lengths[i:i + 1], window=window)
+        assert torch.equal(one[0], out[i]), i
+
+
+@pytest.mark.gpu
+def test_cuda_decode_lengths_checked_once_give_the_same_result(cuda):
+    q, k, v = _decode_case(cuda, 4, 144, 8, 2, 80)
+    lens = torch.tensor([1, 77, 144, 130], dtype=torch.int32)
+    checked = decode_lengths(lens, 4, cuda)
+    assert checked.lengths.device.type == "cuda"
+    assert checked.lengths.dtype == torch.int32
+    assert torch.equal(decode_attention(q, k, v, checked),
+                       decode_attention(q, k, v, lens.to(cuda)))
+    with pytest.raises(ValueError, match=">= 1"):
+        decode_lengths(torch.tensor([3, 0, 1, 1], device=cuda), 4, cuda)
+
+
+# Logits of a tiny model (|x| < ~1) on the card and the CPU: fp32 matmuls
+# of at most 256 terms, summed in other orders, a few ulps apart per op.
+MODEL_TOL = 1e-4
+
+
+@pytest.mark.gpu
+def test_cuda_model_attention_runs_the_kernels_and_matches_the_cpu(cuda):
+    """A head-dim-80 model: prefill, decode with per-slot lengths and
+    encode on the card launch K5 / K6 in every layer and agree with the
+    same weights on the CPU."""
+    cfg = dataclasses.replace(get_config("sheared-llama-2.7b"), num_layers=2,
+                              d_model=160, num_heads=2, num_kv_heads=2,
+                              head_dim=80, d_ff=256, vocab_size=512)
+    m_cpu = init_params(cfg, seed=0, device="cpu")
+    m_card = init_params(cfg, seed=0, device="cpu").to(cuda)
+    toks = torch.randint(0, 512, (3, 12),
+                         generator=torch.Generator().manual_seed(1))
+    c_cpu = init_cache(cfg, 3, 24, device=torch.device("cpu"))
+    c_card = init_cache(cfg, 3, 24, device=cuda)
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    l_cpu, _ = prefill(m_cpu, {"tokens": toks}, c_cpu)
+    l_card, _ = prefill(m_card, {"tokens": toks.to(cuda)}, c_card)
+    assert float((l_card.cpu() - l_cpu).abs().max()) <= MODEL_TOL
+    lens = torch.tensor([12, 7, 3])
+    for _ in range(3):
+        nxt = l_cpu.argmax(-1, keepdim=True)
+        l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, lens)
+        l_card, _ = decode_step(m_card, nxt.to(cuda), c_card, lens.to(cuda))
+        assert float((l_card.cpu() - l_cpu).abs().max()) <= MODEL_TOL
+        lens = lens + torch.tensor([1, 2, 1])
+    e_cpu = encode(m_cpu, {"tokens": toks})
+    e_card = encode(m_card, {"tokens": toks.to(cuda)})
+    assert float((e_card.cpu() - e_cpu).abs().max()) <= MODEL_TOL
+    assert flash_attention.launches - f0 == 2 * cfg.num_layers
+    assert decode_attention.launches - d0 == 3 * cfg.num_layers
+
+
+@pytest.mark.gpu
+def test_cuda_attention_refusals_raise_and_the_next_launch_runs(cuda):
+    q, k, v = _qkv(cuda, 1, 16, 16, 4, 4, 96)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attention(q[:, :1], k, v, 16)
+    q, k, v = _qkv(cuda, 2, 16, 16, 4, 4, 64)
+    with pytest.raises(ValueError, match=">= 1"):
+        decode_attention(q[:, :1], k, v, 0)
+    with pytest.raises(ValueError, match=">= 1"):
+        decode_attention(q[:, :1], k, v, torch.tensor([3, 0], device=cuda))
+    # the model on the card refuses a logit softcap (no kernel has one)
+    cfg = dataclasses.replace(get_config("sheared-llama-2.7b").reduced(
+        num_layers=1, d_model=128), attn_logit_softcap=30.0)
+    toks = torch.zeros((1, 8), dtype=torch.long, device=cuda)
+    with pytest.raises(NotImplementedError, match="softcap"):
+        prefill(init_params(cfg, device=cuda), {"tokens": toks},
+                init_cache(cfg, 1, 8, device=cuda))
+    out = flash_attention(q, k, v)
+    assert torch.equal(out, flash_attention(q, k, v))
+    assert _attn_ratio(out, _flash_plain(q, k, v, True, 0)) <= 1
+    one = decode_attention(q[:, :1], k, v, 16)
+    assert _attn_ratio(one, decode_attention_ref(q[:, 0], k, v, 16)[:, None]
+                       ) <= 1
