@@ -31,7 +31,24 @@ Phases, one JSON line each:
                    logits of every step agree within ``GEN_TOL`` and the
                    greedy tokens are equal wherever the top-2 margin exceeds
                    2 x ``GEN_TOL``.  Then one decode step of 4 slots at
-                   different (B,) lengths, on both.
+                   different (B,) lengths, on both.  Every decode call of
+                   the card run is recorded (q and the K / V row the model
+                   has just inserted; the prompt's rows after prefill).
+  kv_int8          the int8 KV cache of ``models.quantization`` decoded
+                   through ``decode_attention_q8`` (K7), on the recorded
+                   K / V and q of ``generator_parity``: per layer a
+                   ``QuantKV`` from ``init_quant_cache``, the 128 prompt
+                   rows ``quant_insert``-ed at 0, then per step the step's
+                   row at 128 + step and K7 at length 129 + step; then the
+                   4-slot step with (B,) positions and lengths.  K7's
+                   launches must be exactly layers x (steps + 1); every
+                   call within ``attn_tol`` of the plain version and of K6
+                   on the dequantized cache, and within ``int8_bound`` of
+                   K6 on the model's fp32 cache; K7 with every scale 1 must
+                   miss the bound; the 4-slot batch equals its slots run
+                   one at a time, bitwise; ``quantize_kv`` on the card
+                   equals the CPU's; plus D = 32, GQA, window and bf16
+                   cases against the plain version.
   encode           gte-base-en-v1.5 at full width (12 layers, d_model 768,
                    12 heads of 64; random weights from the seed): ``encode``
                    of 256 chunk texts of the corpus at 128 tokens on the card
@@ -60,7 +77,8 @@ Phases, one JSON line each:
                    attention kernels against their plain versions at the
                    recorded prefill, encode and decode inputs and at extra
                    shapes (GQA, windows, ragged and unequal lengths, D = 128,
-                   bf16, mixed per-slot lengths, a length >= Smax), within
+                   bf16, mixed per-slot lengths, a length >= Smax, decode
+                   at D = 32), within
                    :func:`attn_tol` (bf16: + one ulp), which K and V
                    rounded to bf16 must miss at the recorded inputs;
                    batch == sequential, bitwise; and each
@@ -68,7 +86,9 @@ Phases, one JSON line each:
                    softcap) raises, with the next launch running.
   breakdown        one more retrieval batch, and one request's generation,
                    under ``torch.profiler``: device time (kernels and copies)
-                   against host wall time.
+                   against host wall time; and K7 against K6 on its
+                   dequantized cache at K7's ``kernels`` shape, 100 calls
+                   each, device ms per call beside wall ms per call.
 
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
 library time, and the bound from this run's inputs), the ``nvidia-smi``
@@ -111,6 +131,9 @@ GEN_TOL = 1e-4
 # Unit-norm embeddings (elements ~0.036) after 12 fp32 layers: relative
 # drift ~1e-6 of the elements, so 1e-5 leaves an order of magnitude.
 ENC_TOL = 1e-5
+# |int8-cache decode - fp32-cache decode| at unit-variance q, K, V: the JAX
+# package's bound (tests/test_quantization.py:60); see int8_bound().
+INT8_UNIT_BOUND = 0.03
 
 
 def emit(obj) -> None:
@@ -199,6 +222,27 @@ class Recorder:
             self.first[key] = ([clone(a) for a in args],
                                {n: clone(a) for n, a in kw.items()})
         return self.fn(*args, **kw)
+
+
+class StepRecorder:
+    """Passes every call through to ``decode_attention`` and keeps, per
+    call, q and the K / V row the model has just inserted (row lengths[b]
+    - 1 of every slot b) with its position, cloned: the cache is written
+    in place."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = []
+
+    def __call__(self, q, k, v, lengths, **kw):
+        import torch
+        lens = getattr(lengths, "lengths", lengths)
+        pos = (torch.as_tensor(lens, device=q.device).reshape(-1).long()
+               - 1).expand(q.shape[0])
+        rows = torch.arange(q.shape[0], device=q.device)
+        self.calls.append((q.clone(), k[rows, pos].clone(),
+                           v[rows, pos].clone(), pos.clone()))
+        return self.fn(q, k, v, lengths, **kw)
 
 
 def isolated_ids_equal(vals, ids, ref_ids, full, tol) -> int:
@@ -517,9 +561,10 @@ def decode_plain(q, k, v, lengths, window=0):
     return decode_attention_ref(q[:, 0], k, v, lengths, window=window)[:, None]
 
 
-def generator_parity(dev) -> dict:
+def generator_parity(dev) -> tuple:
     """The 2-layer full-width generator on the card and on the CPU (module
-    docstring, ``generator_parity``)."""
+    docstring, ``generator_parity``).  Returns the phase's line and what the
+    card run recorded for ``kv_int8``."""
     import copy
     import dataclasses
     import torch
@@ -528,6 +573,7 @@ def generator_parity(dev) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     prefill)
+    from repro_torch.models import model as model_mod
 
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
@@ -542,6 +588,8 @@ def generator_parity(dev) -> dict:
     f0, d0 = flash_attention.launches, decode_attention.launches
     l_cpu, _ = prefill(m_cpu, {"tokens": toks}, c_cpu)
     l_card, _ = prefill(m_card, {"tokens": toks.to(dev)}, c_card)
+    recorded = {"single": record_prompt(c_card)}
+    rec = model_mod.decode_attention = StepRecorder(model_mod.decode_attention)
     errs, tokens_checked, near_ties = [], 0, 0
     for step in range(NEW_TOKENS + 1):
         lc, lk = l_cpu[0], l_card[0].cpu()
@@ -559,6 +607,8 @@ def generator_parity(dev) -> dict:
         l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, MAX_PROMPT + step)
         l_card, _ = decode_step(m_card, nxt.to(dev), c_card,
                                 MAX_PROMPT + step)
+    model_mod.decode_attention = rec.fn
+    recorded["single"]["calls"] = rec.calls
     check(max(errs) <= GEN_TOL, f"generator parity: logits differ by "
           f"{max(errs)} > {GEN_TOL}")
     launches = {"flash_attention": flash_attention.launches - f0,
@@ -578,9 +628,13 @@ def generator_parity(dev) -> dict:
     c_card = init_cache(cfg, b, smax, device=dev)
     prefill(m_cpu, {"tokens": toks4}, c_cpu)
     prefill(m_card, {"tokens": toks4.to(dev)}, c_card)
+    recorded["slots"] = record_prompt(c_card)
+    rec = model_mod.decode_attention = StepRecorder(model_mod.decode_attention)
     d0 = decode_attention.launches
     l_cpu, _ = decode_step(m_cpu, nxt4, c_cpu, lens)
     l_card, _ = decode_step(m_card, nxt4.to(dev), c_card, lens.to(dev))
+    model_mod.decode_attention = rec.fn
+    recorded["slots"]["calls"] = rec.calls
     check(decode_attention.launches - d0 == PARITY_LAYERS,
           "per-slot decode did not launch decode_attention")
     slot_err = float((l_card.cpu() - l_cpu).abs().max())
@@ -594,7 +648,223 @@ def generator_parity(dev) -> dict:
             "max_abs_err_per_step": errs, "tokens_checked": tokens_checked,
             "near_ties": near_ties, "launches": launches,
             "slot_lengths": list(SLOT_LENS), "slot_step_max_abs_err": slot_err,
-            "phase_s": time.perf_counter() - t_phase}
+            "phase_s": time.perf_counter() - t_phase}, recorded
+
+
+def record_prompt(caches) -> dict:
+    """The prompt's K / V rows of every layer's cache right after prefill
+    (cloned: decode writes the cache in place)."""
+    return {"prompt": [(c.k[:, :MAX_PROMPT].clone(),
+                        c.v[:, :MAX_PROMPT].clone()) for c in caches]}
+
+
+def int8_bound(q, k, v) -> float:
+    """Bound on |int8-cache decode - fp32-cache decode| at the recorded
+    activations, from the JAX package's 0.03 at unit-variance q, K and V
+    (``tests/test_quantization.py:60``).  The error has two terms: V's
+    rounding (each element within amax / 254 of its row, so it scales with
+    V's magnitude) and V weighted by the change in the softmax weights that
+    K's rounding makes in the scores q . k / sqrt(D) (it scales with V's
+    magnitude times q's and K's).  So 0.03 is scaled by the recorded V's
+    rms, and by rms(q) * rms(K) where that exceeds 1 (unit inputs give 1)."""
+    rms = lambda t: float(t.float().square().mean().sqrt())
+    return INT8_UNIT_BOUND * rms(v) * max(1.0, rms(q) * rms(k))
+
+
+def kv_int8(dev, recorded) -> dict:
+    """The int8 KV cache decoded through K7 on the recorded K / V and q of
+    ``generator_parity`` (module docstring, ``kv_int8``).  Returns the
+    phase's line; its ``"row"`` holds the inputs the ``kernels`` line times
+    K7 at."""
+    import torch
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_q8, decode_attention_q8_ref)
+    from repro_torch.models.quantization import (
+        QuantKV, dequantize_kv, init_quant_cache, quant_insert, quantize_kv)
+
+    t_phase = time.perf_counter()
+    layers, smax = PARITY_LAYERS, MAX_PROMPT + NEW_TOKENS
+    tol = attn_tol(recorded["single"]["prompt"][0][0].shape[-1])
+    stats = {"max_abs_err": 0.0, "err_over_allowance": 0.0,
+             "vs_k6_dequant_max_abs_err": 0.0,
+             "vs_k6_dequant_err_over_allowance": 0.0,
+             "vs_k6_dequant_bitwise_calls": 0, "vs_fp32_max_abs_err": 0.0}
+
+    def plain(q, ck, cv, lens):
+        return decode_attention_q8_ref(q[:, 0], ck.q, ck.scale, cv.q,
+                                       cv.scale, lens)[:, None]
+
+    def held(out, q, ck, cv, fk, fv, lens, where):
+        err, ratio = attn_err(out, plain(q, ck, cv, lens))
+        check(ratio <= 1, f"kv_int8 {where}: K7 vs plain {err} is {ratio} x "
+              f"its allowance")
+        k6 = decode_attention(q, dequantize_kv(ck), dequantize_kv(cv), lens)
+        err6, ratio6 = attn_err(out, k6)
+        check(ratio6 <= 1, f"kv_int8 {where}: K7 vs K6 on the dequantized "
+              f"cache {err6} is {ratio6} x its allowance")
+        err_fp = float((out - decode_attention(q, fk, fv, lens)).abs().max())
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        stats["err_over_allowance"] = max(stats["err_over_allowance"], ratio)
+        stats["vs_k6_dequant_max_abs_err"] = max(
+            stats["vs_k6_dequant_max_abs_err"], err6)
+        stats["vs_k6_dequant_err_over_allowance"] = max(
+            stats["vs_k6_dequant_err_over_allowance"], ratio6)
+        stats["vs_k6_dequant_bitwise_calls"] += int(torch.equal(out, k6))
+        stats["vs_fp32_max_abs_err"] = max(stats["vs_fp32_max_abs_err"],
+                                           err_fp)
+
+    def caches(batch, prompt):
+        """Per layer: the int8 K and V caches with the prompt's rows
+        inserted at 0, and the fp32 caches the model held."""
+        out = []
+        for k0, v0 in prompt:
+            kh, d = k0.shape[2:]
+            ck = init_quant_cache(batch, smax, kh, d, device=dev)
+            cv = init_quant_cache(batch, smax, kh, d, device=dev)
+            quant_insert(ck, k0, 0)
+            quant_insert(cv, v0, 0)
+            fk = torch.zeros((batch, smax, kh, d), device=dev)
+            fv = torch.zeros_like(fk)
+            fk[:, :MAX_PROMPT], fv[:, :MAX_PROMPT] = k0, v0
+            out.append((ck, cv, fk, fv))
+        return out
+
+    single, slots = recorded["single"], recorded["slots"]
+    check(len(single["calls"]) == layers * NEW_TOKENS
+          and len(slots["calls"]) == layers,
+          f"kv_int8: recorded {len(single['calls'])} + "
+          f"{len(slots['calls'])} decode calls")
+    want = layers * NEW_TOKENS + layers
+    # ---- the path: counts zeroed just before, read just after ----------
+    decode_attention_q8.launches = 0
+    one = caches(1, single["prompt"])
+    for i, (q, kr, vr, pos) in enumerate(single["calls"]):
+        layer, step = i % layers, i // layers
+        ck, cv, fk, fv = one[layer]
+        check(int(pos[0]) == MAX_PROMPT + step,
+              f"kv_int8: step {step} inserted at {int(pos[0])}")
+        quant_insert(ck, kr[:, None], MAX_PROMPT + step)
+        quant_insert(cv, vr[:, None], MAX_PROMPT + step)
+        fk[:, MAX_PROMPT + step], fv[:, MAX_PROMPT + step] = kr, vr
+        length = MAX_PROMPT + step + 1
+        out = decode_attention_q8(q, ck.q, ck.scale, cv.q, cv.scale, length)
+        held(out, q, ck, cv, fk, fv, length, f"layer {layer} step {step}")
+    four = caches(len(SLOT_LENS), slots["prompt"])
+    slot_outs = []
+    for layer, (q, kr, vr, pos) in enumerate(slots["calls"]):
+        ck, cv, fk, fv = four[layer]
+        check(pos.tolist() == list(SLOT_LENS), f"kv_int8: 4-slot step "
+              f"inserted at {pos.tolist()}")
+        quant_insert(ck, kr[:, None], pos)
+        quant_insert(cv, vr[:, None], pos)
+        rows = torch.arange(len(SLOT_LENS), device=dev)
+        fk[rows, pos], fv[rows, pos] = kr, vr
+        lens = (pos + 1).to(torch.int32)
+        out = decode_attention_q8(q, ck.q, ck.scale, cv.q, cv.scale, lens)
+        held(out, q, ck, cv, fk, fv, lens, f"4-slot layer {layer}")
+        slot_outs.append((q, ck, cv, lens, out))
+    launches = decode_attention_q8.launches
+    check(launches == want, f"kv_int8: K7 launched {launches} times, the "
+          f"loop implies {want}")
+
+    # ---- the int8 cache against the fp32 one ---------------------------
+    qs = torch.cat([c[0].flatten() for c in single["calls"] + slots["calls"]])
+    ks = torch.cat([t[0].flatten() for t in single["prompt"] + slots["prompt"]]
+                   + [c[1].flatten() for c in single["calls"]
+                      + slots["calls"]])
+    vs = torch.cat([t[1].flatten() for t in single["prompt"] + slots["prompt"]]
+                   + [c[2].flatten() for c in single["calls"]
+                      + slots["calls"]])
+    bound = int8_bound(qs, ks, vs)
+    check(stats["vs_fp32_max_abs_err"] <= bound, f"kv_int8: int8 vs fp32 "
+          f"cache {stats['vs_fp32_max_abs_err']} > {bound}")
+
+    # ---- control: every scale 1 must miss the bound ----------------------
+    control = []
+    for (q, kr, vr, pos), (ck, cv, _, _) in zip(single["calls"][-layers:],
+                                                 one):
+        ones = lambda c: QuantKV(c.q, torch.ones_like(c.scale))
+        length = int(pos[0]) + 1
+        got = decode_attention_q8(q, *ones(ck), *ones(cv), length)
+        control.append(attn_err(got, plain(q, ck, cv, length))[1])
+    check(min(control) > 1, f"kv_int8: K7 with unit scales stays within the "
+          f"bound ({control} x), so the bound cannot tell the scales "
+          f"reached the kernel")
+
+    # ---- batch == sequential, bitwise ------------------------------------
+    for q, ck, cv, lens, out in slot_outs:
+        for i in range(len(SLOT_LENS)):
+            s_ = slice(i, i + 1)
+            got = decode_attention_q8(q[s_], ck.q[s_], ck.scale[s_], cv.q[s_],
+                                      cv.scale[s_], lens[s_])
+            check(torch.equal(got[0], out[i]),
+                  f"kv_int8: batch != sequential at slot {i}")
+
+    # ---- quantize_kv on the card against the CPU -------------------------
+    kv_rows = torch.cat([t.reshape(-1, *t.shape[-2:]) for pair in
+                      single["prompt"] + slots["prompt"] for t in pair]
+                     + [t.reshape(-1, *t.shape[-2:]) for c in
+                        single["calls"] + slots["calls"] for t in c[1:3]])
+    card, cpu = quantize_kv(kv_rows), quantize_kv(kv_rows.cpu())
+    check(torch.equal(card.scale.cpu(), cpu.scale),
+          "kv_int8: quantize_kv scales differ between the card and the CPU")
+    y = kv_rows.cpu() / cpu.scale
+    ay = y.abs()
+    near_half = ((ay - ay.floor() - 0.5).abs()
+                 <= torch.nextafter(ay, torch.full_like(ay, float("inf")))
+                 - ay)
+    differ = card.q.cpu() != cpu.q
+    check(not bool((differ & ~near_half).any()), "kv_int8: quantize_kv "
+          "codes differ away from half-integers")
+
+    # ---- more shapes against the plain version ---------------------------
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    extra = {}
+    for name, (b, smax_, h, kh, d, lens, window, dtype) in {
+            "d32": (2, 128, 8, 8, 32, [128, 60], 0, torch.float32),
+            "mixed_gqa4_window_bf16": (4, 144, 32, 8, 80, [1, 77, 144, 300],
+                                       16, torch.bfloat16),
+            "no_valid_position": (2, 64, 4, 2, 64, [1000, 70], 5,
+                                  torch.float32)}.items():
+        q = rand(b, 1, h, d).to(dtype)
+        ck, cv = quantize_kv(rand(b, smax_, kh, d)), \
+            quantize_kv(rand(b, smax_, kh, d))
+        lt = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = decode_attention_q8(q, ck.q, ck.scale, cv.q, cv.scale, lt,
+                                  window=window)
+        ref = decode_attention_q8_ref(q[:, 0], ck.q, ck.scale, cv.q,
+                                      cv.scale, lt, window=window)[:, None]
+        err, ratio = attn_err(got, ref)
+        check(ratio <= 1, f"kv_int8 {name}: {err} is {ratio} x its "
+              f"allowance")
+        extra[name] = {"shape": list(q.shape), "cache": list(ck.q.shape),
+                       "lengths": lens, "window": window,
+                       "dtype": str(dtype)[6:], "max_abs_err": err,
+                       "err_over_allowance": ratio}
+
+    ck = one[0][0]
+    cache_bytes = ck.q.numel() * ck.q.element_size() + \
+        ck.scale.numel() * ck.scale.element_size()
+    vs_fp32, vs_bf16 = cache_bytes / (ck.q.numel() * 4), \
+        cache_bytes / (ck.q.numel() * 2)
+    check(vs_bf16 < 0.6, f"kv_int8: QuantKV is {vs_bf16} of a bf16 cache")
+    q0 = single["calls"][0][0]
+    return {"phase": "kv_int8", "layers": layers,
+            "cache": list(ck.q.shape), "decode_steps": NEW_TOKENS,
+            "slot_lengths": list(SLOT_LENS), "launches": launches,
+            "launches_implied": want, "tol": tol, **stats,
+            "vs_fp32_bound": bound, "rms_q_k_v": [
+                float(t.square().mean().sqrt()) for t in (qs, ks, vs)],
+            "unit_scales_control_err_over_allowance": control,
+            "batch_vs_sequential": "bitwise",
+            "quantize_kv_card_vs_cpu": {
+                "scales": "bitwise", "elements": kv_rows.numel(),
+                "codes_differ": int(differ.sum()),
+                "within_one_ulp_of_half": int(near_half.sum())},
+            "quant_bytes_vs_fp32": vs_fp32, "quant_bytes_vs_bf16": vs_bf16,
+            "extra_shapes": extra, "phase_s": time.perf_counter() - t_phase,
+            "row": (q0, one[0][0], one[0][1], MAX_PROMPT + 1)}
 
 
 def encode_phase(dev, texts) -> dict:
@@ -721,6 +991,9 @@ def check_attention(rec_flash, rec_dec, dev) -> dict:
     decode_case("mixed_window", qc, kc, vc, mixed, 16)
     decode_case("all_past_smax", qc, kc, vc, 10_000)
     decode_case("bf16", qc.bfloat16(), kc.bfloat16(), vc.bfloat16(), mixed)
+    decode_case("d32", rand(2, 1, 8, 32), rand(2, 128, 8, 32),
+                rand(2, 128, 8, 32),
+                torch.tensor([128, 60], dtype=torch.int32, device=dev))
 
     # batch == sequential, bitwise: row b's output does not depend on B
     for i in range(16):
@@ -837,6 +1110,72 @@ def attention_rows(rec_flash, rec_dec, launches, checked) -> list:
         "bound_ms": lim[0], "bound_by": lim[1],
         "library_ms": cuda_ms(lambda: sdpa(q, kc, vc, attn_mask=mask), 200)})
     return rows
+
+
+def q8_row(row, launches, err) -> dict:
+    """The ``kernels`` line's row of K7 at the recorded decode shape: q (1,
+    1, 32, 80) against the int8 (1, 144, 32, 80) cache of layer 0 at 129
+    valid rows.  Bound: the valid K and V rows at 1 byte an element with
+    their f32 scales, q and the output, at HBM's rate, against 4 D flops
+    per (head, valid position) and one dequantizing multiply per valid
+    cache element at the fp32 peak.  Library: a composite, one
+    dequantize of the cache and ``scaled_dot_product_attention`` with the
+    same mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_q8, decode_attention_q8_ref)
+    from repro_torch.models.quantization import dequantize_kv
+
+    q, ck, cv, length = row
+    (b, _, h, d), (smax, kh) = q.shape, ck.q.shape[1:3]
+    n_valid = b * min(length, smax)
+    lim = bound(2 * n_valid * kh * (d + 4) + 2 * q.numel() * q.element_size(),
+                4 * h * d * n_valid + 2 * kh * d * n_valid)
+    mask = (torch.arange(smax, device=q.device) < length)[None, None, None]
+
+    def library():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), dequantize_kv(ck).transpose(1, 2),
+            dequantize_kv(cv).transpose(1, 2), attn_mask=mask,
+            enable_gqa=h != kh)
+
+    return {"name": "decode_attention_q8", "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention/kernel.py:122",
+            "launches": launches, "max_abs_err": err,
+            "ms": cuda_ms(lambda: decode_attention_q8(
+                q, ck.q, ck.scale, cv.q, cv.scale, length), 200),
+            "plain_ms": cuda_ms(lambda: decode_attention_q8_ref(
+                q[:, 0], ck.q, ck.scale, cv.q, cv.scale, length), 10),
+            "bound_ms": lim[0], "bound_by": lim[1],
+            "library_ms": cuda_ms(library, 200)}
+
+
+def q8_device_ms(row, calls: int = 100) -> dict:
+    """Device ms per call of K7 and of K6 at the ``kernels`` line's K7
+    shape, K6 on the dequantized cache, each over ``calls`` calls under
+    ``torch.profiler``: what the kernels take without their wrappers."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_q8)
+    from repro_torch.models.quantization import dequantize_kv
+
+    q, ck, cv, length = row
+    fk, fv = dequantize_kv(ck), dequantize_kv(cv)
+    runs = {"decode_attention_q8": lambda: decode_attention_q8(
+                q, ck.q, ck.scale, cv.q, cv.scale, length),
+            "decode_attention_dequantized": lambda: decode_attention(
+                q, fk, fv, length)}
+    out = {"calls": calls}
+    for name, fn in runs.items():
+        fn()                                            # warm
+        prof = profiled(lambda: [fn() for _ in range(calls)])
+        dev_ms = prof["device_ms"]
+        out[name] = {"device_ms_per_call": dev_ms / calls
+                     if isinstance(dev_ms, float) else dev_ms,
+                     "wall_ms_per_call": prof["wall_ms"] / calls,
+                     "top_device_events": prof["top_device_events"][:2]}
+    return out
 
 
 def main() -> int:
@@ -1008,7 +1347,12 @@ def main() -> int:
           "reduced_model_card_vs_cpu_max_err": small_err})
 
     # ---- the generator on the card against the CPU; encode -------------
-    emit(generator_parity(dev))
+    parity, recorded = generator_parity(dev)
+    emit(parity)
+    kv8 = kv_int8(dev, recorded)
+    q8_inputs = kv8.pop("row")
+    emit(kv8)
+    del recorded
     enc = encode_phase(dev, ds.texts[:ENC_TEXTS])
     emit(enc)
 
@@ -1145,6 +1489,7 @@ def main() -> int:
         {"flash_attention_causal": main_by_mask["causal"],
          "flash_attention_encode": enc["launches"]["non_causal"],
          "decode_attention": launches["decode_attention"]}, report)
+    kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"]))
 
     # ---- breakdown: one retrieval batch and one request's generation ----
     embs = ds.query_embs[BATCHES * BATCH:(BATCHES + 1) * BATCH]
@@ -1154,7 +1499,8 @@ def main() -> int:
     ret = profiled(lambda: index.search_batch(embs, K, NPROBE))
     gen_prof = profiled(lambda: gen.generate(prompt, NEW_TOKENS))
     emit({"phase": "breakdown", "retrieval_batch": ret,
-          "one_request_generation": gen_prof})
+          "one_request_generation": gen_prof,
+          "k7_vs_k6_device": q8_device_ms(q8_inputs)})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -35,28 +35,21 @@ struct Type {
 template <int D>
 using Dim = std::integral_constant<int, D>;
 
-template <class T, class F>
+template <class T, int... Ds, class F>
 int by_dim(int d, F&& launch) {
-  switch (d) {
-    case 64:
-      return launch(Type<T>{}, Dim<64>{});
-    case 80:
-      return launch(Type<T>{}, Dim<80>{});
-    case 128:
-      return launch(Type<T>{}, Dim<128>{});
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  int err = (int)cudaErrorInvalidValue;
+  (void)((d == Ds && ((err = launch(Type<T>{}, Dim<Ds>{})), true)) || ...);
+  return err;
 }
 
 // Calls launch(Type<T>{}, Dim<D>{}) for dtype code 0 (float32) or 1
-// (bfloat16) and a head dim D of 64, 80 or 128; cudaErrorInvalidValue for
-// anything else.  The launcher reads T and D back as
-// typename decltype(t)::type and decltype(d)::value.
-template <class F>
+// (bfloat16) and a head dim D among the kernel's Ds (each instantiated);
+// cudaErrorInvalidValue for anything else.  The launcher reads T and D
+// back as typename decltype(t)::type and decltype(d)::value.
+template <int... Ds, class F>
 int dispatch(int dtype, int d, F&& launch) {
-  if (dtype == 0) return by_dim<float>(d, launch);
-  if (dtype == 1) return by_dim<__nv_bfloat16>(d, launch);
+  if (dtype == 0) return by_dim<float, Ds...>(d, launch);
+  if (dtype == 1) return by_dim<__nv_bfloat16, Ds...>(d, launch);
   return (int)cudaErrorInvalidValue;
 }
 

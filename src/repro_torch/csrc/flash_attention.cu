@@ -188,7 +188,7 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
       sq < 1 || skv < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  return attn::dispatch(dtype, d, [&](auto t, auto dim) {
+  return attn::dispatch<64, 80, 128>(dtype, d, [&](auto t, auto dim) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dim)::value;
     const int smem = 2 * kBK * D * (int)sizeof(float);  // <= 32 KB

@@ -19,12 +19,14 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._attention import (DTYPES, HEAD_DIMS, F, I, L,
-                                            P, check_operands,
-                                            check_strides, raise_on_error)
+from repro_torch.kernels._attention import (DTYPES, F, I, L, P,
+                                            check_operands, check_strides,
+                                            raise_on_error)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 __all__ = ["flash_attention", "HEAD_DIMS"]
+
+HEAD_DIMS = (64, 80, 128)      # the head dims the kernel is built for
 
 
 @functools.cache
@@ -46,7 +48,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bk != b or dk != d or h % kh or sq < 1 or skv < 1:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}"
                          f" (need the same B and D, H % KH == 0, S >= 1)")
-    check_operands("flash_attention", q, k, v, window)
+    check_operands("flash_attention", q, k, v, window, HEAD_DIMS)
 
 
 def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:

@@ -41,7 +41,7 @@ from repro.models.cache import KVCache as JaxKVCache  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    DecodeLengths, decode_attention, decode_attention_ref, decode_lengths)
+    DecodeLengths, decode_attention, decode_lengths)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     HEAD_DIMS, flash_attention, flash_attention_ref)
 from repro_torch.models import (decode_step, encode, init_cache,  # noqa: E402
@@ -189,12 +189,8 @@ def test_decode_plain_matches_jax_pallas_and_ref(b, h, kh, smax, d, clen,
     rng = np.random.default_rng(smax + d + clen)
     q = _rand(rng, (b, h, d))
     kc, vc = _rand(rng, (b, smax, kh, d)), _rand(rng, (b, smax, kh, d))
-    if d in HEAD_DIMS:
-        out = decode_attention(_t(q[:, None]), _t(kc), _t(vc), clen,
-                               window=win)[:, 0].numpy()
-    else:
-        out = decode_attention_ref(_t(q), _t(kc), _t(vc), clen,
-                                   window=win).numpy()
+    out = decode_attention(_t(q[:, None]), _t(kc), _t(vc), clen,
+                           window=win)[:, 0].numpy()
     jq, jk, jv = (jnp.asarray(a) for a in (q, kc, vc))
     pal = decode_attention_pallas(jq, jk, jv, clen, window=win,
                                   bk=min(128, smax), interpret=True)

@@ -30,11 +30,17 @@ def test_importing_every_module_loads_no_jax_or_repro():
                  "repro_torch.models.quantization",
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.kernels._attention",
-                 "repro_torch.kernels.decode_attention.ops"):
+                 "repro_torch.kernels.decode_attention.ops",
+                 "repro_torch.kernels.decode_attention.ref"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from repro_torch.kernels.decode_attention import (\n"
+            "    decode_attention_q8, decode_attention_q8_ref)\n"
+            "from repro_torch.models.quantization import (\n"
+            "    QuantKV, dequantize_kv, init_quant_cache, quant_insert,\n"
+            "    quantize_kv)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
             "             m.startswith(('jax.', 'jaxlib', 'repro.')) or\n"
             "             m == 'repro')\n"

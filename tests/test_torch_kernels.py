@@ -12,10 +12,11 @@ int8 slabs the products are those of the widened int8 values, and the
 bound is multiplied by the largest scale.  PQ scores are gathers and adds
 in one fixed order on both sides, so they are compared bitwise.
 
-The attention kernels (``flash_attention``, ``decode_attention``) are held
-against their plain versions here only on the card; their CPU parity with
-the JAX package is ``tests/test_torch_attention.py``.  Their tolerance is
-:func:`_attn_ratio`.
+The attention kernels (``flash_attention``, ``decode_attention`` and the
+int8-cache ``decode_attention_q8``) are held against their plain versions
+here only on the card; their CPU parity with the JAX package is
+``tests/test_torch_attention.py`` and ``tests/test_torch_quantization.py``.
+Their tolerance is :func:`_attn_ratio`.
 """
 import dataclasses
 
@@ -35,6 +36,8 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_lengths  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention_ref  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_q8  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_q8_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_ref  # noqa: E402
 from repro_torch.kernels.ivf_topk import topk_ip  # noqa: E402
@@ -43,6 +46,7 @@ from repro_torch.kernels.slab_topk.ref import lex_topk  # noqa: E402
 from repro_torch.kernels.slab_topk.ref import slab_topk_ref  # noqa: E402
 from repro_torch.models import (decode_step, encode, init_cache,  # noqa: E402
                                 init_params, prefill)
+from repro_torch.models.quantization import dequantize_kv, quantize_kv  # noqa: E402
 
 
 def _tol(e: np.ndarray, q: np.ndarray) -> float:
@@ -587,7 +591,7 @@ def _decode_case(dev, b, smax, h, kh, d, dtype=torch.float32, seed=1):
 
 # b, smax, h, kh, d, lengths, window: the main path's decode shape, mixed
 # per-slot lengths with GQA, a window, a length >= Smax, a window that
-# leaves no valid position (the mean of V), D = 128, bf16
+# leaves no valid position (the mean of V), D = 128, bf16, D = 32
 DECODE_CASES = [
     (1, 144, 32, 32, 80, [129], 0, torch.float32),
     (4, 144, 8, 2, 80, [1, 77, 144, 130], 0, torch.float32),
@@ -596,6 +600,7 @@ DECODE_CASES = [
     (2, 64, 4, 2, 64, [1000, 70], 5, torch.float32),
     (3, 96, 8, 4, 128, [96, 3, 40], 0, torch.float32),
     (2, 128, 4, 2, 64, [128, 31], 8, torch.bfloat16),
+    (2, 128, 8, 8, 32, [128, 60], 0, torch.float32),
 ]
 
 
@@ -704,3 +709,86 @@ def test_cuda_attention_refusals_raise_and_the_next_launch_runs(cuda):
     one = decode_attention(q[:, :1], k, v, 16)
     assert _attn_ratio(one, decode_attention_ref(q[:, 0], k, v, 16)[:, None]
                        ) <= 1
+
+
+# ---------------------------------------------------------------------------
+# the int8-cache decode kernel (K7), only on the card
+# ---------------------------------------------------------------------------
+def _q8_case(dev, b, smax, h, kh, d, dtype=torch.float32, seed=2):
+    q, k, v = _qkv(dev, b, 1, smax, h, kh, d, torch.float32, seed)
+    return q.to(dtype), quantize_kv(k), quantize_kv(v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,smax,h,kh,d,lens,window,dtype", DECODE_CASES)
+def test_cuda_decode_attention_q8_matches_plain_and_k6_on_dequant(
+        cuda, b, smax, h, kh, d, lens, window, dtype):
+    """K7 against its plain version, and against K6 on the dequantized
+    cache (the JAX package's contract, ``tests/test_quantization.py``)."""
+    q, qk, qv = _q8_case(cuda, b, smax, h, kh, d, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = decode_attention_q8.launches
+    out = decode_attention_q8(q, qk.q, qk.scale, qv.q, qv.scale, lengths,
+                              window=window)
+    assert decode_attention_q8.launches == before + 1
+    ref = decode_attention_q8_ref(q[:, 0], qk.q, qk.scale, qv.q, qv.scale,
+                                  lengths, window=window)[:, None]
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert _attn_ratio(out, ref) <= 1
+    if dtype == torch.float32:     # K6 takes a cache of q's dtype
+        k6 = decode_attention(q, dequantize_kv(qk), dequantize_kv(qv),
+                              lengths, window=window)
+        assert _attn_ratio(out, k6) <= 1
+    if len(set(lens)) == 1:
+        assert torch.equal(decode_attention_q8(
+            q, qk.q, qk.scale, qv.q, qv.scale, lens[0], window=window), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 24])
+def test_cuda_decode_attention_q8_batch_equals_sequential(cuda, window):
+    q, qk, qv = _q8_case(cuda, 6, 160, 16, 4, 80)
+    lengths = torch.tensor([160, 1, 33, 97, 150, 64], dtype=torch.int32,
+                           device=cuda)
+    out = decode_attention_q8(q, qk.q, qk.scale, qv.q, qv.scale, lengths,
+                              window=window)
+    for i in range(6):
+        s = slice(i, i + 1)
+        one = decode_attention_q8(q[s], qk.q[s], qk.scale[s], qv.q[s],
+                                  qv.scale[s], lengths[s], window=window)
+        assert torch.equal(one[0], out[i]), i
+
+
+@pytest.mark.gpu
+def test_cuda_quantize_kv_equals_the_cpu_bitwise(cuda):
+    """Scales and codes on the card equal the CPU's (and so the JAX
+    package's, ``tests/test_torch_quantization.py``)."""
+    x = _qkv("cpu", 2, 1, 300, 1, 32, 80, seed=4)[1] * 2.5
+    card, cpu = quantize_kv(x.to(cuda)), quantize_kv(x)
+    assert torch.equal(card.scale.cpu(), cpu.scale)
+    assert torch.equal(card.q.cpu(), cpu.q)
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_q8_refusals_raise_and_the_next_launch_runs(
+        cuda):
+    q, qk, qv = _q8_case(cuda, 2, 64, 4, 2, 64)
+    lens = torch.tensor([64, 9], dtype=torch.int32, device=cuda)
+    good = decode_attention_q8(q, qk.q, qk.scale, qv.q, qv.scale, lens)
+    bad = [
+        (TypeError, (q, qk.q.float(), qk.scale, qv.q.float(), qv.scale, 8)),
+        (TypeError, (q, qk.q, qk.scale.half(), qv.q, qv.scale.half(), 8)),
+        (ValueError, (q, qk.q, qk.scale[:, :, :1], qv.q, qv.scale, 8)),
+        (ValueError, (q, qk.q, qk.scale[..., 0], qv.q, qv.scale, 8)),
+        (ValueError, (q, qk.q, qk.scale, qv.q, qv.scale, 0)),
+        (ValueError, (q, qk.q, qk.scale, qv.q, qv.scale,
+                      torch.tensor([3, 0], device=cuda))),
+    ]
+    for exc, args in bad:
+        with pytest.raises(exc):
+            decode_attention_q8(*args)
+        assert torch.equal(decode_attention_q8(q, qk.q, qk.scale, qv.q,
+                                               qv.scale, lens), good)
+    q96, k96, v96 = _q8_case(cuda, 1, 16, 4, 4, 96)
+    with pytest.raises(ValueError, match="head dims"):
+        decode_attention_q8(q96, k96.q, k96.scale, v96.q, v96.scale, 16)
