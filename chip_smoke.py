@@ -8,7 +8,10 @@ Phases, one JSON line each:
   env              card (``nvidia-smi`` name and power limit), torch / CUDA
                    versions, and the build of every kernel from
                    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at
-                   once, into the git-ignored ``build/kernels/``).
+                   once, into the git-ignored ``build/kernels/``), with
+                   ``ptxas``'s registers and spills per kernel entry; every
+                   ``flash_attention`` entry (head dims 64, 80, 128, f32 and
+                   bf16, both layouts) must spill nothing.
   main_path        the port's request path at full size: a fiqa-sized corpus
                    (25,000 chunks, dim 768) indexed by ``EdgeRAGIndex.build``
                    (nlist 125), then batches of 16 requests through
@@ -80,19 +83,31 @@ Phases, one JSON line each:
                    bf16, mixed per-slot lengths, a length >= Smax, decode
                    at D = 32), within
                    :func:`attn_tol` (bf16: + one ulp), which K and V
-                   rounded to bf16 must miss at the recorded inputs;
+                   rounded to bf16 must miss at the recorded inputs, and
+                   which q, K and V rounded to TF32 (what a 1xTF32
+                   ``flash_attention`` would see) must miss at the recorded
+                   prefill and encode inputs; K and V off a 16-byte
+                   boundary (staged by plain loads) give the aligned bits;
                    batch == sequential, bitwise; and each
                    refusal (a head dim not built, a length of 0, a logit
                    softcap) raises, with the next launch running.
   breakdown        one more retrieval batch, and one request's generation,
                    under ``torch.profiler``: device time (kernels and copies)
-                   against host wall time; and K7 against K6 on its
-                   dequantized cache at K7's ``kernels`` shape, 100 calls
-                   each, device ms per call beside wall ms per call.
+                   against host wall time; K7 against K6 on its
+                   dequantized cache at K7's ``kernels`` shape; and K5
+                   against ``scaled_dot_product_attention`` at the recorded
+                   prefill and encode inputs: 100 calls each, device ms per
+                   call beside wall ms per call.
 
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
-library time, and the bound from this run's inputs), the ``nvidia-smi``
-line, and last ``{"ok": true, "device": {...}}``.  Any failed check raises,
+library time, and the bound from this run's inputs; K5's rows also carry
+the breakdown's device ms of K5 and of SDPA), the ``nvidia-smi`` line, and
+last ``{"ok": true, "device": {...}}``.  Bounds: bytes read once at HBM's
+3.35 TB/s against the function's operations at the fp32-accurate peak of
+the unit the kernel runs them on: for K5 the tensor cores, whose 495 TFLOP/s
+in TF32 give 165 TFLOP/s at fp32 accuracy (3xTF32 takes three TF32
+products for one fp32 product); for the others the CUDA cores' 67 TFLOP/s
+in fp32.  Any failed check raises,
 so the script exits non-zero without that last line; it also does so when
 no CUDA device is present or the package is missing beside it.
 """
@@ -114,6 +129,8 @@ sys.path.insert(0, str(ROOT / "src"))
 # published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12          # fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12         # TF32 on the tensor cores
+F32_TC_FLOPS_PER_S = TF32_FLOPS_PER_S / 3  # fp32-accurate (3xTF32) on them
 
 DATASET, RECORDS, DIM, NLIST = "fiqa", 25_000, 768, 125
 BATCHES, BATCH, K, NPROBE = 4, 16, 10, 8
@@ -159,11 +176,36 @@ def nvidia_smi() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def bound(nbytes: float, ops: float) -> tuple:
+def bound(nbytes: float, ops: float,
+          flops_per_s: float = FP32_FLOPS_PER_S) -> tuple:
     """(least ms on the card, what bounds it): the bytes over HBM's rate
-    against the fp32 operations over the fp32 peak."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    against the operations over the peak of the unit the kernel uses (the
+    fp32 peak outside the tensor cores unless ``flops_per_s`` says
+    otherwise)."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, ops / flops_per_s
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def flash_ptxas(lines) -> object:
+    """``ptxas``'s registers and spill stores per ``flash_attention``
+    entry (dtype, head dim, warps sharing a row tile), checking that none
+    spills; "not rebuilt" when the library was built before this run."""
+    import re
+    if not lines:
+        return "not rebuilt in this run"
+    out = {}
+    for ln in lines:
+        kind = re.search(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        spill = re.search(r"(\d+) bytes spill stores", ln)
+        check(kind and regs and spill, f"unread ptxas line: {ln}")
+        dtype = "f32" if kind[1] == "f" else "bf16"
+        out[f"{dtype} D={kind[2]} x{kind[3]}"] = [int(regs[1]),
+                                                  int(spill[1])]
+    check(len(out) == 12, f"flash_attention: {len(out)} entries, not 12")
+    spilled = {k: v for k, v in out.items() if v[1]}
+    check(not spilled, f"flash_attention spills: {spilled}")
+    return {"registers_and_spill_bytes": out}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -526,10 +568,12 @@ def attn_tol(d: int) -> float:
     ``d``: the JAX package's own bound for its attention kernels against
     their references (2e-5 at D = 64, ``tests/test_kernels.py``), scaled by
     D / 64 for wider heads (a score's rounding grows with its terms).  The
-    kernels measure 2e-7 to 2e-6 at every shape checked here.  A kernel
-    that staged K and V in bf16 would err by about 2**-9 |out|; the
-    ``bf16_kv_control`` entries show that such an error exceeds this
-    bound at the main path's prefill, encode and decode inputs."""
+    kernels measure 2e-7 to 6e-6 at every shape checked here.  A kernel
+    that staged K and V in bf16 would err by about 2**-9 |out|, one that
+    took a single TF32 product by about 2**-12 |out|; the
+    ``bf16_kv_control`` and ``tf32_control`` entries show that such errors
+    exceed this bound at the main path's prefill and encode inputs (and,
+    for bf16, decode)."""
     return 2e-5 * max(1.0, d / 64)
 
 
@@ -547,6 +591,22 @@ def attn_err(got, ref) -> tuple:
         allow = allow + torch.where(r == 0, 0.0, torch.ldexp(
             torch.ones_like(r), e - 8))
     return float(diff.max()), float((diff / allow).max())
+
+
+def tf32(t):
+    """f32 ``t`` rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    import torch
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def sdpa(q, k, v, **kw):
+    """PyTorch's ``scaled_dot_product_attention`` on the model's layout."""
+    import torch.nn.functional as F
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=q.shape[2] != k.shape[2], **kw).transpose(1, 2)
 
 
 def flash_plain(q, k, v, causal=True, window=0):
@@ -940,6 +1000,24 @@ def check_attention(rec_flash, rec_dec, dev) -> dict:
               f"bound ({ratio} x), so the bound cannot catch them")
         out[name]["bf16_kv_control_err_over_allowance"] = ratio
 
+    def tf32_control(name, q, k, v, causal):
+        """The plain version on q, K and V rounded to TF32 must miss the
+        f32 bound: a flash_attention that took one TF32 product (and not
+        3xTF32) would fail these checks."""
+        ref = flash_plain(q, k, v, causal)
+        _, ratio = attn_err(flash_plain(tf32(q), tf32(k), tf32(v), causal),
+                            ref)
+        check(ratio > 1, f"{name}: q, K, V rounded to TF32 stay within the "
+              f"f32 bound ({ratio} x), so the bound cannot catch them")
+        out[name]["tf32_control_err_over_allowance"] = ratio
+
+    def shifted(t):
+        """A copy of ``t`` 4 bytes off a 16-byte boundary."""
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        moved = buf[1:].view(t.shape)
+        moved.copy_(t)
+        return moved
+
     def flash_case(name, q, k, v, causal=True, window=0):
         got = flash_attention(q, k, v, causal=causal, window=window)
         held(f"flash_attention_{name}", got,
@@ -966,9 +1044,15 @@ def check_attention(rec_flash, rec_dec, dev) -> dict:
     (q, k, v), kw = rec_flash.first[True]
     flash_case("prefill", q, k, v, **kw)
     control("flash_attention_prefill", flash_plain, q, k, v, True)
+    tf32_control("flash_attention_prefill", q, k, v, True)
+    check(torch.equal(flash_attention(q, shifted(k), shifted(v)),
+                      flash_attention(q, k, v)),
+          "flash_attention: K, V off 16 bytes do not give the aligned bits")
+    out["flash_attention_prefill"]["unaligned_kv"] = "bitwise"
     (qe, ke, ve), kw = rec_flash.first[False]
     enc = flash_case("encode", qe, ke, ve, **kw)
     control("flash_attention_encode", flash_plain, qe, ke, ve, False)
+    tf32_control("flash_attention_encode", qe, ke, ve, False)
     (qd, kd, vd, lens), kw = rec_dec.first[None]
     decode_case("decode", qd, kd, vd, lens, **kw)
     control("decode_attention_decode", decode_plain, qd, kd, vd, lens)
@@ -1049,37 +1133,34 @@ def check_attention(rec_flash, rec_dec, dev) -> dict:
     return out
 
 
-def attention_rows(rec_flash, rec_dec, launches, checked) -> list:
+def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev) -> list:
     """The ``kernels`` line's rows of the attention kernels at the recorded
     prefill, encode and decode inputs.  Bound: q, k, v read once and the
     output written once (for decode, only the valid cache rows of K and V)
     at HBM's rate, against 4 D flops per (query, valid key) pair per head
-    (q . k and p v) at the fp32 peak.  Library: PyTorch's
-    ``scaled_dot_product_attention`` with the same mask."""
+    (q . k and p v): for K5 at the tensor cores' fp32-accurate (3xTF32)
+    peak, for K6 at the fp32 peak.  Library: PyTorch's
+    ``scaled_dot_product_attention`` with the same mask.  K5's rows add
+    ``k5_dev``'s device ms per call of K5 and of that library call."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
 
-    def sdpa(q, k, v, **kw):
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            enable_gqa=q.shape[2] != k.shape[2], **kw)
-
     rows = []
-    for name, causal, n_launch, err in (
-            ("flash_attention", True, launches["flash_attention_causal"],
-             checked["flash_attention_prefill"]["max_abs_err"]),
-            ("flash_attention_encode", False,
-             launches["flash_attention_encode"],
-             checked["flash_attention_encode"]["max_abs_err"])):
+    for name, shape, causal, n_launch in (
+            ("flash_attention", "prefill", True,
+             launches["flash_attention_causal"]),
+            ("flash_attention_encode", "encode", False,
+             launches["flash_attention_encode"])):
         (q, k, v), _ = rec_flash.first[causal]
         (b, sq, h, d), skv = q.shape, k.shape[1]
         pairs = sq * skv
         if causal:
             pairs = int(torch.tril(torch.ones(sq, skv)).sum())
         lim = bound((2 * q.numel() + k.numel() + v.numel())
-                    * q.element_size(), 4 * b * h * d * pairs)
+                    * q.element_size(), 4 * b * h * d * pairs,
+                    F32_TC_FLOPS_PER_S)
+        err = checked[f"flash_attention_{shape}"]["max_abs_err"]
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1090,7 +1171,9 @@ def attention_rows(rec_flash, rec_dec, launches, checked) -> list:
             "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal), 10),
             "bound_ms": lim[0], "bound_by": lim[1],
             "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=causal),
-                                  200)})
+                                  200),
+            "device_ms": k5_dev[shape]["flash_attention"]["device_ms_per_call"],
+            "library_device_ms": k5_dev[shape]["sdpa"]["device_ms_per_call"]})
     (q, kc, vc, lens), _ = rec_dec.first[None]
     (b, _, h, d), (smax, kh) = q.shape, kc.shape[1:3]
     valid = (torch.arange(smax, device=q.device)[None, :]
@@ -1162,10 +1245,31 @@ def q8_device_ms(row, calls: int = 100) -> dict:
 
     q, ck, cv, length = row
     fk, fv = dequantize_kv(ck), dequantize_kv(cv)
-    runs = {"decode_attention_q8": lambda: decode_attention_q8(
-                q, ck.q, ck.scale, cv.q, cv.scale, length),
-            "decode_attention_dequantized": lambda: decode_attention(
-                q, fk, fv, length)}
+    return device_ms({"decode_attention_q8": lambda: decode_attention_q8(
+                          q, ck.q, ck.scale, cv.q, cv.scale, length),
+                      "decode_attention_dequantized": lambda: decode_attention(
+                          q, fk, fv, length)}, calls)
+
+
+def k5_device_ms(rec_flash, calls: int = 100) -> dict:
+    """Device ms per call of K5 and of ``scaled_dot_product_attention``
+    with the same mask at the recorded prefill and encode inputs, each over
+    ``calls`` calls under ``torch.profiler``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    out = {}
+    for shape, causal in (("prefill", True), ("encode", False)):
+        (q, k, v), _ = rec_flash.first[causal]
+        out[shape] = device_ms(
+            {"flash_attention": lambda: flash_attention(q, k, v,
+                                                        causal=causal),
+             "sdpa": lambda: sdpa(q, k, v, is_causal=causal)}, calls)
+    return out
+
+
+def device_ms(runs: dict, calls: int) -> dict:
+    """Per named function: device ms per call over ``calls`` calls under
+    ``torch.profiler`` (what the kernels take without their wrappers),
+    beside wall ms per call with the profiler on."""
     out = {"calls": calls}
     for name, fn in runs.items():
         fn()                                            # warm
@@ -1210,12 +1314,14 @@ def main() -> int:
     t0 = time.perf_counter()
     per_kernel_s = _build.build()
     build_s = time.perf_counter() - t0
+    k5_ptxas = flash_ptxas(_build.ptxas_report.get("flash_attention"))
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
-          "build_s_per_kernel": per_kernel_s, "ptxas": _build.ptxas_report})
+          "build_s_per_kernel": per_kernel_s,
+          "flash_attention_ptxas": k5_ptxas, "ptxas": _build.ptxas_report})
 
     # ---- main path ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1484,11 +1590,12 @@ def main() -> int:
         kernels.append(quantized_row(mode, e, q, v, k, kw,
                                      codecs[CODECS.index(mode)]["launches"]
                                      [mode], report[f"slab_topk_{mode}"]))
+    k5_dev = k5_device_ms(rec_flash)
     kernels += attention_rows(
         rec_flash, rec_dec,
         {"flash_attention_causal": main_by_mask["causal"],
          "flash_attention_encode": enc["launches"]["non_causal"],
-         "decode_attention": launches["decode_attention"]}, report)
+         "decode_attention": launches["decode_attention"]}, report, k5_dev)
     kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"]))
 
     # ---- breakdown: one retrieval batch and one request's generation ----
@@ -1500,7 +1607,8 @@ def main() -> int:
     gen_prof = profiled(lambda: gen.generate(prompt, NEW_TOKENS))
     emit({"phase": "breakdown", "retrieval_batch": ret,
           "one_request_generation": gen_prof,
-          "k7_vs_k6_device": q8_device_ms(q8_inputs)})
+          "k7_vs_k6_device": q8_device_ms(q8_inputs),
+          "k5_vs_sdpa_device": k5_dev})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,5 +1,5 @@
 // flash_attention: GQA prefill attention with an online softmax, for Hopper
-// (sm_90a).
+// (sm_90a), on the tensor cores in 3xTF32.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py::
 // flash_attention_pallas (the TPU kernel whose sequential KV grid axis
@@ -17,158 +17,425 @@
 // in q's dtype.  Any Sq, Skv >= 1: the ragged tails are masked here (the TPU
 // kernel's "pad seq to block multiple" is a limit of its tiling).
 //
-// Design.  One block per (64-row query tile, query head, batch row), 128
-// threads: four threads per pair of query rows (r and r + 32 of the tile),
-// thread p of a pair owning the head dims p, p + 4, p + 8, ... of both rows'
-// q (pre-scaled) and accumulators, in registers.  The block walks the KV
-// sequence in 32-row tiles staged in shared memory as f32 (20 KB at
-// D = 80), shared by all 64 query rows: a tile is read from device memory
-// once per query tile, not once per row.  Every K or V value a thread reads
-// from shared memory feeds two FMAs (its two rows), and the eight pairs of a
-// warp read the same four consecutive floats, one broadcast wavefront.  A
-// score is the owner's D/4 FMAs in ascending order and a fixed two-step xor
-// butterfly across the four owners, so every score has one reduction order
-// whatever B, Sq or the tile position: a batch gives bitwise the result of
-// its rows run one at a time.  Per tile, each row takes the tile's max,
-// rescales (alpha = exp(m - m_new)) and adds p_j v_j, as the TPU kernel does
-// per KV block.  KV tiles that the causal mask or the window mask entirely
-// are skipped (kernel.py:46-53) -- unless the query tile holds a row with
-// no valid key at all (possible only under a window with
-// q >= Skv + window - 1), which must see every key to return the mean.
+// What bounds it on this card: the bytes.  At the encode shape (256, 128,
+// 12, 64) q, k, v and the output are 402.7 MB, 0.120 ms at 3.35 TB/s; its
+// 12.9 GFLOP take 0.078 ms at the 165 TFLOP/s the tensor cores give at f32
+// accuracy (3xTF32, below: a third of their 495 TFLOP/s in TF32).  At the
+// main path's prefill shape (1, 128, 32, 80) the work is small (5.2 MB,
+// 0.0016 ms): a warp's sequential walk over the keys, not the card's rates,
+// sets the time.
 //
-// What bounds it on this card: at the main path's prefill shape the work
-// is small (~0.08 GFLOP causal, ~5 MB) and launch latency bounds it.  At
-// the encode shape (12.9 GFLOP) it is the CUDA cores' f32 FMAs, two per
-// shared-memory read, against 67 TFLOP/s; tensor cores (wgmma over
-// TMA-staged tiles) are later work.
+// Design.  A block is four warps; each warp owns 16 query rows.  Both
+// products run on the tensor cores as mma.sync m16n8k8 in TF32:
+// S = (q * D^-0.5) . K^T over 8-dim steps, and O += P . V over 8-key steps.
+// TF32 keeps 10 mantissa bits, so each f32 operand x is split into a hi
+// part rounded to nearest (Veltkamp: t = x * 8193, hi = t - (t - x), 11
+// significant bits) and lo = x - hi (exact; the tensor core reads its top
+// 11 bits), and every product is lo.hi + hi.lo + hi.hi, small terms first,
+// into f32 accumulators (3xTF32, as CUTLASS's OpMultiplyAddFastF32 and
+// PyTorch's f32 SDPA do): about f32 accuracy, where one TF32 product would
+// miss the checks' bound by far.  (cvt.rna.tf32.f32 gives the same hi, but
+// compiles to a longer integer sequence.)  P stays
+// f32 and takes the same split; bf16 K / V widen exactly into TF32, so
+// their lo is 0 and its product is not issued.  q, pre-scaled, lives in
+// registers as f32 and is split per KV tile; S lives in the mma
+// accumulators.  A thread holds two rows (g and g + 8 of its warp's 16) and
+// computes the masks and exps of its own elements only; row max and row sum
+// take a fixed two-step xor butterfly across the quad that shares a row,
+// and the running sum stays per thread until the end.  S's accumulator
+// layout is P . V's A operand once each 8-key slice is relabelled (A column
+// t <-> key 2t, column t + 4 <-> key 2t + 1), with V's rows read in that
+// order: no shuffle.  q . K's 8-dim steps are relabelled the same way
+// (column t <-> dim 2t), so a thread's two K values are adjacent: one
+// 8-byte shared-memory read.  K / V tiles are staged in shared memory in
+// their own dtype by cp.async (16 bytes a thread, zero-filled past Skv), two
+// stages, so the next tile's copy runs under this tile's mma; rows are
+// padded (f32 K by 32 bytes, the rest by 16) so that every fragment read is
+// conflict-free.  An operand whose address or strides are not multiples of
+// 16 bytes is staged into the same tiles by plain loads instead.
+//
+// Two layouts of the four warps, one per mask kind.  Non-causal (the
+// encoder, over hundreds of texts: thousands of blocks): the four warps take
+// 64 query rows and share each 32-row KV tile, so K / V cross from L2 once
+// per 64 rows (and at D = 64 a 168-register cap keeps three blocks on an
+// SM).  Causal (the generator's prefill of a few prompts: at the main
+// path's shape 64 such blocks would leave half the SMs idle and walk 128
+// keys a warp): two warps take 32 query rows and two more the same rows,
+// each pair taking one half of every 64-row KV tile (D <= 80; 32 rows at
+// D = 128), and the halves are merged at the end in one fixed order (m =
+// max, both sides rescaled).  Twice the blocks, half the walk.  The layout
+// reads only the mask kind, never B.
+//
+// mma.sync and not wgmma: wgmma in TF32 takes both operands K-major, so
+// P . V would need V transposed in shared memory and P staged there too; a
+// query tile here sees two to four KV tiles, and the staging, the softmax
+// and the warp's walk, not the mma issue rate, are what bound it.
+//
+// Every output element's sums run in one order fixed by its own row and
+// the mask kind (the mma of its row, the tile order, the quad butterfly,
+// the merge), whatever B or the block's place in the grid: a batch gives
+// bitwise the result of its rows run one at a time.  Per KV tile, each row
+// takes the tile's max, rescales (alpha = exp(m - m_new)) and adds P . V, as
+// the TPU kernel does per KV block.  KV tiles that the causal mask or the
+// window masks entirely are skipped (kernel.py:46-53) -- unless the query
+// tile holds a row with no valid key at all (possible only under a window
+// with q >= Skv + window - 1), which must see every key to return the mean.
 #include "attention_common.cuh"
 
 namespace {
 
 using attn::kFull;
 using attn::kNegInf;
-using attn::store;
 using attn::Strides;
 using attn::widen;
 
-constexpr int kBQ = 64;                      // query rows per block
-constexpr int kBK = 32;                      // KV rows per shared-memory tile
-constexpr int kSplit = 4;                    // threads per pair of rows
-constexpr int kThreads = kBQ / 2 * kSplit;   // 128
+constexpr int kThreads = 128;   // four warps
 
-template <class T, int D>
-__global__ void __launch_bounds__(kThreads)
+// The layout of one instantiation: kGroups warps share each 16 query rows,
+// each taking kKeys of every kBK-row KV tile; tiles of D elements of T a
+// row, padded, K and V, two stages.
+template <class T, int D, int kGroups>
+struct Layout {
+  static constexpr int kRowWarps = 4 / kGroups;
+  static constexpr int kBQ = 16 * kRowWarps;            // query rows a block
+  static constexpr int kBK = D <= 80 ? 32 * kGroups : 32;
+  static constexpr int kKeys = kBK / kGroups;           // a warp's share
+  static constexpr int kVec = 16 / (int)sizeof(T);      // elements a copy
+  static constexpr int kPitchK = D + (sizeof(T) == 4 ? 8 : kVec);
+  static constexpr int kPitchV = D + kVec;
+  static constexpr int kStage = kBK * (kPitchK + kPitchV);   // K then V
+  static constexpr int kBytes = 2 * kStage * (int)sizeof(T);
+  static constexpr int kMinBlocks = kGroups == 1 && D == 64 ? 3 : 1;
+};
+
+// x = hi + lo, hi rounded to nearest at 11 significant bits
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float t = __fmul_rn(x, 8193.f);
+  const float h = __fsub_rn(t, __fsub_rn(t, x));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
+}
+
+// c += a . b, one m16n8k8 TF32 product with f32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b in 3xTF32 for a split A and a B of two f32 values: exact in
+// TF32 (bf16 K / V: lo is 0, one product fewer) or split too.
+template <bool kExact>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  if constexpr (kExact) {
+    const uint32_t bh[2] = {__float_as_uint(b0), __float_as_uint(b1)};
+    mma(c, al, bh);
+    mma(c, ah, bh);
+  } else {
+    uint32_t bh[2], bl[2];
+    split(b0, bh[0], bl[0]);
+    split(b1, bh[1], bl[1]);
+    mma(c, al, bh);
+    mma(c, ah, bl);
+    mma(c, ah, bh);
+  }
+}
+
+__device__ __forceinline__ float2 widen2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 widen2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+}
+
+// Stages KV rows kv0 .. kv0 + kBK - 1 of one head into a tile, rows past
+// Skv as zeros: by cp.async when ``vec`` (address and strides multiples of
+// 16 bytes), else by plain loads.
+template <class T, int D, int kBK, int kPitch>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long stride,
+                                      int kv0, int skv, bool vec) {
+  constexpr int kVec = 16 / (int)sizeof(T);
+  constexpr int kChunks = D / kVec;   // 16-byte copies a row
+  constexpr int kCopies = kBK * kChunks;
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < (kCopies + kThreads - 1) / kThreads; ++i) {
+      const int c = threadIdx.x + i * kThreads;
+      if (kCopies % kThreads != 0 && c >= kCopies) break;
+      const int r = c / kChunks, e = (c - r * kChunks) * kVec;
+      const bool ok = kv0 + r < skv;
+      cp_async16(dst + r * kPitch + e,
+                 src + (ok ? (long long)(kv0 + r) * stride : 0) + e, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kBK * D; i += kThreads) {
+      const int r = i / D, e = i - r * D;
+      dst[r * kPitch + e] = kv0 + r < skv
+          ? src[(long long)(kv0 + r) * stride + e] : T(0.f);
+    }
+  }
+}
+
+template <class T, int D, int kGroups>
+__global__ void __launch_bounds__(kThreads,
+                                  (Layout<T, D, kGroups>::kMinBlocks))
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out, Strides qs,
           Strides ks_, Strides vs_, Strides os, int sq, int skv, int group,
-          int causal, int window, float scale) {
-  constexpr int kPer = D / kSplit;   // dims a thread owns: p + 4i
-  extern __shared__ float smem[];
-  float* kt = smem;             // (kBK, D) keys of the current tile
-  float* vt = smem + kBK * D;   // (kBK, D) values
+          int causal, int window, float scale, int vec) {
+  using Ly = Layout<T, D, kGroups>;
+  constexpr int kBK = Ly::kBK, kPK = Ly::kPitchK, kPV = Ly::kPitchV;
+  constexpr int kSteps = D / 8;           // 8-dim steps of q . k and of O
+  constexpr int kSlices = Ly::kKeys / 8;  // a warp's 8-key slices a tile
+  constexpr bool kExact = sizeof(T) == 2;   // bf16 K / V are TF32-exact
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const tiles = reinterpret_cast<T*>(smem_raw);  // K0 V0 K1 V1
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int warp = threadIdx.x / 32 % Ly::kRowWarps;    // its 16 rows
+  const int part = threadIdx.x / (32 * Ly::kRowWarps);  // its keys
   const int head = blockIdx.y, b = blockIdx.z;
   const int hk = head / group;
-  const int pair = threadIdx.x / kSplit, part = threadIdx.x % kSplit;
-  const int q0 = blockIdx.x * kBQ;
-  const int qi[2] = {q0 + pair, q0 + pair + kBQ / 2};
+  const int q0 = blockIdx.x * Ly::kBQ, w0 = q0 + warp * 16;
+  const int rows[2] = {w0 + g, w0 + g + 8};
 
-  float qr[2][kPer], acc[2][kPer], m[2], l[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool live = qi[r] < sq;
-    const T* qp = q + b * qs.b + (long long)(live ? qi[r] : 0) * qs.s +
-                  head * qs.h + part;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      qr[r][i] = live ? widen(qp[kSplit * i]) * scale : 0.f;
-      acc[r][i] = 0.f;
-    }
-    m[r] = kNegInf;
-    l[r] = 0.f;
+  // the KV tiles to walk: all of them, or those the masks leave anything in
+  const int q_last = min(q0 + Ly::kBQ, sq) - 1;
+  int first = 0, end = (skv + kBK - 1) / kBK;
+  if (!(window > 0 && q_last >= skv + window - 1)) {
+    if (causal) end = min(end, q_last / kBK + 1);
+    if (window > 0)
+      while (first < end && min((first + 1) * kBK, skv) - 1 <= q0 - window)
+        ++first;
   }
-
-  const int q_last = min(q0 + kBQ, sq) - 1;
-  const bool may_skip = !(window > 0 && q_last >= skv + window - 1);
   const T* kb = k + b * ks_.b + hk * ks_.h;
   const T* vb = v + b * vs_.b + hk * vs_.h;
-  for (int kv0 = 0; kv0 < skv; kv0 += kBK) {
-    const int kv_last = min(kv0 + kBK, skv) - 1;
-    if (may_skip) {
-      if (causal && kv0 > q_last) break;                 // all in the future
-      if (window > 0 && kv_last <= q0 - window) continue;  // all behind
+  if (first < end) {
+    stage<T, D, kBK, kPK>(tiles, kb, ks_.s, first * kBK, skv, vec);
+    stage<T, D, kBK, kPV>(tiles + kBK * kPK, vb, vs_.s, first * kBK, skv,
+                          vec);
+    cp_async_commit();
+  }
+
+  // q * scale as A fragments, dims relabelled: [step][0] row g, dim 8s + 2t;
+  // [1] row g + 8; [2] row g, dim 8s + 2t + 1; [3] row g + 8
+  float qf[kSteps][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool live = rows[r] < sq;
+    const T* qp = q + b * qs.b + (long long)(live ? rows[r] : 0) * qs.s +
+                  head * qs.h + 2 * t;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      qf[s][r] = live ? widen(qp[8 * s]) * scale : 0.f;
+      qf[s][r + 2] = live ? widen(qp[8 * s + 1]) * scale : 0.f;
     }
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < kBK * D; t += kThreads) {
-      const int r = t / D, d = t - r * D;
-      const int kj = kv0 + r;
-      float kx = 0.f, vx = 0.f;
-      if (kj < skv) {
-        kx = widen(kb[(long long)kj * ks_.s + d]);
-        vx = widen(vb[(long long)kj * vs_.s + d]);
-      }
-      kt[t] = kx;
-      vt[t] = vx;
+  }
+  // O as C fragments: [dim slice n][0, 1] row g, dims 8n + 2t, +1; [2, 3]
+  // row g + 8
+  float o[kSteps][4];
+#pragma unroll
+  for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};          // this thread's part of each row's sum
+
+  for (int it = first; it < end; ++it) {
+    const T* kt = tiles + ((it - first) & 1) * Ly::kStage;
+    const T* vt = kt + kBK * kPK;
+    if (it + 1 < end) {   // the next tile into the other stage
+      T* nk = tiles + ((it + 1 - first) & 1) * Ly::kStage;
+      stage<T, D, kBK, kPK>(nk, kb, ks_.s, (it + 1) * kBK, skv, vec);
+      stage<T, D, kBK, kPV>(nk + kBK * kPK, vb, vs_.s, (it + 1) * kBK, skv,
+                            vec);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const int key0 = part * Ly::kKeys;    // this warp's keys in the tile
+    const int kv0 = it * kBK + key0;
 
-    float s[2][kBK], mx[2] = {m[0], m[1]};
+    // S = q . K^T: [slice j][0, 1] row g, keys 8j + 2t, +1; [2, 3] row g+8
+    float sc[kSlices][4];
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float* kr = kt + j * D + part;
-      float a[2] = {0.f, 0.f};
+    for (int j = 0; j < kSlices; ++j)
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float x = kr[kSplit * i];
-        a[0] = fmaf(qr[0][i], x, a[0]);
-        a[1] = fmaf(qr[1][i], x, a[1]);
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = qf[s][e];
+        asm volatile("" : "+f"(x));   // split per tile, not held split
+        split(x, ah[e], al[e]);
       }
-      const int kj = kv0 + j;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        a[r] += __shfl_xor_sync(kFull, a[r], 1);
-        a[r] += __shfl_xor_sync(kFull, a[r], 2);
-        bool ok = true;
-        if (causal) ok = kj <= qi[r];
-        if (window > 0) ok = ok && kj > qi[r] - window;
-        // a key past Skv does not exist: exp(-inf - mx) adds exactly nothing
-        s[r][j] = kj < skv ? (ok ? a[r] : kNegInf) : -INFINITY;
-        mx[r] = fmaxf(mx[r], s[r][j]);
+      for (int j = 0; j < kSlices; ++j) {   // B: key g, dims 2t, 2t + 1
+        const float2 kk = widen2(kt + (key0 + 8 * j + g) * kPK + 8 * s +
+                                 2 * t);
+        mma3<kExact>(sc[j], ah, al, kk.x, kk.y);
       }
     }
-    float psum[2] = {0.f, 0.f};
+
+    // masks where the warp's rows and keys need them, the tile's row max,
+    // the rescale and P = exp(S - m)
+    float mx[2] = {m[0], m[1]};
+    const bool edge = (causal && kv0 + Ly::kKeys - 1 > w0) ||
+                      (window > 0 && kv0 <= w0 + 15 - window) ||
+                      kv0 + Ly::kKeys > skv;
+#pragma unroll
+    for (int j = 0; j < kSlices; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int kj = kv0 + 8 * j + 2 * t + (e & 1), qi = rows[e >> 1];
+          bool ok = true;
+          if (causal) ok = kj <= qi;
+          if (window > 0) ok = ok && kj > qi - window;
+          // a key past Skv does not exist: exp(-inf - mx) adds exactly 0
+          sc[j][e] = kj < skv ? (ok ? sc[j][e] : kNegInf) : -INFINITY;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+      }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
       const float alpha = expf(m[r] - mx[r]);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[r][i] *= alpha;
-      l[r] *= alpha;
       m[r] = mx[r];
-    }
+      l[r] *= alpha;
 #pragma unroll
-    for (int j = 0; j < kBK; ++j) {
-      const float p0 = expf(s[0][j] - mx[0]), p1 = expf(s[1][j] - mx[1]);
-      psum[0] += p0;
-      psum[1] += p1;
-      const float* vr = vt + j * D + part;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float x = vr[kSplit * i];
-        acc[0][i] = fmaf(p0, x, acc[0][i]);
-        acc[1][i] = fmaf(p1, x, acc[1][i]);
+      for (int n = 0; n < kSteps; ++n) {
+        o[n][2 * r] *= alpha;
+        o[n][2 * r + 1] *= alpha;
       }
     }
-    l[0] += psum[0];
-    l[1] += psum[1];
+#pragma unroll
+    for (int j = 0; j < kSlices; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = expf(sc[j][e] - mx[e >> 1]);
+        l[e >> 1] += sc[j][e];
+      }
+
+    // O += P . V, slice j's A relabelled: column t <-> key 2t, t+4 <-> 2t+1
+#pragma unroll
+    for (int j = 0; j < kSlices; ++j) {
+      uint32_t ph[4], pl[4];
+      split(sc[j][0], ph[0], pl[0]);   // row g,     key 2t
+      split(sc[j][2], ph[1], pl[1]);   // row g + 8, key 2t
+      split(sc[j][1], ph[2], pl[2]);   // row g,     key 2t + 1
+      split(sc[j][3], ph[3], pl[3]);   // row g + 8, key 2t + 1
+      const T* vr = vt + (key0 + 8 * j + 2 * t) * kPV + g;   // B: dim g
+#pragma unroll
+      for (int n = 0; n < kSteps; ++n)
+        mma3<kExact>(o[n], ph, pl, widen(vr[8 * n]), widen(vr[kPV + 8 * n]));
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+
+  if constexpr (kGroups == 2) {
+    // the second half's (m, l, O) through shared memory into the first's:
+    // m = max of both, each side rescaled to it, first half first
+    constexpr int kN = 32 * Ly::kRowWarps;
+    float* xs = reinterpret_cast<float*>(smem_raw);
+    const int slot = threadIdx.x % kN;
+    if (first >= end) __syncthreads();   // no tile loop ended on one
+    if (part == 1) {
+#pragma unroll
+      for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xs[(4 * n + e) * kN + slot] = o[n][e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        xs[(4 * kSteps + r) * kN + slot] = m[r];
+        xs[(4 * kSteps + 2 + r) * kN + slot] = l[r];
+      }
+    }
+    __syncthreads();
+    if (part == 1) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = xs[(4 * kSteps + r) * kN + slot];
+      const float l1 = xs[(4 * kSteps + 2 + r) * kN + slot];
+      const float mn = fmaxf(m[r], m1);
+      const float a0 = expf(m[r] - mn), a1 = expf(m1 - mn);
+      l[r] = l[r] * a0 + l1 * a1;
+#pragma unroll
+      for (int n = 0; n < kSteps; ++n)
+#pragma unroll
+        for (int c = 2 * r; c < 2 * r + 2; ++c)
+          o[n][c] = o[n][c] * a0 + xs[(4 * n + c) * kN + slot] * a1;
+    }
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (qi[r] >= sq) continue;
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    if (rows[r] >= sq) continue;
     const float den = fmaxf(l[r], 1e-20f);
-    T* op = out + b * os.b + (long long)qi[r] * os.s + head * os.h + part;
+    T* op = out + b * os.b + (long long)rows[r] * os.s + head * os.h + 2 * t;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) store(op + kSplit * i, acc[r][i] / den);
+    for (int n = 0; n < kSteps; ++n) {
+      attn::store(op + 8 * n, o[n][2 * r] / den);
+      attn::store(op + 8 * n + 1, o[n][2 * r + 1] / den);
+    }
   }
+}
+
+template <class T>
+bool aligned16(const T* p, const Strides& s) {
+  constexpr long long kVec = 16 / sizeof(T);
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && s.b % kVec == 0 &&
+         s.s % kVec == 0 && s.h % kVec == 0;
+}
+
+template <class T, int D, int kGroups>
+int launch(const T* q, const T* k, const T* v, T* out, const Strides& qs,
+           const Strides& ks, const Strides& vs, int b, int sq, int skv,
+           int h, int kh, int causal, int window, float scale,
+           cudaStream_t stream) {
+  using Ly = Layout<T, D, kGroups>;
+  const auto kernel = flash_fwd<T, D, kGroups>;
+  // the opt-in holds for the current device only, so it is set on every
+  // launch that needs it (a cheap host call), never cached
+  if (Ly::kBytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Ly::kBytes);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // reset it, so the next launch does not report it
+      return (int)err;
+    }
+  }
+  const int vec = aligned16(k, ks) && aligned16(v, vs);
+  const Strides os{(long long)sq * h * D, (long long)h * D, D};
+  const dim3 grid((sq + Ly::kBQ - 1) / Ly::kBQ, h, b);
+  kernel<<<grid, kThreads, Ly::kBytes, stream>>>(
+      q, k, v, out, qs, ks, vs, os, sq, skv, h / kh, causal, window, scale,
+      vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -191,13 +458,13 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
   return attn::dispatch<64, 80, 128>(dtype, d, [&](auto t, auto dim) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dim)::value;
-    const int smem = 2 * kBK * D * (int)sizeof(float);  // <= 32 KB
-    const Strides os{(long long)sq * h * D, (long long)h * D, D};
-    const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-    flash_fwd<T, D><<<grid, kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), qs, ks, vs, os, sq,
-        skv, h / kh, causal, window, scale);
-    return (int)cudaGetLastError();
+    const auto* qp = static_cast<const T*>(q);
+    const auto* kp = static_cast<const T*>(k);
+    const auto* vp = static_cast<const T*>(v);
+    auto* op = static_cast<T*>(out);
+    return causal ? launch<T, D, 2>(qp, kp, vp, op, qs, ks, vs, b, sq, skv, h,
+                                    kh, 1, window, scale, stream)
+                  : launch<T, D, 1>(qp, kp, vp, op, qs, ks, vs, b, sq, skv, h,
+                                    kh, 0, window, scale, stream);
   });
 }

@@ -40,6 +40,21 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _ptxas_lines(log: str) -> List[str]:
+    """One line per kernel entry of ``ptxas -v``'s report: its mangled
+    name, then its registers and its spills."""
+    out, entry, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry, spill = ln.split("'")[1], ""
+        elif "spill stores" in ln:
+            spill = ln.strip()
+        elif "registers" in ln and entry is not None:
+            out.append(f"{entry}: {ln.split(':', 1)[1].strip()}; {spill}")
+            entry = None
+    return out
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
@@ -73,8 +88,7 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name} (exit {proc.returncode}):\n{log}")
             continue
-        ptxas_report[name] = [ln.strip() for ln in log.splitlines()
-                              if "registers" in ln or "spill" in ln]
+        ptxas_report[name] = _ptxas_lines(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))

@@ -172,6 +172,55 @@ def test_f32_bound_catches_kv_rounded_to_bf16(shape):
     assert np.abs(run(bf(k), bf(v)) - ref).max() > _tol(d)
 
 
+def _tf32(a):
+    """``a`` rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds on the card."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000))
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b in f32 with every product made of TF32 parts: 3 passes add
+    lo.hi + hi.lo + hi.hi (lo = tf32(x - hi)), small terms first; 1 pass
+    takes hi.hi alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32_attention(q, k, v, causal, passes):
+    """Head-major attention with the prefill kernel's arithmetic: q
+    pre-scaled, S = q k^T and P V through :func:`_tf32_matmul`, P = exp(S -
+    max) in f32, divided by its row sum at the end."""
+    s = _tf32_matmul(q * np.float32(q.shape[-1] ** -0.5),
+                     k.swapaxes(-1, -2), passes)
+    if causal:
+        s = np.where(np.tril(np.ones(s.shape[-2:], bool)), s,
+                     np.float32(-1e30))
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return _tf32_matmul(p, v, passes) / p.sum(-1, keepdims=True)
+
+
+@pytest.mark.parametrize("shape", ["prefill", "encode"])
+def test_f32_bound_holds_3xtf32_and_catches_1xtf32(shape):
+    """The tensor-core arithmetic of the prefill kernel against the bound:
+    with every product of S and of P V as 3xTF32 (what the kernel issues)
+    attention stays within :func:`_tol` of the plain version at the
+    model's prefill and encode shapes; with one TF32 product (what a
+    1xTF32 kernel would compute) it misses the bound."""
+    rng = np.random.default_rng(12)
+    b, h, d, causal = ((1, 32, 80, True) if shape == "prefill"
+                       else (2, 12, 64, False))
+    q, k, v = (_rand(rng, (b, h, 128, d)) for _ in range(3))
+    plain = _port_flash(q, k, v, causal, 0)
+    err = {n: np.abs(_tf32_attention(q, k, v, causal, n) - plain).max()
+           for n in (3, 1)}
+    assert err[3] <= _tol(d) < err[1], err
+
+
 # ---------------------------------------------------------------------------
 # decode attention (K6)
 # ---------------------------------------------------------------------------

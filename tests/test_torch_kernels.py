@@ -548,7 +548,9 @@ def _qkv(dev, b, sq, skv, h, kh, d, dtype=torch.float32, seed=0):
 
 # b, sq, skv, h, kh, d, causal, window, dtype: the model's prefill and
 # encode shapes, GQA with a window, ragged lengths (Sq != Skv, rows with no
-# valid key under the window), D = 128 (past 48 KB of shared memory), bf16
+# valid key under the window), D = 128 (past 48 KB of shared memory), bf16;
+# windows that leave rows q >= Skv + window - 1 no valid key, causal and
+# not, in bf16 and f32; GQA 4 at each head dim
 FLASH_CASES = [
     (1, 128, 128, 32, 32, 80, True, 0, torch.float32),
     (4, 128, 128, 12, 12, 64, False, 0, torch.float32),
@@ -557,7 +559,17 @@ FLASH_CASES = [
     (1, 150, 77, 4, 2, 80, False, 20, torch.float32),
     (1, 130, 130, 4, 4, 128, True, 0, torch.float32),
     (2, 128, 128, 4, 2, 64, True, 0, torch.bfloat16),
+    (2, 130, 64, 4, 4, 64, True, 16, torch.bfloat16),
+    (2, 130, 64, 4, 4, 64, True, 16, torch.float32),
+    (1, 200, 70, 8, 2, 80, False, 9, torch.bfloat16),
+    (1, 200, 70, 8, 2, 128, False, 9, torch.float32),
+    (2, 100, 100, 16, 4, 64, True, 0, torch.bfloat16),
+    (2, 129, 129, 16, 4, 80, False, 0, torch.float32),
+    (1, 65, 65, 16, 4, 128, True, 33, torch.float32),
 ]
+# lengths on either side of a warp's 16 query rows, the block's 64 and the
+# 32- or 64-row K / V tile
+EDGE_LENS = (1, 15, 16, 17, 63, 64, 65, 129)
 
 
 @pytest.mark.gpu
@@ -574,14 +586,64 @@ def test_cuda_flash_attention_matches_plain(cuda, b, sq, skv, h, kh, d,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_tile_edges(cuda, d, causal):
+    for sq in EDGE_LENS:
+        for skv in EDGE_LENS:
+            q, k, v = _qkv(cuda, 1, sq, skv, 4, 2, d, seed=1000 * sq + skv)
+            out = flash_attention(q, k, v, causal=causal)
+            ref = _flash_plain(q, k, v, causal, 0)
+            assert out.shape == ref.shape
+            assert _attn_ratio(out, ref) <= 1, (sq, skv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_unaligned_kv_gives_the_same_bits(cuda, dtype):
+    """K and V off a 16-byte boundary are staged by plain loads, into the
+    same tiles as the asynchronous copies of aligned ones."""
+    q, k, v = _qkv(cuda, 2, 70, 70, 4, 2, 80, dtype)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    ku, vu = shifted(k), shifted(v)
+    assert ku.data_ptr() % 16 and vu.data_ptr() % 16
+    for causal in (True, False):
+        assert torch.equal(flash_attention(q, ku, vu, causal=causal),
+                           flash_attention(q, k, v, causal=causal))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 80, 128])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 30)])
-def test_cuda_flash_attention_batch_equals_sequential(cuda, causal, window):
-    q, k, v = _qkv(cuda, 5, 100, 100, 8, 2, 80)
+def test_cuda_flash_attention_batch_equals_sequential(cuda, causal, window,
+                                                      d):
+    q, k, v = _qkv(cuda, 5, 100, 100, 8, 2, d)
     out = flash_attention(q, k, v, causal=causal, window=window)
     for i in range(5):
         one = flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
                               causal=causal, window=window)
         assert torch.equal(one[0], out[i]), i
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_runs_on_every_card(cuda):
+    """Entries past 48 KB of shared memory (f32 causal D = 80, f32 D = 128)
+    opt in on each card they launch on, not only on the first."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second NVIDIA GPU")
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        for d, causal in ((80, True), (128, False)):
+            q, k, v = _qkv(dev, 1, 128, 128, 8, 8, d)
+            out = flash_attention(q, k, v, causal=causal)
+            assert out.device == dev
+            assert _attn_ratio(out, _flash_plain(q, k, v, causal, 0)) <= 1
 
 
 def _decode_case(dev, b, smax, h, kh, d, dtype=torch.float32, seed=1):
