@@ -11,7 +11,9 @@ Phases, one JSON line each:
                    once, into the git-ignored ``build/kernels/``), with
                    ``ptxas``'s registers and spills per kernel entry; every
                    ``flash_attention`` entry (head dims 64, 80, 128, f32 and
-                   bf16, both layouts) must spill nothing.
+                   bf16, both layouts) and every entry of the one-launch
+                   top-k kernel (``topk_tiled_ptxas``: ivf_topk and fp32
+                   slab_topk at 16- and 64-row tiles) must spill nothing.
   main_path        the port's request path at full size: a fiqa-sized corpus
                    (25,000 chunks, dim 768) indexed by ``EdgeRAGIndex.build``
                    (nlist 125), then batches of 16 requests through
@@ -93,15 +95,22 @@ Phases, one JSON line each:
                    softcap) raises, with the next launch running.
   breakdown        one more retrieval batch, and one request's generation,
                    under ``torch.profiler``: device time (kernels and copies)
-                   against host wall time; K7 against K6 on its
-                   dequantized cache at K7's ``kernels`` shape; and K5
-                   against ``scaled_dot_product_attention`` at the recorded
-                   prefill and encode inputs: 100 calls each, device ms per
-                   call beside wall ms per call.
+                   against host wall time, and in the retrieval batch
+                   exactly one device launch of the one-launch top-k kernel
+                   per ``ivf_topk`` and per fp32 ``slab_topk`` call (and no
+                   two-pass launch); K7 against K6 on its dequantized cache
+                   at K7's ``kernels`` shape; K5 against
+                   ``scaled_dot_product_attention`` at the recorded prefill
+                   and encode inputs; and each top-k kernel against its
+                   library call at its ``kernels`` inputs: 100 calls each,
+                   device ms per call beside wall ms per call; and the fp32
+                   ``slab_topk`` launch's device ms with L2 warm and with
+                   L2 flushed before each call.
 
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
-library time, and the bound from this run's inputs; K5's rows also carry
-the breakdown's device ms of K5 and of SDPA), the ``nvidia-smi`` line, and
+library time, and the bound from this run's inputs; the rows of K1-K5 also
+carry the breakdown's device ms of the kernel and of its library call), the
+``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Bounds: bytes read once at HBM's
 3.35 TB/s against the function's operations at the fp32-accurate peak of
 the unit the kernel runs them on: for K5 the tensor cores, whose 495 TFLOP/s
@@ -208,6 +217,36 @@ def flash_ptxas(lines) -> object:
     return {"registers_and_spill_bytes": out}
 
 
+def tiled_ptxas(report) -> object:
+    """``ptxas``'s registers and spill stores per entry of the one-launch
+    top-k kernel (``topk::tiled::score_merge``: ivf_topk and fp32
+    slab_topk, 16- and 64-row tiles), checking that none spills; "not
+    rebuilt" when neither library was built in this run."""
+    import re
+    if not (report.get("ivf_topk") and report.get("slab_topk")):
+        return "not rebuilt in this run"
+    lines = [ln for name in ("ivf_topk", "slab_topk")
+             for ln in report[name] if "score_merge" in ln]
+    out = {}
+    for ln in lines:
+        kind = re.search(r"score_mergeILb([01])ELi(\d+)E", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        spill = re.search(r"(\d+) bytes spill stores", ln)
+        check(kind and regs and spill, f"unread ptxas line: {ln}")
+        name = "slab_topk_fp32" if kind[1] == "1" else "ivf_topk"
+        out[f"{name} rows={kind[2]}"] = [int(regs[1]), int(spill[1])]
+    check(len(out) == 4, f"topk_tiled: {len(out)} entries, not 4")
+    spilled = {k: v for k, v in out.items() if v[1]}
+    check(not spilled, f"topk_tiled spills: {spilled}")
+    return {"registers_and_spill_bytes": out}
+
+
+# device event names of the top-k kernels: the one launch of ivf_topk and of
+# fp32 slab_topk, and the two passes of the fp16 / int8 / pq modes
+TILED_EVENTS = ("tiled::score_merge<false", "tiled::score_merge<true")
+TWO_PASS_EVENTS = ("topk::score_select", "topk::merge")
+
+
 def cuda_ms(fn, iters: int) -> float:
     import torch
     fn()
@@ -222,10 +261,12 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn) -> dict:
+def profiled(fn, count=()) -> dict:
     """Host wall ms of one call of ``fn`` (ending in a device sync) under
     ``torch.profiler``, the device time in it (kernels and copies only, so
-    nothing is counted twice) and the largest device events."""
+    nothing is counted twice), the largest device events and, for each
+    name in ``count``, how many device events had a name containing it and
+    their device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -241,10 +282,16 @@ def profiled(fn) -> dict:
         if t > 0 and str(ev.device_type).endswith("CUDA"):
             dev[ev.key] = (ev.count, t)
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]
-    return {"wall_ms": wall_ms,
-            "device_ms": sum(t for _, t in dev.values()) if dev
-            else "not measured",
-            "top_device_events": [[k[:80], n, t] for k, (n, t) in top]}
+    out = {"wall_ms": wall_ms,
+           "device_ms": sum(t for _, t in dev.values()) if dev
+           else "not measured",
+           "top_device_events": [[k[:80], n, t] for k, (n, t) in top]}
+    if count:
+        out["launches"] = {name: sum(n for k, (n, _) in dev.items()
+                                     if name in k) for name in count}
+        out["device_ms_of"] = {name: sum(t for k, (_, t) in dev.items()
+                                         if name in k) for name in count}
+    return out
 
 
 class Recorder:
@@ -437,7 +484,8 @@ def codec_path(codec, ctx) -> dict:
     return out
 
 
-REPLACES = {"fp16": 116, "int8": 121, "pq": 102}   # kernel.py line per mode
+REPLACES = {"fp32": 141, "fp16": 116, "int8": 121,  # kernel.py line per mode
+            "pq": 102}
 
 
 def check_quantized(mode, e, q, v, k, kw, rint) -> dict:
@@ -522,45 +570,63 @@ def check_quantized(mode, e, q, v, k, kw, rint) -> dict:
     return out
 
 
-def quantized_row(mode, e, q, v, k, kw, launches, checked) -> dict:
-    """The ``kernels`` line's row of ``slab_topk`` in a quantized mode, timed
-    at one recorded call of the codec path.  The bound reads each probed
-    row once (D x 2 bytes fp16, D + 4 int8 with its scale, m pq), the
-    queries or tables, ``virt`` and the outputs once; the library call is
-    ``torch.topk`` over the masked scores (for pq a composite: one gather
-    of the tables by the codes and a sum)."""
+def topk_library(mode, e, q, v, k, kw):
+    """One PyTorch call that computes ``slab_topk``'s function in ``mode``
+    on these inputs (the ``kernels`` line's yardstick, never used by the
+    port): ``torch.topk`` over the masked scores, for pq a composite (one
+    gather of the tables by the codes and a sum)."""
     import torch
-    from repro_torch.kernels.slab_topk import NOT_PROBED, slab_topk
-    from repro_torch.kernels.slab_topk.ref import NEG_INF, slab_topk_ref
+    from repro_torch.kernels.slab_topk import NOT_PROBED
+    from repro_torch.kernels.slab_topk.ref import NEG_INF
+
+    member = v < NOT_PROBED
+    if mode == "pq":
+        (n, w), nq, luts = e.shape, q.shape[0], kw["luts"]
+        return lambda: torch.topk(torch.where(member, luts.gather(
+            2, e.long().T[None].expand(nq, w, n)).sum(1), NEG_INF), k)
+    if mode == "int8":
+        return lambda: torch.topk(torch.where(
+            member, (q @ e.float().T) * kw["scales"].T, NEG_INF), k)
+    return lambda: torch.topk(torch.where(member, q @ e.float().T, NEG_INF),
+                              k)
+
+
+def slab_row(mode, e, q, v, k, kw, launches, err, calls, dev_ms) -> dict:
+    """The ``kernels`` line's row of ``slab_topk`` in ``mode``, timed at one
+    recorded call (fp32: the main path's; the others: their codec path's).
+    The bound reads each probed row once (D x 4 bytes fp32, D x 2 fp16,
+    D + 4 int8 with its scale, m pq), the queries or tables, ``virt`` and
+    the outputs once, against 2 D flops a member pair (int8: + 1 for the
+    scale; pq: m adds).  ``calls``: (the kernel's call, the library call);
+    ``dev_ms``: their device ms a call."""
+    from repro_torch.kernels.slab_topk import NOT_PROBED
+    from repro_torch.kernels.slab_topk.ref import slab_topk_ref
 
     member = v < NOT_PROBED
     pairs, rows_used = int(member.sum()), int(member.any(0).sum())
     (n, w), nq = e.shape, q.shape[0]
     rest = nq * n * 4 + nq * k * 8                   # virt in, results out
     if mode == "pq":
-        luts = kw["luts"]
-        lim = bound(rows_used * w + luts.numel() * 4 + rest, pairs * w)
-        library = lambda: torch.topk(torch.where(member, luts.gather(
-            2, e.long().T[None].expand(nq, w, n)).sum(1), NEG_INF), k)
+        lim = bound(rows_used * w + kw["luts"].numel() * 4 + rest, pairs * w)
     elif mode == "int8":
-        sc = kw["scales"]
         lim = bound(rows_used * (w + 4) + nq * w * 4 + rest,
                     (2 * w + 1) * pairs)
-        library = lambda: torch.topk(torch.where(
-            member, (q @ e.float().T) * sc.T, NEG_INF), k)
     else:
-        lim = bound(rows_used * w * 2 + nq * w * 4 + rest, 2 * w * pairs)
-        library = lambda: torch.topk(torch.where(
-            member, q @ e.float().T, NEG_INF), k)
-    return {"name": f"slab_topk_{mode}", "route": "cuda",
+        lim = bound(rows_used * w * e.element_size() + nq * w * 4 + rest,
+                    2 * w * pairs)
+    name = "slab_topk" if mode == "fp32" else f"slab_topk_{mode}"
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/slab_topk.cu",
             "replaces": f"src/repro/kernels/slab_topk/kernel.py:"
                         f"{REPLACES[mode]}",
-            "launches": launches, "max_abs_err": checked["max_abs_err"],
-            "ms": cuda_ms(lambda: slab_topk(e, q, v, k, **kw), 200),
+            "launches": launches, "max_abs_err": err,
+            "ms": cuda_ms(calls[0], 200),
             "plain_ms": cuda_ms(lambda: slab_topk_ref(e, q, v, k, **kw), 5),
             "bound_ms": lim[0], "bound_by": lim[1],
-            "library_ms": cuda_ms(library, 200)}
+            "library_ms": cuda_ms(calls[1], 200),
+            "device_ms": dev_ms[name]["device_ms_per_call"],
+            "library_device_ms": dev_ms[f"{name}_library"]
+            ["device_ms_per_call"]}
 
 
 def attn_tol(d: int) -> float:
@@ -1282,6 +1348,30 @@ def device_ms(runs: dict, calls: int) -> dict:
     return out
 
 
+def cold_l2_device_ms(fn, event: str, calls: int = 100) -> dict:
+    """Device ms per device event named ``event`` in ``calls`` calls of
+    ``fn``, with L2 warm (the calls back to back) and cold (a 256 MB
+    buffer, five times the H100's 50 MB L2, read and written before each
+    call, so the call finds none of its operands in L2)."""
+    import torch
+    flush = torch.zeros(64 << 20, dtype=torch.float32, device="cuda")
+    out = {"calls": calls}
+    for name, before in (("warm", lambda: None),
+                         ("cold", lambda: flush.add_(1.0))):
+        def run(before=before):
+            for _ in range(calls):
+                before()
+                fn()
+        run()                                           # warm up
+        prof = profiled(run, count=(event,))
+        n = prof["launches"][event]
+        out[name] = {"events": n, "device_ms_per_event":
+                     prof["device_ms_of"][event] / n if n else
+                     "not measured"}
+    del flush
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1315,13 +1405,15 @@ def main() -> int:
     per_kernel_s = _build.build()
     build_s = time.perf_counter() - t0
     k5_ptxas = flash_ptxas(_build.ptxas_report.get("flash_attention"))
+    topk_ptxas = tiled_ptxas(_build.ptxas_report)
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
           "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s,
           "build_s_per_kernel": per_kernel_s,
-          "flash_attention_ptxas": k5_ptxas, "ptxas": _build.ptxas_report})
+          "flash_attention_ptxas": k5_ptxas, "topk_tiled_ptxas": topk_ptxas,
+          "ptxas": _build.ptxas_report})
 
     # ---- main path ------------------------------------------------------
     t0 = time.perf_counter()
@@ -1560,36 +1652,39 @@ def main() -> int:
           "pq_recorded_inputs": "bitwise", "checks": report})
 
     # ---- timing and bounds at the main path's shapes ---------------------
+    # each top-k kernel and its library call at its recorded inputs; device
+    # ms a call from 100 calls each under the profiler
+    slab_inputs = {"fp32": ((e2, q2, v2, k2), {})}
+    slab_inputs.update((m, rec_slab.first[m]) for m in CODECS)
+    calls = {"ivf_topk": (lambda: topk_ip(e1, q1, k1),
+                          lambda: torch.topk(q1 @ e1.T, k1))}
+    for mode, ((e, q, v, k), kw) in slab_inputs.items():
+        calls["slab_topk" if mode == "fp32" else f"slab_topk_{mode}"] = (
+            lambda e=e, q=q, v=v, k=k, kw=kw: slab_topk(e, q, v, k, **kw),
+            topk_library(mode, e, q, v, k, kw))
+    topk_dev = device_ms({f"{name}{tag}": fn for name, pair in calls.items()
+                          for tag, fn in zip(("", "_library"), pair)}, 100)
     (n, d), nq = e1.shape, q1.shape[0]
     b1 = bound((n * d + nq * d) * 4 + nq * k1 * 8, 2 * nq * n * d)
-    rows_used = int(member.any(0).sum())
-    (n2r, _), nq2 = e2.shape, q2.shape[0]
-    b2 = bound((rows_used * d + nq2 * d) * 4 + nq2 * n2r * 4 + nq2 * k2 * 8,
-               2 * d * int(member.sum()))
     kernels = [
         {"name": "ivf_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/ivf_topk.cu",
          "replaces": "src/repro/kernels/ivf_topk/kernel.py:98",
          "launches": launches["ivf_topk"], "max_abs_err": err1,
-         "ms": cuda_ms(lambda: topk_ip(e1, q1, k1), 200),
+         "ms": cuda_ms(calls["ivf_topk"][0], 200),
          "plain_ms": cuda_ms(lambda: topk_ip_ref(e1, q1, k1), 10),
          "bound_ms": b1[0], "bound_by": b1[1],
-         "library_ms": cuda_ms(lambda: torch.topk(q1 @ e1.T, k1), 200)},
-        {"name": "slab_topk", "route": "cuda",
-         "source": "src/repro_torch/csrc/slab_topk.cu",
-         "replaces": "src/repro/kernels/slab_topk/kernel.py:141",
-         "launches": launches["slab_topk"], "max_abs_err": err2,
-         "ms": cuda_ms(lambda: slab_topk(e2, q2, v2, k2), 200),
-         "plain_ms": cuda_ms(lambda: slab_topk_ref(e2, q2, v2, k2), 5),
-         "bound_ms": b2[0], "bound_by": b2[1],
-         "library_ms": cuda_ms(lambda: torch.topk(torch.where(
-             member, q2 @ e2.T, NEG_INF), k2), 200)},
-    ]
-    for mode in CODECS:
-        (e, q, v, k), kw = rec_slab.first[mode]
-        kernels.append(quantized_row(mode, e, q, v, k, kw,
-                                     codecs[CODECS.index(mode)]["launches"]
-                                     [mode], report[f"slab_topk_{mode}"]))
+         "library_ms": cuda_ms(calls["ivf_topk"][1], 200),
+         "device_ms": topk_dev["ivf_topk"]["device_ms_per_call"],
+         "library_device_ms": topk_dev["ivf_topk_library"]
+         ["device_ms_per_call"]}]
+    for mode, ((e, q, v, k), kw) in slab_inputs.items():
+        name = "slab_topk" if mode == "fp32" else f"slab_topk_{mode}"
+        n_launch = (launches["slab_topk"] if mode == "fp32" else
+                    codecs[CODECS.index(mode)]["launches"][mode])
+        kernels.append(slab_row(mode, e, q, v, k, kw, n_launch,
+                                report[name]["max_abs_err"], calls[name],
+                                topk_dev))
     k5_dev = k5_device_ms(rec_flash)
     kernels += attention_rows(
         rec_flash, rec_dec,
@@ -1603,12 +1698,25 @@ def main() -> int:
     index.search_batch(embs, K, NPROBE)                 # warm
     r0 = flat[0]
     prompt = " ".join(ds.get_chunks(r0.chunk_ids) + [r0.query])
-    ret = profiled(lambda: index.search_batch(embs, K, NPROBE))
+    # ivf_topk and fp32 slab_topk: one kernel launch a call
+    i0, s0 = topk_ip.launches, slab_topk.launches_by_mode["fp32"]
+    ret = profiled(lambda: index.search_batch(embs, K, NPROBE),
+                   count=TILED_EVENTS + TWO_PASS_EVENTS)
+    n_calls = {TILED_EVENTS[0]: topk_ip.launches - i0,
+               TILED_EVENTS[1]: slab_topk.launches_by_mode["fp32"] - s0}
+    check(all(n > 0 for n in n_calls.values())
+          and {k: ret["launches"][k] for k in TILED_EVENTS} == n_calls
+          and not any(ret["launches"][k] for k in TWO_PASS_EVENTS),
+          f"profiled retrieval batch: calls {n_calls}, device launches "
+          f"{ret['launches']}; want one score_merge launch a call")
+    ret["calls"] = n_calls
     gen_prof = profiled(lambda: gen.generate(prompt, NEW_TOKENS))
     emit({"phase": "breakdown", "retrieval_batch": ret,
           "one_request_generation": gen_prof,
           "k7_vs_k6_device": q8_device_ms(q8_inputs),
-          "k5_vs_sdpa_device": k5_dev})
+          "k5_vs_sdpa_device": k5_dev, "topk_vs_library_device": topk_dev,
+          "k2_cold_vs_warm_l2": cold_l2_device_ms(calls["slab_topk"][0],
+                                                  TILED_EVENTS[1])})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -9,25 +9,30 @@
 // (the lax.top_k order of the reference).
 //
 // What bounds it on the card: the centroid probe is tiny (N = nlist ~ 125,
-// D = 768, Q = 16: ~0.4 MB read, ~3 MFLOP), far below a microsecond at
-// 3.35 TB/s, so launch latency and the k selection rounds bound it, not
-// bytes or FLOPs.  The design keeps it to two launches with no host sync
-// and no scratch beyond the (Q, chunks, k) partial lists.  The TPU's running
-// top-k across sequential grid steps has no counterpart here (blocks run in
-// parallel, in no order), so each block selects its chunk's top k and a
-// second pass merges them under the same total order: topk::launch<false>
-// in topk_common.cuh with the fp32 Dense scorer, where every row competes
-// and the tie key is the row.
-#include "topk_common.cuh"
+// D = 768, Q = 16: ~0.4 MB read, ~3 MFLOP; 0.00013 ms at 3.35 TB/s), so
+// no rate of the card sets its time: the latency of one launch does, and
+// the chains inside it -- a row tile's loads, a row's D-long FMA chains,
+// the selection and the merge.  The design is one launch with no host sync
+// (topk::tiled::launch<false> in topk_tiled.cuh, where every row competes
+// and the tie key is the row): 16-row tiles put the 125 rows on 8 blocks,
+// each reading its rows and the queries once, all of D in flight at once;
+// each score is four interleaved FMA chains of D / 4; a warp sorts each
+// tile's keys of two queries, and the last block to finish sorts the
+// tiles' candidates, in the same launch.  The TPU's running top-k across
+// sequential grid steps has no counterpart (blocks run in parallel, in no
+// order).
+#include "topk_tiled.cuh"
 
-extern "C" int ivf_topk_chunk_rows() { return topk::kChunk; }
+extern "C" size_t ivf_topk_scratch_bytes(int n, int nq, int k) {
+  return topk::tiled::scratch_bytes(n, nq, k);
+}
 
-// part_v / part_t / part_i: (Q, ceil(N / kChunk), k) scratch.  Returns a
-// cudaError_t.
+// scratch: ivf_topk_scratch_bytes(n, nq, k) bytes; tickets: `ntickets` >=
+// ceil(nq / 16) + nq zeroed ints that only this stream uses (zero again when
+// the kernel ends).  Returns a cudaError_t.
 extern "C" int ivf_topk(const float* emb, const float* q, int n, int d, int nq,
-                        int k, float* part_v, int* part_t, int* part_i,
+                        int k, void* scratch, int* tickets, long long ntickets,
                         float* out_v, int* out_i, cudaStream_t stream) {
-  return topk::launch<false>(topk::Dense<float, false>{emb, nullptr, d}, q, d,
-                             nullptr, n, nq, k, part_v, part_t, part_i, out_v,
-                             out_i, stream);
+  return topk::tiled::launch<false>(emb, q, nullptr, n, d, nq, k, scratch,
+                                    tickets, ntickets, out_v, out_i, stream);
 }

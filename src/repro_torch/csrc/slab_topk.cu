@@ -28,35 +28,51 @@
 // query's m x 256 tables in shared memory and each row's score is m
 // gathers and adds.
 //
-// What bounds it on the card: reading the member rows once per query that
-// probes them (D x 4, 2 or 1 bytes a row, or m bytes of codes), plus the
-// (Q, N) virt matrix.  At the main path's shapes that is a few MB, micro-
-// seconds at 3.35 TB/s, so launch latency and the k selection rounds
-// dominate.  Non-member rows are skipped (a warp-uniform branch for the
-// dense modes), so the work follows the probed pairs and not Q x N.  The
-// passes themselves are topk::launch<true> in topk_common.cuh.
+// What bounds it on the card: reading the member rows once (D x 4, 2 or 1
+// bytes a row, or m bytes of codes), the queries or tables, and the (Q, N)
+// virt matrix.
+//   fp32 (K2): at the main path's shape (N ~15,600, D 768, Q 16) nearly
+//   every row of the slab is a member of some query: ~48 MB, 0.0146 ms at
+//   3.35 TB/s, against 5.7 us for all 16 x N dot products at the 67 TFLOP/s
+//   fp32 peak.  topk::tiled::launch<true> (topk_tiled.cuh) reads each row
+//   once per tile of 16 queries, through a cp.async pipeline that the
+//   staging warps run ahead of the computing ones, scores it with fp32 FMAs
+//   in registers, skips the FMAs of warps whose pairs do not compete,
+//   selects by sorting across a warp and merges in the same launch: one
+//   launch, bound by the bytes.
+//   fp16, int8, pq (K3, K4): a few MB at the codec paths' shapes, so launch
+//   latency and the k selection rounds bound them; topk::launch
+//   (topk_common.cuh): a block per (256-row chunk, query), a warp per row
+//   (a thread per row for pq), non-members skipped by a warp-uniform
+//   branch, then a merge launch.
 #include "topk_common.cuh"
+#include "topk_tiled.cuh"
 
 extern "C" int slab_topk_chunk_rows() { return topk::kChunk; }
 
-// In every entry point: part_v / part_t / part_r are (Q, ceil(N / kChunk),
-// k) scratch, and the return value is a cudaError_t.
-extern "C" int slab_topk_fp32(const float* emb, const float* q,
-                              const int* virt, int n, int d, int nq, int k,
-                              float* part_v, int* part_t, int* part_r,
-                              float* out_v, int* out_r, cudaStream_t stream) {
-  return topk::launch<true>(topk::Dense<float, false>{emb, nullptr, d}, q, d,
-                            virt, n, nq, k, part_v, part_t, part_r, out_v,
-                            out_r, stream);
+extern "C" size_t slab_topk_fp32_scratch_bytes(int n, int nq, int k) {
+  return topk::tiled::scratch_bytes(n, nq, k);
 }
 
+// scratch: slab_topk_fp32_scratch_bytes(n, nq, k) bytes; tickets:
+// `ntickets` >= ceil(nq / 16) + nq zeroed ints that only this stream uses
+// (zero again when the kernel ends).  Returns a cudaError_t.
+extern "C" int slab_topk_fp32(const float* emb, const float* q,
+                              const int* virt, int n, int d, int nq, int k,
+                              void* scratch, int* tickets, long long ntickets,
+                              float* out_v, int* out_r, cudaStream_t stream) {
+  return topk::tiled::launch<true>(emb, q, virt, n, d, nq, k, scratch, tickets,
+                                   ntickets, out_v, out_r, stream);
+}
+
+// In the other entry points: part_v / part_t / part_r are (Q, ceil(N /
+// kChunk), k) scratch, and the return value is a cudaError_t.
 extern "C" int slab_topk_fp16(const __half* emb, const float* q,
                               const int* virt, int n, int d, int nq, int k,
                               float* part_v, int* part_t, int* part_r,
                               float* out_v, int* out_r, cudaStream_t stream) {
-  return topk::launch<true>(topk::Dense<__half, false>{emb, nullptr, d}, q, d,
-                            virt, n, nq, k, part_v, part_t, part_r, out_v,
-                            out_r, stream);
+  return topk::launch(topk::Dense<__half, false>{emb, nullptr, d}, q, d, virt,
+                      n, nq, k, part_v, part_t, part_r, out_v, out_r, stream);
 }
 
 extern "C" int slab_topk_int8(const int8_t* emb, const float* scales,
@@ -64,15 +80,14 @@ extern "C" int slab_topk_int8(const int8_t* emb, const float* scales,
                               int nq, int k, float* part_v, int* part_t,
                               int* part_r, float* out_v, int* out_r,
                               cudaStream_t stream) {
-  return topk::launch<true>(topk::Dense<int8_t, true>{emb, scales, d}, q, d,
-                            virt, n, nq, k, part_v, part_t, part_r, out_v,
-                            out_r, stream);
+  return topk::launch(topk::Dense<int8_t, true>{emb, scales, d}, q, d, virt,
+                      n, nq, k, part_v, part_t, part_r, out_v, out_r, stream);
 }
 
 extern "C" int slab_topk_pq(const uint8_t* codes, const float* luts,
                             const int* virt, int n, int m, int nq, int k,
                             float* part_v, int* part_t, int* part_r,
                             float* out_v, int* out_r, cudaStream_t stream) {
-  return topk::launch<true>(topk::PQ{codes, m}, luts, m * 256, virt, n, nq, k,
-                            part_v, part_t, part_r, out_v, out_r, stream);
+  return topk::launch(topk::PQ{codes, m}, luts, m * 256, virt, n, nq, k,
+                      part_v, part_t, part_r, out_v, out_r, stream);
 }

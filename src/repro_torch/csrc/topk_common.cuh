@@ -1,7 +1,9 @@
-// The port's top-k kernels (ivf_topk.cu, slab_topk.cu) share this code;
-// each .cu is a thin extern "C" entry point over launch<kMasked>(scorer).
+// The two-pass top-k of the fp16, int8 and pq slab_topk modes (K3, K4;
+// slab_topk.cu), and the keys, total order and warp_best that the one-launch
+// fp32 path (topk_tiled.cuh: ivf_topk and fp32 slab_topk) shares with it.
+// Each entry point is a thin extern "C" function over launch(scorer).
 //
-// Every kernel is two passes:
+// Two passes:
 //   1. score + select: one block per (row chunk, query).  The block copies
 //      its query operand (the query row, or its PQ lookup tables) into
 //      shared memory, scores its chunk's rows with the scorer, and keeps the
@@ -16,8 +18,8 @@
 //
 // Scorers:
 //   Dense<T, kScaled>  a warp per row: lane-strided FMAs of the row, widened
-//                      from T (float, __half or int8_t) to f32 in registers,
-//                      with the query, then a fixed xor butterfly; kScaled
+//                      from T (__half or int8_t) to f32 in registers, with
+//                      the query, then a fixed xor butterfly; kScaled
 //                      multiplies the finished score by the row's f32 scale
 //                      (int8), as the TPU kernel scales its score tile.
 //   PQ                 a thread per row: acc = 0, then acc += lut[j][code_j]
@@ -25,10 +27,9 @@
 //                      plain version's order, so PQ scores are bitwise equal
 //                      to it on any input.
 //
-// kMasked = false (ivf_topk): every row competes and the tie key is the row.
-// kMasked = true (slab_topk): row r competes for query q only when
-// virt[q, r] < kNotProbed, the tie key is virt[q, r], and non-members score
-// kNegInf with key kNotProbed without being read.
+// Row r competes for query q only when virt[q, r] < kNotProbed; the tie key
+// is virt[q, r], and non-members score kNegInf with key kNotProbed without
+// being read.
 #pragma once
 
 #include <climits>
@@ -161,13 +162,12 @@ __device__ void select_topk(int count, int k, const Load& load, float* out_v,
 
 constexpr int kNotProbed = 1 << 30;
 
-template <bool kMasked>
 struct ChunkKeys {
   const float* sc;
   const int* vt;
   int row0;
   __device__ Key operator()(int c) const {
-    return Key{sc[c], kMasked ? vt[c] : row0 + c, row0 + c};
+    return Key{sc[c], vt[c], row0 + c};
   }
 };
 
@@ -179,7 +179,7 @@ struct Partial {
 };
 
 // q: (Q, qlen) query operands (query rows, or PQ lookup tables)
-template <bool kMasked, class Scorer>
+template <class Scorer>
 __global__ void __launch_bounds__(kThreads)
 score_select(Scorer score, const float* __restrict__ q, int qlen,
              const int* __restrict__ virt, int n, int k, float* part_v,
@@ -187,36 +187,33 @@ score_select(Scorer score, const float* __restrict__ q, int qlen,
   extern __shared__ float smem[];
   float* qs = smem;                                 // (qlen,) query operand
   float* sc = smem + qlen;                          // (kChunk,) chunk scores
-  int* vt = reinterpret_cast<int*>(sc + kChunk);    // (kChunk,) if kMasked
+  int* vt = reinterpret_cast<int*>(sc + kChunk);    // (kChunk,) tie keys
   __shared__ Key red[kWarps + 1];
   const int chunk = blockIdx.x, qi = blockIdx.y;
   const int row0 = chunk * kChunk;
   const int rows = min(kChunk, n - row0);
   for (int j = threadIdx.x; j < qlen; j += blockDim.x)
     qs[j] = q[(size_t)qi * qlen + j];
-  if (kMasked) {
-    for (int c = threadIdx.x; c < rows; c += blockDim.x) {
-      const int v = virt[(size_t)qi * n + row0 + c];
-      vt[c] = v < kNotProbed ? v : kNotProbed;
-    }
+  for (int c = threadIdx.x; c < rows; c += blockDim.x) {
+    const int v = virt[(size_t)qi * n + row0 + c];
+    vt[c] = v < kNotProbed ? v : kNotProbed;
   }
   __syncthreads();
   if constexpr (Scorer::kWarpPerRow) {
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     for (int r = warp; r < rows; r += kWarps) {
       float s = kNegInf;
-      if (!kMasked || vt[r] < kNotProbed)  // warp-uniform: non-members unread
+      if (vt[r] < kNotProbed)  // warp-uniform: non-members unread
         s = score(row0 + r, qs, lane);
       if (lane == 0) sc[r] = s;
     }
   } else {
     for (int r = threadIdx.x; r < rows; r += blockDim.x)
-      sc[r] = (!kMasked || vt[r] < kNotProbed) ? score(row0 + r, qs, 0)
-                                               : kNegInf;
+      sc[r] = vt[r] < kNotProbed ? score(row0 + r, qs, 0) : kNegInf;
   }
   __syncthreads();
   const size_t base = ((size_t)qi * gridDim.x + chunk) * k;
-  select_topk(rows, k, ChunkKeys<kMasked>{sc, vt, row0}, part_v + base,
+  select_topk(rows, k, ChunkKeys{sc, vt, row0}, part_v + base,
               part_t + base, part_r + base, red);
 }
 
@@ -233,21 +230,21 @@ merge(const float* __restrict__ part_v, const int* __restrict__ part_t,
 }
 
 // Both passes on `stream`.  q: (Q, qlen) query operands; part_v / part_t /
-// part_r: (Q, ceil(N / kChunk), k) scratch; virt is read only when kMasked.
+// part_r: (Q, ceil(N / kChunk), k) scratch.
 // The query operand and the chunk's scores sit in dynamic shared memory;
 // past the default 48 KB (PQ tables of m > 46) the kernel opts in to the
 // device's per-block maximum, and a larger operand gives
 // cudaErrorInvalidValue.  Returns a cudaError_t.
-template <bool kMasked, class Scorer>
+template <class Scorer>
 int launch(const Scorer& score, const float* q, int qlen, const int* virt,
            int n, int nq, int k, float* part_v, int* part_t, int* part_r,
            float* out_v, int* out_r, cudaStream_t stream) {
   const size_t smem = (size_t)qlen * sizeof(float) +
-                      (size_t)kChunk * (sizeof(float) + (kMasked ? sizeof(int) : 0));
+                      (size_t)kChunk * (sizeof(float) + sizeof(int));
   if (n <= 0 || qlen <= 0 || nq <= 0 || k <= 0 || k > n || nq > 65535 ||
       smem > INT_MAX)
     return (int)cudaErrorInvalidValue;
-  const auto kernel = score_select<kMasked, Scorer>;
+  const auto kernel = score_select<Scorer>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

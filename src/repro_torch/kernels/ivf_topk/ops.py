@@ -1,9 +1,10 @@
 """Public op: top-k inner-product search (the centroid probe).
 
-``topk_ip`` launches the hand-written CUDA kernel (``csrc/ivf_topk.cu``) for
-CUDA tensors and takes the plain version (``ref.py``) only for CPU tensors.
-A CUDA tensor never reaches the plain version: a kernel that fails to build
-or launch raises.  ``topk_ip.launches`` counts kernel launches.
+``topk_ip`` launches the hand-written CUDA kernel (``csrc/ivf_topk.cu``, one
+launch a call) for CUDA tensors and takes the plain version (``ref.py``)
+only for CPU tensors.  A CUDA tensor never reaches the plain version: a
+kernel that fails to build or launch raises.  ``topk_ip.launches`` counts
+kernel launches.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tiled
 from repro_torch.kernels.ivf_topk.ref import topk_ip_ref
 
 _P = ctypes.c_void_p
@@ -21,37 +22,24 @@ _I = ctypes.c_int
 
 @functools.cache
 def _lib():
-    """(library with its signatures set, rows per scoring block), once."""
+    """(library with its signatures set, scratch bytes of (n, nq, k)),
+    once."""
     lib = _build.load("ivf_topk")
-    lib.ivf_topk.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+    lib.ivf_topk.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P,
+                             ctypes.c_longlong, _P, _P, _P]
     lib.ivf_topk.restype = _I
-    lib.ivf_topk_chunk_rows.restype = _I
-    return lib, lib.ivf_topk_chunk_rows()
+    lib.ivf_topk_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.ivf_topk_scratch_bytes.restype = ctypes.c_size_t
+    return lib, functools.lru_cache(maxsize=1024)(lib.ivf_topk_scratch_bytes)
 
 
 def _launch(embs: torch.Tensor, queries: torch.Tensor, k: int):
     if embs.dtype != torch.float32 or queries.dtype != torch.float32:
         raise TypeError("ivf_topk kernel takes float32 embs and queries")
-    lib, chunk_rows = _lib()
-    embs, queries = embs.contiguous(), queries.contiguous()
-    (n, d), nq = embs.shape, queries.shape[0]
-    dev = embs.device
-    nchunks = -(-n // chunk_rows)
-    part_v = torch.empty((nq, nchunks, k), dtype=torch.float32, device=dev)
-    part_t = torch.empty((nq, nchunks, k), dtype=torch.int32, device=dev)
-    part_i = torch.empty((nq, nchunks, k), dtype=torch.int32, device=dev)
-    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    idx = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ivf_topk(embs.data_ptr(), queries.data_ptr(), n, d, nq, k,
-                           part_v.data_ptr(), part_t.data_ptr(),
-                           part_i.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-                           stream)
-    if err != 0:
-        raise RuntimeError(f"ivf_topk kernel launch failed: cudaError {err}")
+    lib, scratch_bytes = _lib()
+    out = _tiled.launch(lib.ivf_topk, scratch_bytes, embs, queries, None, k)
     topk_ip.launches += 1
-    return vals, idx
+    return out
 
 
 def topk_ip(embs: torch.Tensor, queries: torch.Tensor, k: int):

@@ -11,11 +11,13 @@ raises.  The mode follows the slab's dtype and the keyword operands:
   pq    emb (N, m) uint8 codes with ``luts`` (Q, m, 256) float32
 
 The slab goes to the kernel in its compact dtype: nothing here widens it.
-On the card a scoring block holds its query operand (D floats, or the
-m x 256 float tables) and 2 KB of chunk scores in shared memory, up to the
-device's per-block maximum: 227 KB on the H100, so D <= 57,573 and pq
-m <= 224 there; a wider operand raises.
-``slab_topk.launches`` counts kernel launches, ``slab_topk.launches_by_mode``
+fp32 is one launch a call (``csrc/topk_tiled.cuh``) and takes any D: its
+rows and queries cross shared memory a slice of D at a time.  fp16, int8
+and pq are two launches (``csrc/topk_common.cuh``); a scoring block there
+holds its query operand (D floats, or the m x 256 float tables) and 2 KB of
+chunk scores in shared memory, up to the device's per-block maximum: 227 KB
+on the H100, so D <= 57,573 and pq m <= 224 there; a wider operand raises.
+``slab_topk.launches`` counts kernel calls, ``slab_topk.launches_by_mode``
 the same per mode.
 """
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tiled
 from repro_torch.kernels.slab_topk.ref import NOT_PROBED, slab_topk_ref
 
 __all__ = ["slab_topk", "slab_mode", "NOT_PROBED", "ROW_PAD", "MODES"]
@@ -42,19 +44,25 @@ _I = ctypes.c_int
 
 @functools.cache
 def _lib():
-    """(library with its signatures set, rows per scoring block), once."""
+    """(library with its signatures set, rows per scoring block of the
+    two-pass modes, fp32 scratch bytes of (n, nq, k)), once."""
     lib = _build.load("slab_topk")
+    lib.slab_topk_fp32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                   ctypes.c_longlong, _P, _P, _P]
+    lib.slab_topk_fp32.restype = _I
+    lib.slab_topk_fp32_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.slab_topk_fp32_scratch_bytes.restype = ctypes.c_size_t
     tail = [_P, _P, _P, _P, _P, _P]        # scratch, outputs, stream
-    for mode in ("fp32", "fp16"):
-        fn = getattr(lib, f"slab_topk_{mode}")
-        fn.argtypes = [_P, _P, _P, _I, _I, _I, _I] + tail
-        fn.restype = _I
+    lib.slab_topk_fp16.argtypes = [_P, _P, _P, _I, _I, _I, _I] + tail
+    lib.slab_topk_fp16.restype = _I
     lib.slab_topk_int8.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I] + tail
     lib.slab_topk_int8.restype = _I
     lib.slab_topk_pq.argtypes = [_P, _P, _P, _I, _I, _I, _I] + tail
     lib.slab_topk_pq.restype = _I
     lib.slab_topk_chunk_rows.restype = _I
-    return lib, lib.slab_topk_chunk_rows()
+    return (lib, lib.slab_topk_chunk_rows(),
+            functools.lru_cache(maxsize=1024)(
+                lib.slab_topk_fp32_scratch_bytes))
 
 
 def slab_mode(emb: torch.Tensor, queries: torch.Tensor, virt: torch.Tensor,
@@ -94,10 +102,11 @@ def slab_mode(emb: torch.Tensor, queries: torch.Tensor, virt: torch.Tensor,
     return mode
 
 
-def _launch(mode: str, emb: torch.Tensor, queries: torch.Tensor,
-            virt: torch.Tensor, k: int, scales: Optional[torch.Tensor],
-            luts: Optional[torch.Tensor]):
-    lib, chunk_rows = _lib()
+def _launch_two_pass(mode: str, emb: torch.Tensor, queries: torch.Tensor,
+                     virt: torch.Tensor, k: int,
+                     scales: Optional[torch.Tensor],
+                     luts: Optional[torch.Tensor]):
+    lib, chunk_rows, _ = _lib()
     emb, virt = emb.contiguous(), virt.contiguous()
     n, nq = emb.shape[0], virt.shape[0]
     dev = emb.device
@@ -131,9 +140,21 @@ def _launch(mode: str, emb: torch.Tensor, queries: torch.Tensor,
             f"slab_topk {mode} kernel launch failed: cudaError {err} (a "
             f"query operand of {width} floats must fit in a block's shared "
             f"memory with the chunk's scores)")
+    return vals, rows
+
+
+def _launch(mode: str, emb: torch.Tensor, queries: torch.Tensor,
+            virt: torch.Tensor, k: int, scales: Optional[torch.Tensor],
+            luts: Optional[torch.Tensor]):
+    if mode == "fp32":
+        lib, _, scratch_bytes = _lib()
+        out = _tiled.launch(lib.slab_topk_fp32, scratch_bytes, emb, queries,
+                            virt, k)
+    else:
+        out = _launch_two_pass(mode, emb, queries, virt, k, scales, luts)
     slab_topk.launches += 1
     slab_topk.launches_by_mode[mode] += 1
-    return vals, rows
+    return out
 
 
 def slab_topk(emb: torch.Tensor, queries: torch.Tensor, virt: torch.Tensor,

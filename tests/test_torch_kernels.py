@@ -309,6 +309,155 @@ def test_cuda_slab_topk_matches_plain(cuda, integer):
                                    atol=_tol(emb, q))
 
 
+# ivf_topk and fp32 slab_topk share one kernel (csrc/topk_tiled.cuh): row
+# tiles of 16 (N <= 2,048) or 64 rows, query tiles of 16, the merge in the
+# same launch.  The cases below cross each of those edges.
+def _tiled_case(kind, n, d, nq, seed, integer):
+    """(emb, queries, virt or None): random clusters of 1-39 rows, each
+    probed by about 40% of the queries, for "slab"."""
+    rng = np.random.default_rng(seed)
+    if integer:
+        e = rng.integers(-3, 4, (n, d)).astype(np.float32)
+        q = rng.integers(-2, 3, (nq, d)).astype(np.float32)
+    else:
+        e = rng.standard_normal((n, d)).astype(np.float32)
+        q = rng.standard_normal((nq, d)).astype(np.float32)
+    if kind == "ivf":
+        return e, q, None
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(int(min(rng.integers(1, 40), n - sum(sizes))))
+    probes = [list(np.flatnonzero(rng.random(len(sizes)) < 0.4))
+              for _ in range(nq)]
+    return e, q, _virt(sizes, probes)
+
+
+def _tiled(kind, e, q, virt, k, dev):
+    """The port's op on ``dev`` -> numpy (vals, ids)."""
+    args = [torch.from_numpy(a).to(dev) for a in (e, q)]
+    if kind == "ivf":
+        out = topk_ip(*args, k)
+    else:
+        out = slab_topk(*args, torch.from_numpy(virt).to(dev), k)
+    return tuple(t.cpu().numpy() for t in out)
+
+
+def _hold_tiled(kind, e, q, virt, k, cuda, integer):
+    """The kernel against the plain version: bitwise on integer inputs,
+    else scores within _tol and ids equal away from near-ties (slab: on the
+    lanes within each query's member count)."""
+    kv, ki = _tiled(kind, e, q, virt, k, cuda)
+    pv, pi = _tiled(kind, e, q, virt, k, "cpu")
+    if integer:
+        assert np.array_equal(kv, pv) and np.array_equal(ki, pi)
+        return
+    full = q.astype(np.float64) @ e.T.astype(np.float64)
+    if kind == "slab":
+        valid = _valid_lanes(virt, k)
+        full = np.where(virt < NOT_PROBED, full, -1e30)
+        kv, ki = np.where(valid, kv, -1e30), np.where(valid, ki, -1)
+        pv, pi = np.where(valid, pv, -1e30), np.where(valid, pi, -1)
+    _assert_topk_close(kv, ki, pv, pi, full, _tol(e, q))
+
+
+TILED_NK = [(n, k) for n in (1, 63, 64, 65, 125, 4097)
+            for k in sorted({1, 10, 64, n}) if k <= n]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ivf", "slab"])
+@pytest.mark.parametrize("nq", [1, 16, 17, 40])
+@pytest.mark.parametrize("n,k", TILED_NK)
+def test_cuda_tiled_topk_tile_edges(cuda, kind, nq, n, k):
+    for integer in (False, True):
+        e, q, virt = _tiled_case(kind, n, 64, nq, n + nq + k, integer)
+        _hold_tiled(kind, e, q, virt, k, cuda, integer)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ivf", "slab"])
+@pytest.mark.parametrize("d", [3, 17, 64, 768, 4096])
+def test_cuda_tiled_topk_any_d(cuda, kind, d):
+    """No limit on D (4,096 floats a query), D % 4 != 0 (plain loads), and
+    operands 4 bytes off a 16-byte boundary give the aligned bits."""
+    for integer in (False, True):
+        e, q, virt = _tiled_case(kind, 1300, d, 16, d, integer)
+        _hold_tiled(kind, e, q, virt, 10, cuda, integer)
+    et, qt = torch.from_numpy(e).to(cuda), torch.from_numpy(q).to(cuda)
+    shifted = []
+    for t in (et, qt):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        shifted.append(buf[1:].view(t.shape))
+        shifted[-1].copy_(t)
+    if kind == "ivf":
+        a, b = topk_ip(et, qt, 10), topk_ip(*shifted, 10)
+    else:
+        vt = torch.from_numpy(virt).to(cuda)
+        a, b = slab_topk(et, qt, vt, 10), slab_topk(*shifted, vt, 10)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+def test_cuda_slab_topk_fp32_queries_and_tiles_without_members(cuda):
+    """A query that probes nothing, a 64-row tile no query probes, and a
+    whole query tile (queries 16..) with no member anywhere: the member
+    lanes and the NEG_INF lanes (lowest non-member rows) equal the plain
+    version bitwise."""
+    e, q, virt = _tiled_case("slab", 4097, 64, 20, 5, integer=True)
+    virt[:, :64] = NOT_PROBED
+    virt[3] = NOT_PROBED
+    virt[16:] = NOT_PROBED
+    for k in (1, 10, 100):
+        _hold_tiled("slab", e, q, virt, k, cuda, integer=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ivf", "slab"])
+def test_cuda_tiled_topk_batch_equals_sequential(cuda, kind):
+    e, q, virt = _tiled_case(kind, 4097, 768, 40, 9, integer=False)
+    vals, ids = _tiled(kind, e, q, virt, 10, cuda)
+    for i in range(q.shape[0]):
+        v1, i1 = _tiled(kind, e, q[i:i + 1],
+                        None if virt is None else virt[i:i + 1], 10, cuda)
+        assert np.array_equal(v1[0], vals[i]) and np.array_equal(i1[0], ids[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ivf", "slab"])
+def test_cuda_tiled_topk_repeats_and_second_stream(cuda, kind):
+    """The merge's ticket counters are zero again after every launch: calls
+    in a row, and calls on a second stream, give the same bits, one launch
+    each."""
+    e, q, virt = _tiled_case(kind, 4097, 768, 40, 10, integer=False)
+    op = topk_ip if kind == "ivf" else slab_topk
+    first = _tiled(kind, e, q, virt, 10, cuda)
+    before = op.launches
+    for _ in range(3):
+        again = _tiled(kind, e, q, virt, 10, cuda)
+        assert all(np.array_equal(a, b) for a, b in zip(first, again))
+    assert op.launches == before + 3
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            again = _tiled(kind, e, q, virt, 10, cuda)
+            assert all(np.array_equal(a, b) for a, b in zip(first, again))
+    again = _tiled(kind, e, q, virt, 10, cuda)
+    assert all(np.array_equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ivf", "slab"])
+def test_cuda_tiled_topk_runs_on_every_card(cuda, kind):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second NVIDIA GPU")
+    e, q, virt = _tiled_case(kind, 4097, 768, 17, 11, integer=True)
+    want = _tiled(kind, e, q, virt, 10, "cpu")
+    for i in range(torch.cuda.device_count()):
+        for _ in range(2):
+            got = _tiled(kind, e, q, virt, 10, torch.device("cuda", i))
+            assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
 # ---------------------------------------------------------------------------
 # slab_topk: fp16, int8 (scaled) and pq modes
 # ---------------------------------------------------------------------------
