@@ -11,9 +11,12 @@ Phases, one JSON line each:
                    once, into the git-ignored ``build/kernels/``), with
                    ``ptxas``'s registers and spills per kernel entry; every
                    ``flash_attention`` entry (head dims 64, 80, 128, f32 and
-                   bf16, both layouts) and every entry of the one-launch
+                   bf16, both layouts), every entry of the one-launch
                    top-k kernel (``topk_tiled_ptxas``: ivf_topk and fp32
-                   slab_topk at 16- and 64-row tiles) must spill nothing.
+                   slab_topk at 16- and 64-row tiles) and every
+                   ``decode_fwd`` entry (``decode_attention_ptxas``: K6 and
+                   K7, f32 and bf16, head dims 32, 64, 80, 128) must spill
+                   nothing.
   main_path        the port's request path at full size: a fiqa-sized corpus
                    (25,000 chunks, dim 768) indexed by ``EdgeRAGIndex.build``
                    (nlist 125), then batches of 16 requests through
@@ -53,7 +56,8 @@ Phases, one JSON line each:
                    miss the bound; the 4-slot batch equals its slots run
                    one at a time, bitwise; ``quantize_kv`` on the card
                    equals the CPU's; plus D = 32, GQA, window and bf16
-                   cases against the plain version.
+                   cases against the plain version.  Every K7 call gives
+                   K6's bits on the dequantized cache.
   encode           gte-base-en-v1.5 at full width (12 layers, d_model 768,
                    12 heads of 64; random weights from the seed): ``encode``
                    of 256 chunk texts of the corpus at 128 tokens on the card
@@ -89,7 +93,9 @@ Phases, one JSON line each:
                    which q, K and V rounded to TF32 (what a 1xTF32
                    ``flash_attention`` would see) must miss at the recorded
                    prefill and encode inputs; K and V off a 16-byte
-                   boundary (staged by plain loads) give the aligned bits;
+                   boundary, and a decode cache whose row strides are (a
+                   head dim pad sliced off), are staged by plain loads and
+                   give the aligned bits;
                    batch == sequential, bitwise; and each
                    refusal (a head dim not built, a length of 0, a logit
                    softcap) raises, with the next launch running.
@@ -99,7 +105,12 @@ Phases, one JSON line each:
                    exactly one device launch of the one-launch top-k kernel
                    per ``ivf_topk`` and per fp32 ``slab_topk`` call (and no
                    two-pass launch); K7 against K6 on its dequantized cache
-                   at K7's ``kernels`` shape; K5 against
+                   and against its library composite at K7's ``kernels``
+                   shape; K6 against ``scaled_dot_product_attention`` at
+                   the recorded decode input and, in ``decode_long``, at a
+                   4,096-row f32 cache (every row valid), with its error
+                   and bound there; each K6 and K7 call one device event;
+                   K5 against
                    ``scaled_dot_product_attention`` at the recorded prefill
                    and encode inputs; and each top-k kernel against its
                    library call at its ``kernels`` inputs: 100 calls each,
@@ -108,8 +119,8 @@ Phases, one JSON line each:
                    L2 flushed before each call.
 
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
-library time, and the bound from this run's inputs; the rows of K1-K5 also
-carry the breakdown's device ms of the kernel and of its library call), the
+library time, and the bound from this run's inputs; every row also carries
+the breakdown's device ms of the kernel and of its library call), the
 ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Bounds: bytes read once at HBM's
 3.35 TB/s against the function's operations at the fp32-accurate peak of
@@ -241,6 +252,31 @@ def tiled_ptxas(report) -> object:
     return {"registers_and_spill_bytes": out}
 
 
+def decode_ptxas(lines) -> object:
+    """``ptxas``'s registers and spill stores per ``decode_fwd`` entry (K6
+    over an f32 or bf16 cache, K7 over an int8 cache with an f32 or bf16 q;
+    head dims 32, 64, 80, 128), checking that none spills; "not rebuilt"
+    when the library was built before this run."""
+    import re
+    if not lines:
+        return "not rebuilt in this run"
+    out = {}
+    for ln in lines:
+        kind = re.search(r"decode_fwdI(f|13__nv_bfloat16)Li(\d+)E.*?"
+                         r"(FpRows|Q8Rows)", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        spill = re.search(r"(\d+) bytes spill stores", ln)
+        check(kind and regs and spill, f"unread ptxas line: {ln}")
+        name = "decode_attention" if kind[3] == "FpRows" else \
+            "decode_attention_q8"
+        dtype = "f32" if kind[1] == "f" else "bf16"
+        out[f"{name} {dtype} D={kind[2]}"] = [int(regs[1]), int(spill[1])]
+    check(len(out) == 16, f"decode_attention: {len(out)} entries, not 16")
+    spilled = {k: v for k, v in out.items() if v[1]}
+    check(not spilled, f"decode_attention spills: {spilled}")
+    return {"registers_and_spill_bytes": out}
+
+
 # device event names of the top-k kernels: the one launch of ivf_topk and of
 # fp32 slab_topk, and the two passes of the fp16 / int8 / pq modes
 TILED_EVENTS = ("tiled::score_merge<false", "tiled::score_merge<true")
@@ -261,12 +297,13 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profiled(fn, count=()) -> dict:
+def profiled(fn, count=(), events=False) -> dict:
     """Host wall ms of one call of ``fn`` (ending in a device sync) under
     ``torch.profiler``, the device time in it (kernels and copies only, so
     nothing is counted twice), the largest device events and, for each
     name in ``count``, how many device events had a name containing it and
-    their device ms."""
+    their device ms; with ``events``, every device event name's count and
+    device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -286,6 +323,8 @@ def profiled(fn, count=()) -> dict:
            "device_ms": sum(t for _, t in dev.values()) if dev
            else "not measured",
            "top_device_events": [[k[:80], n, t] for k, (n, t) in top]}
+    if events:
+        out["events"] = dev
     if count:
         out["launches"] = {name: sum(n for k, (n, _) in dev.items()
                                      if name in k) for name in count}
@@ -892,6 +931,9 @@ def kv_int8(dev, recorded) -> dict:
     launches = decode_attention_q8.launches
     check(launches == want, f"kv_int8: K7 launched {launches} times, the "
           f"loop implies {want}")
+    check(stats["vs_k6_dequant_bitwise_calls"] == want, f"kv_int8: K7 gave "
+          f"K6's bits on the dequantized cache at "
+          f"{stats['vs_k6_dequant_bitwise_calls']} of {want} calls")
 
     # ---- the int8 cache against the fp32 one ---------------------------
     qs = torch.cat([c[0].flatten() for c in single["calls"] + slots["calls"]])
@@ -1145,6 +1187,18 @@ def check_attention(rec_flash, rec_dec, dev) -> dict:
                 rand(2, 128, 8, 32),
                 torch.tensor([128, 60], dtype=torch.int32, device=dev))
 
+    def padded(t):
+        """``t``'s values with a head dim pad sliced off: row strides off
+        16 bytes."""
+        buf = t.new_zeros((*t.shape[:-1], t.shape[-1] + 1))
+        buf[..., :-1] = t
+        return buf[..., :-1]
+
+    check(torch.equal(decode_attention(qc, padded(kc), padded(vc), mixed),
+                      dec), "decode_attention: a cache off 16-byte strides "
+          "does not give the aligned bits")
+    out["decode_attention_mixed_gqa4"]["unaligned_cache"] = "bitwise"
+
     # batch == sequential, bitwise: row b's output does not depend on B
     for i in range(16):
         one = flash_attention(qe[i:i + 1], ke[i:i + 1], ve[i:i + 1],
@@ -1199,15 +1253,77 @@ def check_attention(rec_flash, rec_dec, dev) -> dict:
     return out
 
 
-def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev) -> list:
+def decode_mask(q, kc, lens):
+    """(the (B, 1, 1, Smax) mask of the valid cache positions, how many
+    there are over the batch) for ``scaled_dot_product_attention``."""
+    import torch
+    b, smax = q.shape[0], kc.shape[1]
+    valid = (torch.arange(smax, device=q.device)[None, :]
+             < torch.as_tensor(lens, device=q.device).reshape(-1, 1))
+    return valid[:, None, None, :], int(valid.expand(b, smax).sum())
+
+
+def decode_device_ms(q, kc, vc, lens, calls: int = 100) -> dict:
+    """Device ms per call of K6 and of ``scaled_dot_product_attention``
+    with the same mask at a decode input (the recorded one in ``main``),
+    each over ``calls`` calls under ``torch.profiler``; each K6 call must
+    show one device event, its ``decode_fwd``."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    mask, _ = decode_mask(q, kc, lens)
+    out = device_ms({"decode_attention": lambda: decode_attention(
+                         q, kc, vc, lens),
+                     "sdpa": lambda: sdpa(q, kc, vc, attn_mask=mask)}, calls)
+    one_kernel_event(out, "decode_attention", "decode_fwd")
+    return out
+
+
+def decode_long(dev, calls: int = 100) -> dict:
+    """K6 at a long cache: q (1, 1, 32, 80) against a 4,096-row f32 cache
+    (1, 4096, 32, 80), every row valid -- Sheared-LLaMA-2.7B's 4,096-token
+    context, inherited from LLaMA-2.  K6 within :func:`attn_tol` of its
+    plain version, its device ms and ``scaled_dot_product_attention``'s
+    (no mask: every row is valid) over ``calls`` calls, one device event a
+    K6 call, and the bound: K and V read once at HBM's rate against 4 D
+    flops per (head, row) at the fp32 peak."""
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    gen = torch.Generator(device=dev).manual_seed(8)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    b, smax, h, d = 1, 4096, 32, 80
+    q, kc, vc = rand(b, 1, h, d), rand(b, smax, h, d), rand(b, smax, h, d)
+    err, ratio = attn_err(decode_attention(q, kc, vc, smax),
+                          decode_plain(q, kc, vc, smax))
+    check(ratio <= 1, f"decode_long: K6 error {err} is {ratio} x its "
+          f"allowance")
+    runs = device_ms({"decode_attention": lambda: decode_attention(
+                          q, kc, vc, smax),
+                      "sdpa": lambda: sdpa(q, kc, vc)}, calls)
+    one_kernel_event(runs, "decode_attention", "decode_fwd")
+    lim = bound((kc.numel() + vc.numel() + 2 * q.numel()) * 4,
+                4 * b * h * d * smax)
+    k6 = runs["decode_attention"]["device_ms_per_call"]
+    return {"shape": list(q.shape), "cache": list(kc.shape), "length": smax,
+            "max_abs_err": err, "err_over_allowance": ratio,
+            "bound_ms": lim[0], "bound_by": lim[1],
+            "device_ms": k6,
+            "library_device_ms": runs["sdpa"]["device_ms_per_call"],
+            "device_over_bound": k6 / lim[0],
+            "ms": cuda_ms(lambda: decode_attention(q, kc, vc, smax), 200),
+            "library_ms": cuda_ms(lambda: sdpa(q, kc, vc), 200),
+            "profile": runs}
+
+
+def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev,
+                   k6_dev) -> list:
     """The ``kernels`` line's rows of the attention kernels at the recorded
     prefill, encode and decode inputs.  Bound: q, k, v read once and the
     output written once (for decode, only the valid cache rows of K and V)
     at HBM's rate, against 4 D flops per (query, valid key) pair per head
     (q . k and p v): for K5 at the tensor cores' fp32-accurate (3xTF32)
     peak, for K6 at the fp32 peak.  Library: PyTorch's
-    ``scaled_dot_product_attention`` with the same mask.  K5's rows add
-    ``k5_dev``'s device ms per call of K5 and of that library call."""
+    ``scaled_dot_product_attention`` with the same mask.  The rows add
+    ``k5_dev``'s and ``k6_dev``'s device ms per call of the kernel and of
+    that library call."""
     import torch
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1241,11 +1357,8 @@ def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev) -> list:
             "device_ms": k5_dev[shape]["flash_attention"]["device_ms_per_call"],
             "library_device_ms": k5_dev[shape]["sdpa"]["device_ms_per_call"]})
     (q, kc, vc, lens), _ = rec_dec.first[None]
-    (b, _, h, d), (smax, kh) = q.shape, kc.shape[1:3]
-    valid = (torch.arange(smax, device=q.device)[None, :]
-             < torch.as_tensor(lens, device=q.device).reshape(-1, 1))
-    n_valid = int(valid.expand(b, smax).sum())
-    mask = valid[:, None, None, :]
+    (b, _, h, d), kh = q.shape, kc.shape[2]
+    mask, n_valid = decode_mask(q, kc, lens)
     lim = bound((n_valid * kh * d * 2 + 2 * q.numel()) * q.element_size(),
                 4 * h * d * n_valid)
     rows.append({
@@ -1257,11 +1370,13 @@ def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev) -> list:
         "ms": cuda_ms(lambda: decode_attention(q, kc, vc, lens), 200),
         "plain_ms": cuda_ms(lambda: decode_plain(q, kc, vc, lens), 10),
         "bound_ms": lim[0], "bound_by": lim[1],
-        "library_ms": cuda_ms(lambda: sdpa(q, kc, vc, attn_mask=mask), 200)})
+        "library_ms": cuda_ms(lambda: sdpa(q, kc, vc, attn_mask=mask), 200),
+        "device_ms": k6_dev["decode_attention"]["device_ms_per_call"],
+        "library_device_ms": k6_dev["sdpa"]["device_ms_per_call"]})
     return rows
 
 
-def q8_row(row, launches, err) -> dict:
+def q8_row(row, launches, err, q8_dev) -> dict:
     """The ``kernels`` line's row of K7 at the recorded decode shape: q (1,
     1, 32, 80) against the int8 (1, 144, 32, 80) cache of layer 0 at 129
     valid rows.  Bound: the valid K and V rows at 1 byte an element with
@@ -1269,26 +1384,15 @@ def q8_row(row, launches, err) -> dict:
     per (head, valid position) and one dequantizing multiply per valid
     cache element at the fp32 peak.  Library: a composite, one
     dequantize of the cache and ``scaled_dot_product_attention`` with the
-    same mask."""
-    import torch
-    import torch.nn.functional as F
+    same mask (:func:`q8_library`).  ``q8_dev``: :func:`q8_device_ms`."""
     from repro_torch.kernels.decode_attention import (
         decode_attention_q8, decode_attention_q8_ref)
-    from repro_torch.models.quantization import dequantize_kv
 
     q, ck, cv, length = row
     (b, _, h, d), (smax, kh) = q.shape, ck.q.shape[1:3]
     n_valid = b * min(length, smax)
     lim = bound(2 * n_valid * kh * (d + 4) + 2 * q.numel() * q.element_size(),
                 4 * h * d * n_valid + 2 * kh * d * n_valid)
-    mask = (torch.arange(smax, device=q.device) < length)[None, None, None]
-
-    def library():
-        return F.scaled_dot_product_attention(
-            q.transpose(1, 2), dequantize_kv(ck).transpose(1, 2),
-            dequantize_kv(cv).transpose(1, 2), attn_mask=mask,
-            enable_gqa=h != kh)
-
     return {"name": "decode_attention_q8", "route": "cuda",
             "source": "src/repro_torch/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention/kernel.py:122",
@@ -1298,23 +1402,47 @@ def q8_row(row, launches, err) -> dict:
             "plain_ms": cuda_ms(lambda: decode_attention_q8_ref(
                 q[:, 0], ck.q, ck.scale, cv.q, cv.scale, length), 10),
             "bound_ms": lim[0], "bound_by": lim[1],
-            "library_ms": cuda_ms(library, 200)}
+            "library_ms": cuda_ms(q8_library(row), 200),
+            "device_ms": q8_dev["decode_attention_q8"]["device_ms_per_call"],
+            "library_device_ms": q8_dev["library"]["device_ms_per_call"]}
+
+
+def q8_library(row):
+    """K7's yardstick at ``row``: one dequantize of the int8 cache and
+    ``scaled_dot_product_attention`` with the valid positions' mask."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models.quantization import dequantize_kv
+
+    q, ck, cv, length = row
+    (h, smax, kh) = q.shape[2], ck.q.shape[1], ck.q.shape[2]
+    mask = (torch.arange(smax, device=q.device) < length)[None, None, None]
+    return lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), dequantize_kv(ck).transpose(1, 2),
+        dequantize_kv(cv).transpose(1, 2), attn_mask=mask,
+        enable_gqa=h != kh)
 
 
 def q8_device_ms(row, calls: int = 100) -> dict:
-    """Device ms per call of K7 and of K6 at the ``kernels`` line's K7
-    shape, K6 on the dequantized cache, each over ``calls`` calls under
-    ``torch.profiler``: what the kernels take without their wrappers."""
+    """Device ms per call of K7, of K6 on the dequantized cache and of
+    K7's library composite (:func:`q8_library`) at the ``kernels`` line's
+    K7 shape, each over ``calls`` calls under ``torch.profiler``: what the
+    kernels take without their wrappers.  Each K7 and K6 call must show
+    one device event, its ``decode_fwd``."""
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_q8)
     from repro_torch.models.quantization import dequantize_kv
 
     q, ck, cv, length = row
     fk, fv = dequantize_kv(ck), dequantize_kv(cv)
-    return device_ms({"decode_attention_q8": lambda: decode_attention_q8(
-                          q, ck.q, ck.scale, cv.q, cv.scale, length),
-                      "decode_attention_dequantized": lambda: decode_attention(
-                          q, fk, fv, length)}, calls)
+    out = device_ms({"decode_attention_q8": lambda: decode_attention_q8(
+                         q, ck.q, ck.scale, cv.q, cv.scale, length),
+                     "decode_attention_dequantized": lambda: decode_attention(
+                         q, fk, fv, length),
+                     "library": q8_library(row)}, calls)
+    for name in ("decode_attention_q8", "decode_attention_dequantized"):
+        one_kernel_event(out, name, "decode_fwd")
+    return out
 
 
 def k5_device_ms(rec_flash, calls: int = 100) -> dict:
@@ -1335,17 +1463,40 @@ def k5_device_ms(rec_flash, calls: int = 100) -> dict:
 def device_ms(runs: dict, calls: int) -> dict:
     """Per named function: device ms per call over ``calls`` calls under
     ``torch.profiler`` (what the kernels take without their wrappers),
-    beside wall ms per call with the profiler on."""
+    beside wall ms per call with the profiler on.  The profiler may miss a
+    few of a window's events, so an event name seen at least ``calls`` / 2
+    times counts its mean device ms times the times it appears a call (its
+    count over ``calls``, rounded): the kernel events counted, not
+    ``calls``, divide its time.  A rarer one (a one-off fill or first-use
+    launch) counts its total over ``calls``.  ``events_per_call`` gives
+    those counts (0 for the rare ones)."""
     out = {"calls": calls}
     for name, fn in runs.items():
         fn()                                            # warm
-        prof = profiled(lambda: [fn() for _ in range(calls)])
-        dev_ms = prof["device_ms"]
-        out[name] = {"device_ms_per_call": dev_ms / calls
-                     if isinstance(dev_ms, float) else dev_ms,
+        prof = profiled(lambda: [fn() for _ in range(calls)], events=True)
+        per_call = {k: round(n / calls) if 2 * n >= calls else 0
+                    for k, (n, _) in prof["events"].items()}
+        out[name] = {"device_ms_per_call": sum(
+                         t / n * per_call[k] if per_call[k] else t / calls
+                         for k, (n, t) in prof["events"].items())
+                     if prof["events"] else "not measured",
+                     "events": sum(n for n, _ in prof["events"].values()),
+                     "events_per_call": {k[:80]: c
+                                         for k, c in per_call.items()},
                      "wall_ms_per_call": prof["wall_ms"] / calls,
                      "top_device_events": prof["top_device_events"][:2]}
     return out
+
+
+def one_kernel_event(runs: dict, name: str, event: str) -> None:
+    """Checks that each call of ``runs[name]`` (a :func:`device_ms` entry)
+    showed one device event, and that it was ``event``."""
+    per_call = runs[name]["events_per_call"]
+    check(len(per_call) == 1 and event in next(iter(per_call))
+          and next(iter(per_call.values())) == 1
+          and runs[name]["events"] <= runs["calls"],
+          f"{name}: device events {per_call} ({runs[name]['events']} in "
+          f"{runs['calls']} calls); want one {event} a call")
 
 
 def cold_l2_device_ms(fn, event: str, calls: int = 100) -> dict:
@@ -1406,6 +1557,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     k5_ptxas = flash_ptxas(_build.ptxas_report.get("flash_attention"))
     topk_ptxas = tiled_ptxas(_build.ptxas_report)
+    k6_ptxas = decode_ptxas(_build.ptxas_report.get("decode_attention"))
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
@@ -1413,6 +1565,7 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": build_s,
           "build_s_per_kernel": per_kernel_s,
           "flash_attention_ptxas": k5_ptxas, "topk_tiled_ptxas": topk_ptxas,
+          "decode_attention_ptxas": k6_ptxas,
           "ptxas": _build.ptxas_report})
 
     # ---- main path ------------------------------------------------------
@@ -1686,12 +1839,16 @@ def main() -> int:
                                 report[name]["max_abs_err"], calls[name],
                                 topk_dev))
     k5_dev = k5_device_ms(rec_flash)
+    k6_dev = decode_device_ms(*rec_dec.first[None][0])
+    q8_dev = q8_device_ms(q8_inputs)
     kernels += attention_rows(
         rec_flash, rec_dec,
         {"flash_attention_causal": main_by_mask["causal"],
          "flash_attention_encode": enc["launches"]["non_causal"],
-         "decode_attention": launches["decode_attention"]}, report, k5_dev)
-    kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"]))
+         "decode_attention": launches["decode_attention"]}, report, k5_dev,
+        k6_dev)
+    kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"],
+                          q8_dev))
 
     # ---- breakdown: one retrieval batch and one request's generation ----
     embs = ds.query_embs[BATCHES * BATCH:(BATCHES + 1) * BATCH]
@@ -1713,7 +1870,8 @@ def main() -> int:
     gen_prof = profiled(lambda: gen.generate(prompt, NEW_TOKENS))
     emit({"phase": "breakdown", "retrieval_batch": ret,
           "one_request_generation": gen_prof,
-          "k7_vs_k6_device": q8_device_ms(q8_inputs),
+          "k7_vs_k6_device": q8_dev, "k6_vs_sdpa_device": k6_dev,
+          "decode_long": decode_long(dev),
           "k5_vs_sdpa_device": k5_dev, "topk_vs_library_device": topk_dev,
           "k2_cold_vs_warm_l2": cold_l2_device_ms(calls["slab_topk"][0],
                                                   TILED_EVENTS[1])})

@@ -1,7 +1,8 @@
 // Support shared by the attention kernels (flash_attention.cu,
 // decode_attention.cu): element strides of a (B, S, H, D) operand, f32 /
-// bf16 loads and stores, and the dispatch from the C interface's dtype code
-// and head dim to a kernel instantiated for them.
+// bf16 loads and stores, 16-byte cp.async copies into shared memory, and
+// the dispatch from the C interface's dtype code and head dim to a kernel
+// instantiated for them.
 #pragma once
 
 #include <cmath>
@@ -26,6 +27,22 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+
+// one 16-byte copy from global to shared memory (zero-filled unless valid)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// until at most kPending of this thread's committed groups are in flight
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
 }
 
 template <class T>

@@ -84,6 +84,9 @@
 
 namespace {
 
+using attn::cp_async16;
+using attn::cp_async_commit;
+using attn::cp_async_wait;
 using attn::kFull;
 using attn::kNegInf;
 using attn::Strides;
@@ -150,20 +153,6 @@ __device__ __forceinline__ float2 widen2(const float* p) {
 }
 __device__ __forceinline__ float2 widen2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
 }
 
 // Stages KV rows kv0 .. kv0 + kBK - 1 of one head into a tile, rows past

@@ -71,6 +71,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "ticket.cuh"
 #include "topk_common.cuh"
 
 namespace topk {
@@ -153,15 +154,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
       "@!p bra WAIT;\n"
       "}\n" :: "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-
-// the ticket: the block's candidate writes (ordered before it by the
-// barrier) are released, and the last block acquires all the others'
-__device__ __forceinline__ int take_ticket(int* counter) {
-  int old;
-  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
-               : "=r"(old) : "l"(counter) : "memory");
-  return old;
 }
 
 // topk::before without branches (a warp's lanes compare different keys):
@@ -585,7 +577,7 @@ score_merge(const float* __restrict__ emb, const float* __restrict__ q,
   // ---- 4. the last block of the query tile merges ------------------------
   __syncthreads();
   if (tid == 0)
-    last = take_ticket(tickets + blockIdx.y) == ntiles - 1;
+    last = ticket::take(tickets + blockIdx.y) == ntiles - 1;
   __syncthreads();
   if (!last) return;
 

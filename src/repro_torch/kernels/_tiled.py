@@ -1,14 +1,19 @@
-"""Host side of the one-launch top-k kernels (``csrc/topk_tiled.cuh``:
-``ivf_topk`` and fp32 ``slab_topk``): their one launcher, ``launch``, and
-the counters it hands them.
+"""Host side of the kernels that merge their blocks' partial results in the
+same launch: the one-launch top-k kernels (``csrc/topk_tiled.cuh``:
+``ivf_topk`` and fp32 ``slab_topk``, launched by :func:`launch`) and the
+split-K decode attention kernels (``csrc/decode_attention.cu``: K6 and K7).
 
-A launch counts on zeroed counters: one per query tile (the block that
-brings it to the tile count is the last and merges) and one per query (it
-hands out the offsets of the query's candidates).  The merging block sets
-them back to 0 when it is done.  So each (card, stream) keeps one zeroed
-int32 array, made when a stream first needs it or needs a longer one (the
-only extra launch) and reused by every later launch on that stream, which
-runs after the previous one has reset it.  Two streams never share one.
+A launch counts on zeroed counters: the block that brings a group's counter
+to the group's block count is the last, and merges (a top-k query tile, or
+a decode (slot, kv head); the top-k kernels also hand out each query's
+candidate offsets from one).  The merging block sets them back to 0 when it
+is done.  So each (card, stream) keeps one zeroed int32 array
+(:func:`stream_and_tickets`), made when a stream first needs it or needs a
+longer one (the only extra launch) and reused by every later launch on that
+stream, which runs after the previous one has reset it; and one scratch
+buffer for the partials (:func:`stream_scratch`), which a launch writes and
+reads before the next one on the stream starts.  Two streams never share
+either.
 """
 from __future__ import annotations
 
@@ -17,18 +22,39 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 _tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+_scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _stream_and_tickets(dev: torch.device, nq: int) -> Tuple[int, int, int]:
+def stream_and_tickets(dev: torch.device, n: int) -> Tuple[int, int, int]:
     """(the current stream's handle on ``dev``, the address and the length
-    of its zeroed counters: at least ``2 * nq``, which covers the ceil(nq /
-    16) tile counters and the nq query counters)."""
+    of its zeroed counters: at least ``n``)."""
     stream = torch.cuda.current_stream(dev).cuda_stream
     tickets = _tickets.get((dev.index, stream))
-    if tickets is None or tickets.numel() < 2 * nq:
+    if tickets is None or tickets.numel() < n:
         tickets = _tickets[dev.index, stream] = torch.zeros(
-            max(2 * nq, 4096), dtype=torch.int32, device=dev)
+            max(n, 4096), dtype=torch.int32, device=dev)
     return stream, tickets.data_ptr(), tickets.numel()
+
+
+def stream_scratch(dev: torch.device, stream: int,
+                   nbytes: int) -> Tuple[int, int]:
+    """(the address and the size in bytes of the scratch buffer of
+    ``stream`` on ``dev``: at least ``nbytes``, on a 16-byte boundary)."""
+    buf = _scratch.get((dev.index, stream))
+    if buf is None or buf.numel() < nbytes:
+        buf = _scratch[dev.index, stream] = torch.empty(
+            max(nbytes, 1 << 16), dtype=torch.uint8, device=dev)
+    return buf.data_ptr(), buf.numel()
+
+
+def on_card(dev: torch.device, call: Callable[[], int]) -> int:
+    """``call()`` with ``dev`` the current card: a launch goes to the
+    current card, so another card's tensors switch to theirs first (and
+    only then, since entering ``torch.cuda.device`` costs host time)."""
+    if dev.index == torch.cuda.current_device():
+        return call()
+    with torch.cuda.device(dev):
+        return call()
 
 
 def launch(fn: Callable[..., int], scratch_bytes: Callable[[int, int, int],
@@ -52,17 +78,12 @@ def launch(fn: Callable[..., int], scratch_bytes: Callable[[int, int, int],
     rows = torch.empty((nq, k), dtype=torch.int32, device=dev)
 
     def call():
-        stream, tickets, ntickets = _stream_and_tickets(dev, nq)
+        # ceil(nq / 16) tile counters and nq query counters
+        stream, tickets, ntickets = stream_and_tickets(dev, 2 * nq)
         return fn(*head, n, d, nq, k, scratch.data_ptr(), tickets, ntickets,
                   vals.data_ptr(), rows.data_ptr(), stream)
 
-    # the launch goes to the current card, so another card's tensors switch
-    # to theirs first
-    if dev.index == torch.cuda.current_device():
-        err = call()
-    else:
-        with torch.cuda.device(dev):
-            err = call()
+    err = on_card(dev, call)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError "
                            f"{err}")

@@ -23,6 +23,10 @@ lengths, window, GQA and output dtype; its kernel is the same one
 (``csrc/decode_attention.cu``), dequantizing each element right after its
 load, so it gives ``decode_attention`` on the dequantized cache.
 
+Either is one launch a call: the kernel splits the cache across blocks and
+merges their partials in the same launch, on the zeroed counters and the
+scratch buffer that ``kernels/_tiled.py`` keeps per (card, stream).
+
 An int length goes to the kernel as an argument.  A tensor of lengths is
 checked where it lies: on the card that waits for the device, once per
 call.  :func:`decode_lengths` makes that check once and returns a
@@ -38,7 +42,7 @@ from typing import Union
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _tiled
 from repro_torch.kernels._attention import (DTYPES, F, I, L, P,
                                             check_operands, check_strides,
                                             raise_on_error)
@@ -87,13 +91,22 @@ def decode_lengths(lengths: Union[int, torch.Tensor], batch: int,
 @functools.cache
 def _lib():
     lib = _build.load("decode_attention")
+    tail = [F, P, L, P, L, P]   # scale, tickets, scratch, stream
     lib.decode_attention.argtypes = ([I, P, P, P, P] + [L] * 8 + [P]
-                                     + [I] * 7 + [F, P])
+                                     + [I] * 7 + tail)
     lib.decode_attention.restype = I
     lib.decode_attention_q8.argtypes = ([I] + [P] * 6 + [L] * 14 + [P]
-                                        + [I] * 7 + [F, P])
+                                        + [I] * 7 + tail)
     lib.decode_attention_q8.restype = I
+    lib.decode_attention_scratch_bytes.argtypes = [I] * 5
+    lib.decode_attention_scratch_bytes.restype = L
     return lib
+
+
+@functools.cache
+def _scratch_bytes(b: int, smax: int, h: int, kh: int, d: int) -> int:
+    """Bytes of the partials a launch of these shapes writes."""
+    return _lib().decode_attention_scratch_bytes(b, smax, h, kh, d)
 
 
 def _check(op: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -150,20 +163,25 @@ def _launch(op, q: torch.Tensor, cache: tuple,
             lengths: Union[int, DecodeLengths], window: int) -> torch.Tensor:
     """Launches ``op``'s C entry (``decode_attention`` or
     ``decode_attention_q8``) over the ``cache`` tensors, passed in the
-    entry's order, each with its (B, S, KH) strides; counts the launch on
-    ``op``."""
+    entry's order, each with its (B, S, KH) strides, on the current
+    stream's counters and scratch; counts the launch on ``op``."""
     check_strides(op.__name__, q, *cache)
     (b, _, h, d), (smax, kh) = q.shape, cache[0].shape[1:3]
-    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(_lib(), op.__name__)(
+    dev = q.device
+    out = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev)
+
+    def call():
+        stream, tickets, ntickets = _tiled.stream_and_tickets(dev, b * kh)
+        scratch, nscratch = _tiled.stream_scratch(
+            dev, stream, _scratch_bytes(b, smax, h, kh, d))
+        return getattr(_lib(), op.__name__)(
             DTYPES[q.dtype], q.data_ptr(), *(t.data_ptr() for t in cache),
             out.data_ptr(), q.stride(0), q.stride(2),
             *(s for t in cache for s in t.stride()[:3]),
             *_lens_args(lengths), b, smax, h, kh, d, window, d ** -0.5,
-            stream)
-    raise_on_error(op.__name__, err)
+            tickets, ntickets, scratch, nscratch, stream)
+
+    raise_on_error(op.__name__, _tiled.on_card(dev, call))
     op.launches += 1
     return out
 

@@ -802,7 +802,15 @@ def _decode_case(dev, b, smax, h, kh, d, dtype=torch.float32, seed=1):
 
 # b, smax, h, kh, d, lengths, window: the main path's decode shape, mixed
 # per-slot lengths with GQA, a window, a length >= Smax, a window that
-# leaves no valid position (the mean of V), D = 128, bf16, D = 32
+# leaves no valid position (the mean of V), D = 128, bf16, D = 32; then the
+# split of the cache into chunks (csrc/decode_attention.cu: 32 rows while
+# Smax <= 1,024, else 64): lengths C - 1, C, C + 1 and 2C + 1 at both chunk
+# sizes, a 4,096-row cache, a window across a chunk boundary, a window that
+# leaves one slot nothing valid beside a slot within one chunk, GQA groups 2
+# and 4 served from one staged chunk (f32 and bf16), and group 16 (two
+# passes of 8 heads over it); then 8 and 9 chunks (Smax 256 and 288), and
+# windows whose valid chunks start past the first (Smax 1,100: chunks 6-9
+# and 12-17 of 18)
 DECODE_CASES = [
     (1, 144, 32, 32, 80, [129], 0, torch.float32),
     (4, 144, 8, 2, 80, [1, 77, 144, 130], 0, torch.float32),
@@ -812,6 +820,17 @@ DECODE_CASES = [
     (3, 96, 8, 4, 128, [96, 3, 40], 0, torch.float32),
     (2, 128, 4, 2, 64, [128, 31], 8, torch.bfloat16),
     (2, 128, 8, 8, 32, [128, 60], 0, torch.float32),
+    (4, 144, 8, 8, 80, [31, 32, 33, 65], 0, torch.float32),
+    (4, 1100, 4, 2, 64, [63, 64, 65, 129], 0, torch.float32),
+    (1, 4096, 32, 32, 80, [4096], 0, torch.float32),
+    (2, 144, 8, 8, 80, [100, 140], 40, torch.float32),
+    (2, 200, 4, 4, 80, [1000, 5], 3, torch.float32),
+    (2, 300, 8, 4, 128, [300, 170], 0, torch.float32),
+    (3, 160, 16, 4, 64, [160, 97, 33], 50, torch.bfloat16),
+    (2, 100, 32, 2, 32, [100, 37], 0, torch.float32),
+    (2, 256, 8, 2, 80, [256, 200], 0, torch.float32),
+    (3, 288, 8, 8, 80, [288, 250, 257], 0, torch.float32),
+    (3, 1100, 8, 4, 64, [600, 1100, 1030], 200, torch.float32),
 ]
 
 
@@ -856,6 +875,90 @@ def test_cuda_decode_lengths_checked_once_give_the_same_result(cuda):
                        decode_attention(q, k, v, lens.to(cuda)))
     with pytest.raises(ValueError, match=">= 1"):
         decode_lengths(torch.tensor([3, 0, 1, 1], device=cuda), 4, cuda)
+
+
+def _padded(t):
+    """``t``'s values with a head dim pad sliced off: the same shape, row
+    strides off 16 bytes."""
+    buf = t.new_zeros((*t.shape[:-1], t.shape[-1] + 1))
+    buf[..., :-1] = t
+    return buf[..., :-1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_unaligned_cache_gives_the_same_bits(
+        cuda, q8, dtype):
+    """A cache whose row strides are not multiples of 16 bytes is staged by
+    plain loads into the same rows as the cp.async copies of an aligned
+    one (K6: a cache of q's dtype; K7: int8 codes, q in ``dtype``)."""
+    q, k, v = _decode_case(cuda, 3, 144, 8, 4, 80, dtype, seed=5)
+    lengths = torch.tensor([144, 33, 70], dtype=torch.int32, device=cuda)
+    if q8:
+        qk, qv = quantize_kv(k.float()), quantize_kv(v.float())
+        aligned = (qk.q, qk.scale, qv.q, qv.scale)
+        moved = (_padded(qk.q), qk.scale, _padded(qv.q), qv.scale)
+        op = decode_attention_q8
+    else:
+        aligned, moved, op = (k, v), (_padded(k), _padded(v)), \
+            decode_attention
+    assert moved[0].stride(2) * moved[0].element_size() % 16
+    for window in (0, 40):
+        assert torch.equal(op(q, *moved, lengths, window=window),
+                           op(q, *aligned, lengths, window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q8", [False, True])
+def test_cuda_decode_attention_repeats_and_second_stream(cuda, q8):
+    """The merge's ticket counters are zero again after every launch: calls
+    in a row, and calls on a second stream, give the same bits, one launch
+    each (slots of 1 to 18 chunks)."""
+    q, k, v = _decode_case(cuda, 3, 1100, 8, 4, 80)
+    lengths = torch.tensor([1100, 700, 65], dtype=torch.int32, device=cuda)
+    if q8:
+        qk, qv = quantize_kv(k), quantize_kv(v)
+        op = decode_attention_q8
+        run = lambda: op(q, qk.q, qk.scale, qv.q, qv.scale, lengths)
+    else:
+        op = decode_attention
+        run = lambda: op(q, k, v, lengths)
+    first = run()
+    before = op.launches
+    for _ in range(3):
+        assert torch.equal(run(), first)
+    assert op.launches == before + 3
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            assert torch.equal(run(), first)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert torch.equal(run(), first)
+    assert op.launches == before + 6
+
+
+@pytest.mark.gpu
+def test_cuda_decode_attention_runs_on_every_card(cuda):
+    """The launch goes to each tensor's card, with its own counters and
+    scratch, and an entry past 48 KB of shared memory (f32, D = 128,
+    64-row chunks) opts in on each card, not only on the first."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs a second NVIDIA GPU")
+    q, k, v = _decode_case("cpu", 2, 1100, 8, 2, 128)
+    lengths = torch.tensor([1100, 200], dtype=torch.int32)
+    want = None
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        args = [t.to(dev) for t in (q, k, v, lengths)]
+        for _ in range(2):
+            got = decode_attention(*args)
+            assert got.device == dev
+            assert _attn_ratio(got, decode_attention_ref(
+                args[0][:, 0], *args[1:])[:, None]) <= 1
+            want = got.cpu() if want is None else want
+            assert torch.equal(got.cpu(), want)
 
 
 # Logits of a tiny model (|x| < ~1) on the card and the CPU: fp32 matmuls
@@ -968,6 +1071,22 @@ def test_cuda_decode_attention_q8_batch_equals_sequential(cuda, window):
         one = decode_attention_q8(q[s], qk.q[s], qk.scale[s], qv.q[s],
                                   qv.scale[s], lengths[s], window=window)
         assert torch.equal(one[0], out[i]), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,smax,h,kh,d,lens,window,dtype",
+                         [c for c in DECODE_CASES if c[-1] == torch.float32])
+def test_cuda_decode_attention_q8_gives_k6_bits_on_the_dequantized_cache(
+        cuda, b, smax, h, kh, d, lens, window, dtype):
+    """K7 widens each element as float(k_q) * scale before K6's arithmetic,
+    in K6's split of the cache, so the two agree bitwise."""
+    q, qk, qv = _q8_case(cuda, b, smax, h, kh, d, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    assert torch.equal(
+        decode_attention_q8(q, qk.q, qk.scale, qv.q, qv.scale, lengths,
+                            window=window),
+        decode_attention(q, dequantize_kv(qk), dequantize_kv(qv), lengths,
+                         window=window))
 
 
 @pytest.mark.gpu
