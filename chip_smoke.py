@@ -12,8 +12,9 @@ Phases, one JSON line each:
                    ``ptxas``'s registers and spills per kernel entry; every
                    ``flash_attention`` entry (head dims 64, 80, 128, f32 and
                    bf16, both layouts), every entry of the one-launch
-                   top-k kernel (``topk_tiled_ptxas``: ivf_topk and fp32
-                   slab_topk at 16- and 64-row tiles) and every
+                   top-k kernel (``topk_tiled_ptxas``: ivf_topk, and
+                   slab_topk in fp32, fp16, int8 and pq, at 16- and 64-row
+                   tiles: 10 entries) and every
                    ``decode_fwd`` entry (``decode_attention_ptxas``: K6 and
                    K7, f32 and bf16, head dims 32, 64, 80, 128) must spill
                    nothing.
@@ -70,7 +71,9 @@ Phases, one JSON line each:
                    16 through ``search_batch`` and one through
                    ``RAGEngine.answer_batch``.  Checks that every tier ran,
                    that ``slab_topk`` launched in the codec's mode and in
-                   fp32, that ids equal the port's CPU run (same codec,
+                   fp32 (in the profiled batch, one ``score_merge`` device
+                   event per call in each mode and no other top-k event),
+                   that ids equal the port's CPU run (same codec,
                    clustering and codebook) outside near-ties with the same
                    tier decisions, and the stored bytes against the fp32
                    index; prints recall@10 against the fp32 index's ids and,
@@ -82,7 +85,10 @@ Phases, one JSON line each:
                    scores within the stated tolerance and ids equal away from
                    near-ties (pq: bitwise); bitwise on integer-valued inputs;
                    a batch bitwise equal to its queries run one at a time;
-                   plus the empty-slab, k > N and all-tie contracts.  The
+                   plus the empty-slab, k > N and all-tie contracts; fp16,
+                   and int8 with unit scales, give fp32's bits on the
+                   widened slab; pq at m = 300 bitwise, fp16 and int8 at D =
+                   60,000 within tolerance (bitwise on integer inputs).  The
                    attention kernels against their plain versions at the
                    recorded prefill, encode and decode inputs and at extra
                    shapes (GQA, windows, ragged and unequal lengths, D = 128,
@@ -104,7 +110,7 @@ Phases, one JSON line each:
                    against host wall time, and in the retrieval batch
                    exactly one device launch of the one-launch top-k kernel
                    per ``ivf_topk`` and per fp32 ``slab_topk`` call (and no
-                   two-pass launch); K7 against K6 on its dequantized cache
+                   other top-k event); K7 against K6 on its dequantized cache
                    and against its library composite at K7's ``kernels``
                    shape; K6 against ``scaled_dot_product_attention`` at
                    the recorded decode input and, in ``decode_long``, at a
@@ -156,6 +162,7 @@ DATASET, RECORDS, DIM, NLIST = "fiqa", 25_000, 768, 125
 BATCHES, BATCH, K, NPROBE = 4, 16, 10, 8
 GENERATOR, MAX_PROMPT, NEW_TOKENS = "sheared-llama-2.7b", 128, 16
 CODECS, CODEC_NEW_TOKENS = ("fp16", "int8", "pq"), 2
+SLAB_INPUTS = "topk_inputs.pt"   # under build/: each top-k's recorded call
 NEAR_TIE = 1e-4           # |score gap| under which two ids may swap places
 SEED = 0
 PARITY_LAYERS, SLOT_LENS = 2, (128, 100, 77, 140)
@@ -230,9 +237,10 @@ def flash_ptxas(lines) -> object:
 
 def tiled_ptxas(report) -> object:
     """``ptxas``'s registers and spill stores per entry of the one-launch
-    top-k kernel (``topk::tiled::score_merge``: ivf_topk and fp32
-    slab_topk, 16- and 64-row tiles), checking that none spills; "not
-    rebuilt" when neither library was built in this run."""
+    top-k kernel (``topk::tiled::score_merge<mode, rows>``: ivf_topk, and
+    slab_topk in each of its four modes, at 16- and 64-row tiles), checking
+    that none spills; "not rebuilt" when neither library was built in this
+    run."""
     import re
     if not (report.get("ivf_topk") and report.get("slab_topk")):
         return "not rebuilt in this run"
@@ -240,13 +248,14 @@ def tiled_ptxas(report) -> object:
              for ln in report[name] if "score_merge" in ln]
     out = {}
     for ln in lines:
-        kind = re.search(r"score_mergeILb([01])ELi(\d+)E", ln)
+        kind = re.search(r"score_mergeILi(\d)ELi(\d+)E", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         spill = re.search(r"(\d+) bytes spill stores", ln)
         check(kind and regs and spill, f"unread ptxas line: {ln}")
-        name = "slab_topk_fp32" if kind[1] == "1" else "ivf_topk"
-        out[f"{name} rows={kind[2]}"] = [int(regs[1]), int(spill[1])]
-    check(len(out) == 4, f"topk_tiled: {len(out)} entries, not 4")
+        out[f"{TILED_NAMES[int(kind[1])]} rows={kind[2]}"] = [
+            int(regs[1]), int(spill[1])]
+    check(len(out) == 2 * len(TILED_NAMES),
+          f"topk_tiled: {len(out)} entries, not {2 * len(TILED_NAMES)}")
     spilled = {k: v for k, v in out.items() if v[1]}
     check(not spilled, f"topk_tiled spills: {spilled}")
     return {"registers_and_spill_bytes": out}
@@ -277,10 +286,59 @@ def decode_ptxas(lines) -> object:
     return {"registers_and_spill_bytes": out}
 
 
-# device event names of the top-k kernels: the one launch of ivf_topk and of
-# fp32 slab_topk, and the two passes of the fp16 / int8 / pq modes
-TILED_EVENTS = ("tiled::score_merge<false", "tiled::score_merge<true")
-TWO_PASS_EVENTS = ("topk::score_select", "topk::merge")
+# the one-launch top-k kernel's entries by mode (its first template
+# argument), and the device event name of each: the only top-k kernel
+TILED_NAMES = ("ivf_topk", "slab_topk_fp32", "slab_topk_fp16",
+               "slab_topk_int8", "slab_topk_pq")
+TILED_EVENTS = {name: f"tiled::score_merge<{i}," for i, name in
+                enumerate(TILED_NAMES)}
+
+
+PROFILE_WINDOWS = 3   # profiler windows a one-launch check may take
+
+
+def profiled_one_launch(fn, where: str) -> dict:
+    """``profiled(fn, events=True)``, checking the window's device events
+    against the top-k wrappers' calls in it: one ``score_merge`` event of
+    the call's mode per call, and no other top-k event.  The profiler may
+    drop an event of a window, so a window that shows fewer score_merge
+    events than calls, and nothing else wrong, is profiled again, up to
+    PROFILE_WINDOWS windows; an extra event or another top-k kernel fails at
+    once.  Adds ``calls``, ``launches`` (the events counted), ``windows``
+    (the windows it took) and ``short_windows`` (the events counted in each
+    window that came up short)."""
+    short = []
+    for window in range(1, PROFILE_WINDOWS + 1):
+        before = topk_calls()
+        prof = profiled(fn, events=True)
+        calls = calls_since(before)
+        events = prof.pop("events")
+        seen = {name: sum(n for k, (n, _) in events.items()
+                          if TILED_EVENTS[name] in k) for name in TILED_NAMES}
+        other = [k for k in events if "topk::" in k and "score_merge" not in k]
+        msg = (f"{where}: calls {calls}, score_merge events {seen}, other "
+               f"top-k events {other}, short windows {short}; want one "
+               "score_merge launch a call")
+        check(not other and all(seen[k] <= calls[k] for k in seen), msg)
+        if seen == calls:
+            prof.update(calls=calls, launches=seen, windows=window,
+                        short_windows=short)
+            return prof
+        short.append(seen)
+    raise AssertionError(msg)
+
+
+def topk_calls() -> dict:
+    """The top-k wrappers' launch counts, by TILED_NAMES name."""
+    from repro_torch.kernels.ivf_topk import topk_ip
+    from repro_torch.kernels.slab_topk import slab_topk
+    out = {f"slab_topk_{m}": n for m, n in slab_topk.launches_by_mode.items()}
+    out["ivf_topk"] = topk_ip.launches
+    return out
+
+
+def calls_since(before: dict) -> dict:
+    return {k: n - before[k] for k, n in topk_calls().items()}
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -495,7 +553,10 @@ def codec_path(codec, ctx) -> dict:
     ix.search_finish(state)
     stage_s["pack_score"] = (time.perf_counter() - t0 - stage_s["fetch"]
                              - stage_s["probe_plan"])
-    prof = profiled(lambda: ix.search_batch(embs, K, NPROBE))
+    prof = profiled_one_launch(lambda: ix.search_batch(embs, K, NPROBE),
+                               f"{codec} profiled batch")
+    check(prof["calls"][f"slab_topk_{codec}"] > 0,
+          f"{codec}: the profiled batch made no {codec} slab_topk call")
 
     ratio = ix.storage_bytes() / ctx["fp32_storage_bytes"]
     check(ratio == 0.5 if codec == "fp16" else ratio < 1.0,
@@ -550,13 +611,13 @@ def check_quantized(mode, e, q, v, k, kw, rint) -> dict:
         check(equal((kv, kr), (pv, pr)), "slab_topk pq not bitwise equal "
               "to the plain version on the recorded inputs")
         out["tol"] = 0.0
-        # m = 96 (dsub 8 at D = 768): 96 KB of tables, past the default
-        # 48 KB of shared memory a block gets without opting in
-        ew = rint((e.shape[0], 96), 0, 256).to(torch.uint8)
-        lw = rint((q.shape[0], 96, 256), -1000, 1000) / 7.0
+        # m = 300: 300 KB of tables a query, past the 227 KB a block can
+        # hold, staged a slice of subspaces at a time
+        ew = rint((e.shape[0], 300), 0, 256).to(torch.uint8)
+        lw = rint((q.shape[0], 300, 256), -1000, 1000) / 7.0
         check(equal(*both(ew, q, v, k, {"luts": lw})), "slab_topk pq with "
-              "m = 96 not bitwise equal to the plain version")
-        out["wide_m_checked"] = 96
+              "m = 300 not bitwise equal to the plain version")
+        out["wide_m_checked"] = 300
     else:
         ef = e.float()
         tol = score_tol(ef, q)
@@ -566,6 +627,13 @@ def check_quantized(mode, e, q, v, k, kw, rint) -> dict:
             exact = exact * kw["scales"].double()[:, 0][None, :]
         check(err <= tol, f"slab_topk {mode} error {err} > {tol}")
         out["tol"] = tol
+        # the contract K3 shares with K2: fp16, and int8 with unit scales,
+        # give the fp32 mode's bits on the widened slab
+        unit = {"scales": torch.ones_like(kw["scales"])} if kw else {}
+        check(equal(slab_topk(e, q, v, k, **unit), slab_topk(ef, q, v, k)),
+              f"slab_topk {mode} does not give the fp32 mode's bits on the "
+              f"widened slab")
+        out["fp32_bits_on_widened"] = True
         out["ids_checked"] = isolated_ids_equal(
             torch.where(lane, kv, NEG_INF).cpu().numpy(),
             torch.where(lane, kr, -1).cpu().numpy(),
@@ -606,6 +674,46 @@ def check_quantized(mode, e, q, v, k, kw, rint) -> dict:
     b = slab_topk_ref(ei[:5], qi, v[:, :5].contiguous(), 5, **rows(kwi, 5))
     check(bool((a[1][:, 5:] == ROW_PAD).all()
                and torch.equal(a[1][:, :5], b[1])), f"slab_topk {mode} k > N")
+    return out
+
+
+def check_wide_rows(dev, rint) -> dict:
+    """fp16 and int8 ``slab_topk`` at D = 60,000 (past the 57,573 that a
+    whole query in one block's shared memory allowed) on 300 rows and 16
+    queries, each probing about 40% of them: within ``score_tol`` of the
+    plain version (int8: times the largest scale), and bitwise on integer
+    inputs."""
+    import torch
+    from repro_torch.kernels.slab_topk import NOT_PROBED, slab_topk
+    from repro_torch.kernels.slab_topk.ref import slab_topk_ref
+    n, d, nq, k = 300, 60_000, 16, 10
+    gen = torch.Generator(device=dev).manual_seed(3)
+    member = torch.rand((nq, n), generator=gen, device=dev) < 0.4
+    v = torch.where(member, torch.arange(n, device=dev, dtype=torch.int32),
+                    NOT_PROBED).to(torch.int32)
+    lane = torch.arange(k, device=dev)[None, :] < member.sum(1)[:, None]
+    e = torch.randn((n, d), generator=gen, device=dev)
+    q = torch.randn((nq, d), generator=gen, device=dev)
+    scales = e.abs().amax(1, keepdim=True) / 127.0
+    cases = {"fp16": (e.half(), {}, rint((n, d), -3, 4).half(), {}),
+             "int8": ((e / scales).round().to(torch.int8), {"scales": scales},
+                      rint((n, d), -3, 4).to(torch.int8),
+                      {"scales": 2.0 ** rint((n, 1), -4, 5)})}
+    out = {"rows": n, "d": d}
+    for mode, (ew, kw, ei, kwi) in cases.items():
+        (kv, kr), (pv, pr) = (slab_topk(ew, q, v, k, **kw),
+                              slab_topk_ref(ew, q, v, k, **kw))
+        err = float((kv - pv)[lane].abs().max())
+        tol = score_tol(ew.float(), q) * (float(scales.max())
+                                         if kw else 1.0)
+        check(err <= tol, f"slab_topk {mode} at D = {d}: error {err} > {tol}")
+        qi = rint((nq, d), -2, 3)
+        a, b = slab_topk(ei, qi, v, k, **kwi), slab_topk_ref(ei, qi, v, k,
+                                                            **kwi)
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              f"slab_topk {mode} at D = {d}: integer inputs not bitwise "
+              f"equal to the plain version")
+        out[mode] = {"max_abs_err": err, "tol": tol}
     return out
 
 
@@ -1796,6 +1904,7 @@ def main() -> int:
         (e, q, v, k), kw = rec_slab.first[mode]
         report[f"slab_topk_{mode}"] = check_quantized(mode, e, q, v, k, kw,
                                                       rint)
+    report["slab_topk_wide_rows"] = check_wide_rows(dev, rint)
     report.update(check_attention(rec_flash, rec_dec, dev))
     emit({"phase": "kernels_checked",
           "ivf_topk_shape": [*e1.shape, q1.shape[0], k1],
@@ -1809,6 +1918,9 @@ def main() -> int:
     # ms a call from 100 calls each under the profiler
     slab_inputs = {"fp32": ((e2, q2, v2, k2), {})}
     slab_inputs.update((m, rec_slab.first[m]) for m in CODECS)
+    # kept for scripts/kernel_timing.py and kernel_phases.py
+    torch.save({"ivf_topk": ((e1, q1, None, k1), {}), **slab_inputs},
+               ROOT / "build" / SLAB_INPUTS)
     calls = {"ivf_topk": (lambda: topk_ip(e1, q1, k1),
                           lambda: torch.topk(q1 @ e1.T, k1))}
     for mode, ((e, q, v, k), kw) in slab_inputs.items():
@@ -1817,6 +1929,9 @@ def main() -> int:
             topk_library(mode, e, q, v, k, kw))
     topk_dev = device_ms({f"{name}{tag}": fn for name, pair in calls.items()
                           for tag, fn in zip(("", "_library"), pair)}, 100)
+    for name in calls:
+        one_kernel_event(topk_dev, name, TILED_EVENTS[
+            "slab_topk_fp32" if name == "slab_topk" else name])
     (n, d), nq = e1.shape, q1.shape[0]
     b1 = bound((n * d + nq * d) * 4 + nq * k1 * 8, 2 * nq * n * d)
     kernels = [
@@ -1856,25 +1971,18 @@ def main() -> int:
     r0 = flat[0]
     prompt = " ".join(ds.get_chunks(r0.chunk_ids) + [r0.query])
     # ivf_topk and fp32 slab_topk: one kernel launch a call
-    i0, s0 = topk_ip.launches, slab_topk.launches_by_mode["fp32"]
-    ret = profiled(lambda: index.search_batch(embs, K, NPROBE),
-                   count=TILED_EVENTS + TWO_PASS_EVENTS)
-    n_calls = {TILED_EVENTS[0]: topk_ip.launches - i0,
-               TILED_EVENTS[1]: slab_topk.launches_by_mode["fp32"] - s0}
-    check(all(n > 0 for n in n_calls.values())
-          and {k: ret["launches"][k] for k in TILED_EVENTS} == n_calls
-          and not any(ret["launches"][k] for k in TWO_PASS_EVENTS),
-          f"profiled retrieval batch: calls {n_calls}, device launches "
-          f"{ret['launches']}; want one score_merge launch a call")
-    ret["calls"] = n_calls
+    ret = profiled_one_launch(lambda: index.search_batch(embs, K, NPROBE),
+                              "profiled retrieval batch")
+    check(ret["calls"]["ivf_topk"] > 0 and ret["calls"]["slab_topk_fp32"] > 0,
+          f"profiled retrieval batch: calls {ret['calls']}")
     gen_prof = profiled(lambda: gen.generate(prompt, NEW_TOKENS))
     emit({"phase": "breakdown", "retrieval_batch": ret,
           "one_request_generation": gen_prof,
           "k7_vs_k6_device": q8_dev, "k6_vs_sdpa_device": k6_dev,
           "decode_long": decode_long(dev),
           "k5_vs_sdpa_device": k5_dev, "topk_vs_library_device": topk_dev,
-          "k2_cold_vs_warm_l2": cold_l2_device_ms(calls["slab_topk"][0],
-                                                  TILED_EVENTS[1])})
+          "k2_cold_vs_warm_l2": cold_l2_device_ms(
+              calls["slab_topk"][0], TILED_EVENTS["slab_topk_fp32"])})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

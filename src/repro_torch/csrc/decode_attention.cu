@@ -74,33 +74,8 @@
 #include <algorithm>
 
 #include "attention_common.cuh"
+#include "stamps.cuh"   // STAMP(k): phase stamps with -DKERNEL_STAMPS
 #include "ticket.cuh"
-
-// Built with -DDECODE_STAMPS (scripts/decode_attention_phases.py), thread 0
-// of each block writes the card's global timer (ns) at the points STAMP(k)
-// marks into 8 slots per block, which decode_stamps_read copies out.
-#ifdef DECODE_STAMPS
-constexpr int kStampBlocks = 1 << 13;
-__device__ unsigned long long g_stamps[kStampBlocks * 8];
-#define STAMP(k)                                                         \
-  if (threadIdx.x == 0) {                                                \
-    unsigned long long t_;                                               \
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_));               \
-    const unsigned blk_ =                                                \
-        (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;  \
-    if (blk_ < kStampBlocks) g_stamps[blk_ * 8 + (k)] = t_;             \
-  }
-extern "C" int decode_stamps_read(void* dst, long long n) {
-  return (int)cudaMemcpyFromSymbol(dst, g_stamps, n);
-}
-extern "C" int decode_stamps_clear() {
-  void* p;
-  const cudaError_t err = cudaGetSymbolAddress(&p, g_stamps);
-  return (int)(err ? err : cudaMemset(p, 0, sizeof(g_stamps)));
-}
-#else
-#define STAMP(k)
-#endif
 
 namespace {
 
@@ -253,6 +228,7 @@ decode_fwd(const T* __restrict__ q, Rows kc, Rows vc, T* __restrict__ out,
   const int j0 = max(lo - c0, 0), j1 = min(hi - c0, chunk);
   if (j0 >= j1) return;
   STAMP(0);
+  STAMP_SM();
   const int first = lo / chunk, nparts = (hi - 1) / chunk - first + 1;
   const int gmax = min(group, kGroupPass);
   const int rows_w = chunk / kWarps;        // a warp's rows, 8 a round

@@ -13,7 +13,7 @@
 // no rate of the card sets its time: the latency of one launch does, and
 // the chains inside it -- a row tile's loads, a row's D-long FMA chains,
 // the selection and the merge.  The design is one launch with no host sync
-// (topk::tiled::launch<false> in topk_tiled.cuh, where every row competes
+// (topk::tiled::launch<kIvf> in topk_tiled.cuh, where every row competes
 // and the tie key is the row): 16-row tiles put the 125 rows on 8 blocks,
 // each reading its rows and the queries once, all of D in flight at once;
 // each score is four interleaved FMA chains of D / 4; a warp sorts each
@@ -33,6 +33,7 @@ extern "C" size_t ivf_topk_scratch_bytes(int n, int nq, int k) {
 extern "C" int ivf_topk(const float* emb, const float* q, int n, int d, int nq,
                         int k, void* scratch, int* tickets, long long ntickets,
                         float* out_v, int* out_i, cudaStream_t stream) {
-  return topk::tiled::launch<false>(emb, q, nullptr, n, d, nq, k, scratch,
-                                    tickets, ntickets, out_v, out_i, stream);
+  return topk::tiled::launch<topk::tiled::kIvf>(
+      emb, q, nullptr, nullptr, n, d, nq, k, scratch, tickets, ntickets,
+      out_v, out_i, stream);
 }

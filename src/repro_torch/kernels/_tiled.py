@@ -1,7 +1,8 @@
 """Host side of the kernels that merge their blocks' partial results in the
 same launch: the one-launch top-k kernels (``csrc/topk_tiled.cuh``:
-``ivf_topk`` and fp32 ``slab_topk``, launched by :func:`launch`) and the
-split-K decode attention kernels (``csrc/decode_attention.cu``: K6 and K7).
+``ivf_topk`` and ``slab_topk`` in every mode, launched by :func:`launch`)
+and the split-K decode attention kernels (``csrc/decode_attention.cu``: K6
+and K7).
 
 A launch counts on zeroed counters: the block that brings a group's counter
 to the group's block count is the last, and merges (a top-k query tile, or
@@ -17,7 +18,7 @@ either.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,19 +60,17 @@ def on_card(dev: torch.device, call: Callable[[], int]) -> int:
 
 def launch(fn: Callable[..., int], scratch_bytes: Callable[[int, int, int],
                                                            int],
-           emb: torch.Tensor, queries: torch.Tensor,
-           virt: Optional[torch.Tensor], k: int):
-    """One launch of the C entry ``fn`` (``ivf_topk``, or ``slab_topk_fp32``
-    with ``virt``) on float32 emb (N, D) and queries (Q, D) of one card ->
-    (vals (Q, k) f32, rows (Q, k) int32).  ``scratch_bytes(n, nq, k)`` sizes
-    the one scratch allocation; a failed launch raises."""
-    emb, queries = emb.contiguous(), queries.contiguous()
-    (n, d), nq = emb.shape, queries.shape[0]
-    dev = emb.device
-    head = (emb.data_ptr(), queries.data_ptr())
-    if virt is not None:
-        virt = virt.contiguous()
-        head += (virt.data_ptr(),)
+           operands: Sequence[Optional[torch.Tensor]], n: int, width: int,
+           nq: int, k: int):
+    """One launch of the C entry ``fn`` (``ivf_topk``, or a ``slab_topk``
+    mode's), whose leading arguments are the addresses of ``operands``
+    (tensors of one card, made contiguous here; None passes a null
+    pointer), then n, ``width`` (D, or pq's m), nq and k -> (vals (Q, k)
+    f32, rows (Q, k) int32).  ``scratch_bytes(n, nq, k)`` sizes the one
+    scratch allocation; a failed launch raises."""
+    ops = [None if t is None else t.contiguous() for t in operands]
+    dev = ops[0].device
+    ptrs = [None if t is None else t.data_ptr() for t in ops]
     scratch = torch.empty(scratch_bytes(n, nq, k), dtype=torch.uint8,
                           device=dev)
     vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
@@ -80,8 +79,8 @@ def launch(fn: Callable[..., int], scratch_bytes: Callable[[int, int, int],
     def call():
         # ceil(nq / 16) tile counters and nq query counters
         stream, tickets, ntickets = stream_and_tickets(dev, 2 * nq)
-        return fn(*head, n, d, nq, k, scratch.data_ptr(), tickets, ntickets,
-                  vals.data_ptr(), rows.data_ptr(), stream)
+        return fn(*ptrs, n, width, nq, k, scratch.data_ptr(), tickets,
+                  ntickets, vals.data_ptr(), rows.data_ptr(), stream)
 
     err = on_card(dev, call)
     if err != 0:

@@ -37,7 +37,9 @@ def _launch(embs: torch.Tensor, queries: torch.Tensor, k: int):
     if embs.dtype != torch.float32 or queries.dtype != torch.float32:
         raise TypeError("ivf_topk kernel takes float32 embs and queries")
     lib, scratch_bytes = _lib()
-    out = _tiled.launch(lib.ivf_topk, scratch_bytes, embs, queries, None, k)
+    (n, d), nq = embs.shape, queries.shape[0]
+    out = _tiled.launch(lib.ivf_topk, scratch_bytes, (embs, queries), n, d,
+                        nq, k)
     topk_ip.launches += 1
     return out
 

@@ -10,15 +10,11 @@ raises.  The mode follows the slab's dtype and the keyword operands:
   int8  emb int8 with ``scales`` (N, 1) float32
   pq    emb (N, m) uint8 codes with ``luts`` (Q, m, 256) float32
 
-The slab goes to the kernel in its compact dtype: nothing here widens it.
-fp32 is one launch a call (``csrc/topk_tiled.cuh``) and takes any D: its
-rows and queries cross shared memory a slice of D at a time.  fp16, int8
-and pq are two launches (``csrc/topk_common.cuh``); a scoring block there
-holds its query operand (D floats, or the m x 256 float tables) and 2 KB of
-chunk scores in shared memory, up to the device's per-block maximum: 227 KB
-on the H100, so D <= 57,573 and pq m <= 224 there; a wider operand raises.
-``slab_topk.launches`` counts kernel calls, ``slab_topk.launches_by_mode``
-the same per mode.
+Every mode is one launch a call (``csrc/topk_tiled.cuh``), with the merge
+inside, and takes any D or m: rows, queries and tables cross shared memory
+a slice at a time.  The slab goes to the kernel in its compact dtype:
+nothing here widens it.  ``slab_topk.launches`` counts kernel calls,
+``slab_topk.launches_by_mode`` the same per mode.
 """
 from __future__ import annotations
 
@@ -44,25 +40,18 @@ _I = ctypes.c_int
 
 @functools.cache
 def _lib():
-    """(library with its signatures set, rows per scoring block of the
-    two-pass modes, fp32 scratch bytes of (n, nq, k)), once."""
+    """(library with its signatures set, scratch bytes of (n, nq, k)),
+    once."""
     lib = _build.load("slab_topk")
-    lib.slab_topk_fp32.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P,
-                                   ctypes.c_longlong, _P, _P, _P]
-    lib.slab_topk_fp32.restype = _I
-    lib.slab_topk_fp32_scratch_bytes.argtypes = [_I, _I, _I]
-    lib.slab_topk_fp32_scratch_bytes.restype = ctypes.c_size_t
-    tail = [_P, _P, _P, _P, _P, _P]        # scratch, outputs, stream
-    lib.slab_topk_fp16.argtypes = [_P, _P, _P, _I, _I, _I, _I] + tail
-    lib.slab_topk_fp16.restype = _I
-    lib.slab_topk_int8.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I] + tail
-    lib.slab_topk_int8.restype = _I
-    lib.slab_topk_pq.argtypes = [_P, _P, _P, _I, _I, _I, _I] + tail
-    lib.slab_topk_pq.restype = _I
-    lib.slab_topk_chunk_rows.restype = _I
-    return (lib, lib.slab_topk_chunk_rows(),
-            functools.lru_cache(maxsize=1024)(
-                lib.slab_topk_fp32_scratch_bytes))
+    for mode in MODES:
+        fn = getattr(lib, f"slab_topk_{mode}")
+        fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                       ctypes.c_longlong, _P, _P, _P]
+        fn.restype = _I
+    lib.slab_topk_scratch_bytes.argtypes = [_I, _I, _I]
+    lib.slab_topk_scratch_bytes.restype = ctypes.c_size_t
+    return lib, functools.lru_cache(maxsize=1024)(
+        lib.slab_topk_scratch_bytes)
 
 
 def slab_mode(emb: torch.Tensor, queries: torch.Tensor, virt: torch.Tensor,
@@ -102,56 +91,14 @@ def slab_mode(emb: torch.Tensor, queries: torch.Tensor, virt: torch.Tensor,
     return mode
 
 
-def _launch_two_pass(mode: str, emb: torch.Tensor, queries: torch.Tensor,
-                     virt: torch.Tensor, k: int,
-                     scales: Optional[torch.Tensor],
-                     luts: Optional[torch.Tensor]):
-    lib, chunk_rows, _ = _lib()
-    emb, virt = emb.contiguous(), virt.contiguous()
-    n, nq = emb.shape[0], virt.shape[0]
-    dev = emb.device
-    nchunks = -(-n // chunk_rows)
-    part_v = torch.empty((nq, nchunks, k), dtype=torch.float32, device=dev)
-    part_t = torch.empty((nq, nchunks, k), dtype=torch.int32, device=dev)
-    part_r = torch.empty((nq, nchunks, k), dtype=torch.int32, device=dev)
-    vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    rows = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        tail = (part_v.data_ptr(), part_t.data_ptr(), part_r.data_ptr(),
-                vals.data_ptr(), rows.data_ptr(), stream)
-        if mode == "pq":
-            luts = luts.contiguous()
-            err = lib.slab_topk_pq(emb.data_ptr(), luts.data_ptr(),
-                                   virt.data_ptr(), n, emb.shape[1], nq, k,
-                                   *tail)
-        else:
-            queries = queries.contiguous()
-            head = (emb.data_ptr(),)
-            if mode == "int8":
-                scales = scales.contiguous()
-                head += (scales.data_ptr(),)
-            err = getattr(lib, f"slab_topk_{mode}")(
-                *head, queries.data_ptr(), virt.data_ptr(), n, emb.shape[1],
-                nq, k, *tail)
-    if err != 0:
-        width = luts[0].numel() if mode == "pq" else queries.shape[1]
-        raise RuntimeError(
-            f"slab_topk {mode} kernel launch failed: cudaError {err} (a "
-            f"query operand of {width} floats must fit in a block's shared "
-            f"memory with the chunk's scores)")
-    return vals, rows
-
-
 def _launch(mode: str, emb: torch.Tensor, queries: torch.Tensor,
             virt: torch.Tensor, k: int, scales: Optional[torch.Tensor],
             luts: Optional[torch.Tensor]):
-    if mode == "fp32":
-        lib, _, scratch_bytes = _lib()
-        out = _tiled.launch(lib.slab_topk_fp32, scratch_bytes, emb, queries,
-                            virt, k)
-    else:
-        out = _launch_two_pass(mode, emb, queries, virt, k, scales, luts)
+    lib, scratch_bytes = _lib()
+    fn = getattr(lib, f"slab_topk_{mode}")
+    qop = luts if mode == "pq" else queries   # the queries, or the tables
+    out = _tiled.launch(fn, scratch_bytes, (emb, qop, scales, virt),
+                        emb.shape[0], emb.shape[1], queries.shape[0], k)
     slab_topk.launches += 1
     slab_topk.launches_by_mode[mode] += 1
     return out

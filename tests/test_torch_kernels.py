@@ -309,12 +309,19 @@ def test_cuda_slab_topk_matches_plain(cuda, integer):
                                    atol=_tol(emb, q))
 
 
-# ivf_topk and fp32 slab_topk share one kernel (csrc/topk_tiled.cuh): row
-# tiles of 16 (N <= 2,048) or 64 rows, query tiles of 16, the merge in the
-# same launch.  The cases below cross each of those edges.
+# ivf_topk and slab_topk in every mode share one kernel
+# (csrc/topk_tiled.cuh): row tiles of 16 (N <= 2,048) or 64 rows, query
+# tiles of 16, the merge in the same launch.  The cases below cross each of
+# those edges in every mode ("slab" is fp32).
+TILED_KINDS = ["ivf", "slab", "fp16", "int8", "pq"]
+_KIND_MODE = {"slab": "fp32", "fp16": "fp16", "int8": "int8", "pq": "pq"}
+
+
 def _tiled_case(kind, n, d, nq, seed, integer):
-    """(emb, queries, virt or None): random clusters of 1-39 rows, each
-    probed by about 40% of the queries, for "slab"."""
+    """(emb, queries, virt or None, extra): random clusters of 1-39 rows,
+    each probed by about 40% of the queries, for the slab modes; fp16 and
+    int8 rows from the f32 ones (int8: row scales, powers of two when
+    ``integer``), pq codes of m = d subspaces with (Q, m, 256) tables."""
     rng = np.random.default_rng(seed)
     if integer:
         e = rng.integers(-3, 4, (n, d)).astype(np.float32)
@@ -322,42 +329,72 @@ def _tiled_case(kind, n, d, nq, seed, integer):
     else:
         e = rng.standard_normal((n, d)).astype(np.float32)
         q = rng.standard_normal((nq, d)).astype(np.float32)
+    extra = {}
+    if kind == "fp16":
+        e = e.astype(np.float16)
+    elif kind == "int8":
+        if integer:
+            extra["scales"] = (2.0 ** rng.integers(-4, 5, (n, 1))).astype(
+                np.float32)
+            e = e.astype(np.int8)
+        else:
+            scales = (np.abs(e).max(1, keepdims=True) / 127.0).astype(
+                np.float32)
+            e = np.round(e / scales).astype(np.int8)
+            extra["scales"] = scales
+    elif kind == "pq":
+        e = rng.integers(0, 256, (n, d)).astype(np.uint8)
+        extra["luts"] = (rng.integers(-8, 9, (nq, d, 256)) if integer else
+                         rng.standard_normal((nq, d, 256))).astype(np.float32)
     if kind == "ivf":
-        return e, q, None
+        return e, q, None, extra
     sizes = []
     while sum(sizes) < n:
         sizes.append(int(min(rng.integers(1, 40), n - sum(sizes))))
     probes = [list(np.flatnonzero(rng.random(len(sizes)) < 0.4))
               for _ in range(nq)]
-    return e, q, _virt(sizes, probes)
+    return e, q, _virt(sizes, probes), extra
 
 
-def _tiled(kind, e, q, virt, k, dev):
+def _tiled(kind, e, q, virt, k, dev, extra=None):
     """The port's op on ``dev`` -> numpy (vals, ids)."""
     args = [torch.from_numpy(a).to(dev) for a in (e, q)]
     if kind == "ivf":
         out = topk_ip(*args, k)
     else:
-        out = slab_topk(*args, torch.from_numpy(virt).to(dev), k)
+        kw = {n: torch.from_numpy(a).to(dev) for n, a in (extra or {}).items()}
+        out = slab_topk(*args, torch.from_numpy(virt).to(dev), k, **kw)
     return tuple(t.cpu().numpy() for t in out)
 
 
-def _hold_tiled(kind, e, q, virt, k, cuda, integer):
-    """The kernel against the plain version: bitwise on integer inputs,
-    else scores within _tol and ids equal away from near-ties (slab: on the
-    lanes within each query's member count)."""
-    kv, ki = _tiled(kind, e, q, virt, k, cuda)
-    pv, pi = _tiled(kind, e, q, virt, k, "cpu")
-    if integer:
+def _hold_tiled(kind, e, q, virt, k, cuda, integer, extra=None):
+    """The kernel against the plain version: bitwise on integer inputs and
+    in pq, else scores within the mode's tolerance and ids equal away from
+    near-ties (slab modes: on the lanes within each query's member
+    count)."""
+    kv, ki = _tiled(kind, e, q, virt, k, cuda, extra)
+    pv, pi = _tiled(kind, e, q, virt, k, "cpu", extra)
+    if integer or kind == "pq":
         assert np.array_equal(kv, pv) and np.array_equal(ki, pi)
         return
-    full = q.astype(np.float64) @ e.T.astype(np.float64)
-    if kind == "slab":
+    mode = _KIND_MODE.get(kind, "fp32")
+    full = _scores64(mode, e, q, extra or {})
+    if kind != "ivf":
         valid = _valid_lanes(virt, k)
         full = np.where(virt < NOT_PROBED, full, -1e30)
         kv, ki = np.where(valid, kv, -1e30), np.where(valid, ki, -1)
         pv, pi = np.where(valid, pv, -1e30), np.where(valid, pi, -1)
-    _assert_topk_close(kv, ki, pv, pi, full, _tol(e, q))
+    _assert_topk_close(kv, ki, pv, pi, full, _mode_tol(mode, e, q,
+                                                       extra or {}))
+
+
+def _shifted(t, cuda):
+    """A copy of ``t`` one element past its buffer's start: off a 16-byte
+    boundary whatever its dtype."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
 
 
 TILED_NK = [(n, k) for n in (1, 63, 64, 65, 125, 4097)
@@ -365,35 +402,36 @@ TILED_NK = [(n, k) for n in (1, 63, 64, 65, 125, 4097)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["ivf", "slab"])
+@pytest.mark.parametrize("kind", TILED_KINDS)
 @pytest.mark.parametrize("nq", [1, 16, 17, 40])
 @pytest.mark.parametrize("n,k", TILED_NK)
 def test_cuda_tiled_topk_tile_edges(cuda, kind, nq, n, k):
     for integer in (False, True):
-        e, q, virt = _tiled_case(kind, n, 64, nq, n + nq + k, integer)
-        _hold_tiled(kind, e, q, virt, k, cuda, integer)
+        e, q, virt, extra = _tiled_case(kind, n, 64, nq, n + nq + k, integer)
+        _hold_tiled(kind, e, q, virt, k, cuda, integer, extra)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["ivf", "slab"])
+@pytest.mark.parametrize("kind", TILED_KINDS)
 @pytest.mark.parametrize("d", [3, 17, 64, 768, 4096])
 def test_cuda_tiled_topk_any_d(cuda, kind, d):
-    """No limit on D (4,096 floats a query), D % 4 != 0 (plain loads), and
-    operands 4 bytes off a 16-byte boundary give the aligned bits."""
+    """No limit on D or m (4,096 a query), D off the 16-byte path (D % 4,
+    8 or 16 != 0: plain loads), and operands off a 16-byte boundary give
+    the aligned bits."""
     for integer in (False, True):
-        e, q, virt = _tiled_case(kind, 1300, d, 16, d, integer)
-        _hold_tiled(kind, e, q, virt, 10, cuda, integer)
+        e, q, virt, extra = _tiled_case(kind, 1300, d, 16, d, integer)
+        _hold_tiled(kind, e, q, virt, 10, cuda, integer, extra)
     et, qt = torch.from_numpy(e).to(cuda), torch.from_numpy(q).to(cuda)
-    shifted = []
-    for t in (et, qt):
-        buf = torch.empty(t.numel() + 1, device=cuda)
-        shifted.append(buf[1:].view(t.shape))
-        shifted[-1].copy_(t)
     if kind == "ivf":
-        a, b = topk_ip(et, qt, 10), topk_ip(*shifted, 10)
+        a, b = topk_ip(et, qt, 10), topk_ip(_shifted(et, cuda),
+                                            _shifted(qt, cuda), 10)
     else:
         vt = torch.from_numpy(virt).to(cuda)
-        a, b = slab_topk(et, qt, vt, 10), slab_topk(*shifted, vt, 10)
+        kw = {n: torch.from_numpy(x).to(cuda) for n, x in extra.items()}
+        moved = {n: _shifted(x, cuda) for n, x in kw.items()}
+        a = slab_topk(et, qt, vt, 10, **kw)
+        b = slab_topk(_shifted(et, cuda), _shifted(qt, cuda), vt, 10,
+                      **moved)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
@@ -403,7 +441,7 @@ def test_cuda_slab_topk_fp32_queries_and_tiles_without_members(cuda):
     whole query tile (queries 16..) with no member anywhere: the member
     lanes and the NEG_INF lanes (lowest non-member rows) equal the plain
     version bitwise."""
-    e, q, virt = _tiled_case("slab", 4097, 64, 20, 5, integer=True)
+    e, q, virt, _ = _tiled_case("slab", 4097, 64, 20, 5, integer=True)
     virt[:, :64] = NOT_PROBED
     virt[3] = NOT_PROBED
     virt[16:] = NOT_PROBED
@@ -412,50 +450,106 @@ def test_cuda_slab_topk_fp32_queries_and_tiles_without_members(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["ivf", "slab"])
+@pytest.mark.parametrize("kind", ["fp16", "int8", "pq"])
+def test_cuda_slab_topk_quantized_queries_and_tiles_without_members(cuda,
+                                                                     kind):
+    """The fp32 case above in the fp16, int8 and pq modes: bitwise on the
+    member lanes and on the NEG_INF lanes."""
+    e, q, virt, extra = _tiled_case(kind, 4097, 64, 20, 5, integer=True)
+    virt[:, :64] = NOT_PROBED
+    virt[3] = NOT_PROBED
+    virt[16:] = NOT_PROBED
+    for k in (1, 10, 100):
+        _hold_tiled(kind, e, q, virt, k, cuda, True, extra)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", TILED_KINDS)
+@pytest.mark.parametrize("k", [5, 20])
+def test_cuda_tiled_topk_merge_paths_on_ties(cuda, kind, k):
+    """Every score equal on 2,100 rows (33 tiles of 64): the merge keeps
+    every candidate past its threshold -- 165 a query at k = 5 (k rounds
+    over them in shared memory), 660 at k = 20 (k rounds over scratch) --
+    and the ties resolve as the plain version's, bitwise."""
+    e, q, virt, extra = _tiled_case(kind, 2100, 16, 3, 7, integer=True)
+    e = np.zeros_like(e) if kind == "pq" else np.ones_like(e)
+    q = np.ones_like(q)
+    if kind == "pq":
+        extra = {"luts": np.ones_like(extra["luts"])}
+    elif kind == "int8":
+        extra = {"scales": np.ones_like(extra["scales"])}
+    if virt is not None:
+        virt = np.tile(np.arange(e.shape[0], dtype=np.int32), (3, 1))
+        virt[1, ::3] = NOT_PROBED
+    _hold_tiled(kind, e, q, virt, k, cuda, True, extra)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", TILED_KINDS)
 def test_cuda_tiled_topk_batch_equals_sequential(cuda, kind):
-    e, q, virt = _tiled_case(kind, 4097, 768, 40, 9, integer=False)
-    vals, ids = _tiled(kind, e, q, virt, 10, cuda)
+    e, q, virt, extra = _tiled_case(kind, 4097, 768, 40, 9, integer=False)
+    vals, ids = _tiled(kind, e, q, virt, 10, cuda, extra)
     for i in range(q.shape[0]):
+        one = {n: (a[i:i + 1] if n == "luts" else a) for n, a in extra.items()}
         v1, i1 = _tiled(kind, e, q[i:i + 1],
-                        None if virt is None else virt[i:i + 1], 10, cuda)
+                        None if virt is None else virt[i:i + 1], 10, cuda,
+                        one)
         assert np.array_equal(v1[0], vals[i]) and np.array_equal(i1[0], ids[i])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["ivf", "slab"])
+@pytest.mark.parametrize("kind", TILED_KINDS)
 def test_cuda_tiled_topk_repeats_and_second_stream(cuda, kind):
     """The merge's ticket counters are zero again after every launch: calls
     in a row, and calls on a second stream, give the same bits, one launch
     each."""
-    e, q, virt = _tiled_case(kind, 4097, 768, 40, 10, integer=False)
+    e, q, virt, extra = _tiled_case(kind, 4097, 768, 40, 10, integer=False)
     op = topk_ip if kind == "ivf" else slab_topk
-    first = _tiled(kind, e, q, virt, 10, cuda)
+    first = _tiled(kind, e, q, virt, 10, cuda, extra)
     before = op.launches
     for _ in range(3):
-        again = _tiled(kind, e, q, virt, 10, cuda)
+        again = _tiled(kind, e, q, virt, 10, cuda, extra)
         assert all(np.array_equal(a, b) for a, b in zip(first, again))
     assert op.launches == before + 3
     side = torch.cuda.Stream(cuda)
     with torch.cuda.stream(side):
         for _ in range(2):
-            again = _tiled(kind, e, q, virt, 10, cuda)
+            again = _tiled(kind, e, q, virt, 10, cuda, extra)
             assert all(np.array_equal(a, b) for a, b in zip(first, again))
-    again = _tiled(kind, e, q, virt, 10, cuda)
+    again = _tiled(kind, e, q, virt, 10, cuda, extra)
     assert all(np.array_equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["ivf", "slab"])
+@pytest.mark.parametrize("kind", TILED_KINDS)
 def test_cuda_tiled_topk_runs_on_every_card(cuda, kind):
     if torch.cuda.device_count() < 2:
         pytest.skip("needs a second NVIDIA GPU")
-    e, q, virt = _tiled_case(kind, 4097, 768, 17, 11, integer=True)
-    want = _tiled(kind, e, q, virt, 10, "cpu")
+    e, q, virt, extra = _tiled_case(kind, 4097, 768, 17, 11, integer=True)
+    want = _tiled(kind, e, q, virt, 10, "cpu", extra)
     for i in range(torch.cuda.device_count()):
         for _ in range(2):
-            got = _tiled(kind, e, q, virt, 10, torch.device("cuda", i))
+            got = _tiled(kind, e, q, virt, 10, torch.device("cuda", i),
+                         extra)
             assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["fp16", "int8"])
+@pytest.mark.parametrize("d,nq", [(17, 16), (768, 16), (768, 40)])
+def test_cuda_slab_topk_compact_gives_fp32_bits_on_the_widened_slab(
+        cuda, kind, d, nq):
+    """fp16 rows, and int8 rows with unit scales, give the fp32 mode's bits
+    on the widened slab: the same fixed-order FMAs after an exact
+    widening (D = 17 on the plain-load path)."""
+    e, q, virt, _ = _tiled_case(kind, 4097, d, nq, d + nq, integer=False)
+    et, qt, vt = (torch.from_numpy(a).to(cuda) for a in (e, q, virt))
+    kw = ({"scales": torch.ones((e.shape[0], 1), device=cuda)}
+          if kind == "int8" else {})
+    for k in (1, 10, 64):
+        a = slab_topk(et, qt, vt, k, **kw)
+        b = slab_topk(et.float(), qt, vt, k)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 # ---------------------------------------------------------------------------
@@ -600,6 +694,20 @@ def test_slab_topk_quantized_empty_k_over_n_and_all_ties(mode):
     assert rows[0, :10].tolist() == list(range(20, 30))
 
 
+@pytest.mark.parametrize("mode", ["fp16", "int8"])
+def test_slab_topk_plain_compact_equals_fp32_on_the_widened_slab(mode):
+    """The plain version's fp16 top-k, and its int8 top-k with unit scales,
+    equal its fp32 top-k on the widened slab bitwise: the contract the CUDA
+    kernel shares."""
+    emb, q, virt, extra = _quantized_case(mode, 8, n_clusters=20, nq=8,
+                                          nprobe=6)
+    if mode == "int8":
+        extra = {"scales": np.ones_like(extra["scales"])}
+    vals, rows = _port(emb, q, virt, 10, extra)
+    wv, wr = _port(emb.astype(np.float32), q, virt, 10, {})
+    assert np.array_equal(vals, wv) and np.array_equal(rows, wr)
+
+
 @pytest.mark.parametrize("bad", ["scales_shape", "scales_dtype", "luts_shape",
                                  "luts_queries", "slab_dtype",
                                  "queries_dtype"])
@@ -627,22 +735,37 @@ def test_slab_topk_rejects_malformed_operands(bad):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m", [47, 96, 224])
+@pytest.mark.parametrize("m", [47, 96, 224, 300, 1024])
 def test_cuda_slab_topk_pq_wide_tables(cuda, m):
-    """Tables past the default 48 KB of shared memory (m > 46) launch, up to
-    the H100's per-block maximum, bitwise equal to the plain version; wider
-    ones raise, and the launch after a refusal still runs."""
+    """Tables of any width -- past the default 48 KB of shared memory (m >
+    46) and past the two-launch path's old limit (m > 224) -- launch and
+    equal the plain version bitwise: the kernel stages them a slice of
+    subspaces at a time."""
     emb, q, virt, extra = _quantized_case("pq", 13, pq_m=m, n_clusters=40,
                                           d=64, nq=8, nprobe=6)
     pv, pr = _port(emb, q, virt, 10, extra)
     kv, kr = _port(emb, q, virt, 10, extra, dev=cuda)
     assert np.array_equal(kv, pv) and np.array_equal(kr, pr)
-    wide = _quantized_case("pq", 13, pq_m=300, n_clusters=40, d=64, nq=8,
-                           nprobe=6)
-    with pytest.raises(RuntimeError, match="shared memory"):
-        _port(*wide[:3], 10, wide[3], dev=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["fp16", "int8"])
+@pytest.mark.parametrize("integer", [False, True])
+def test_cuda_slab_topk_compact_wide_rows(cuda, mode, integer):
+    """fp16 / int8 rows of D = 60,000 (past the two-launch path's old
+    57,573): within the mode's tolerance of the plain version, bitwise on
+    integer inputs."""
+    emb, q, virt, extra = _quantized_case(mode, 14, integer=integer,
+                                          n_clusters=12, d=60_000, nq=5,
+                                          nprobe=4)
     kv, kr = _port(emb, q, virt, 10, extra, dev=cuda)
-    assert np.array_equal(kv, pv) and np.array_equal(kr, pr)
+    pv, pr = _port(emb, q, virt, 10, extra)
+    valid = _valid_lanes(virt, 10)
+    if integer:
+        assert np.array_equal(kv, pv) and np.array_equal(kr, pr)
+    else:
+        np.testing.assert_allclose(kv[valid], pv[valid], rtol=0,
+                                   atol=_mode_tol(mode, emb, q, extra))
 
 
 @pytest.mark.gpu
