@@ -64,6 +64,36 @@ Phases, one JSON line each:
                    of 256 chunk texts of the corpus at 128 tokens on the card
                    (12 non-causal ``flash_attention`` launches), unit norm,
                    the first 8 rows within ``ENC_TOL`` of the CPU's.
+  online_index     EdgeRAG with the real encoder as ``embed_fn``: one
+                   ``ModelEmbedder(reduced=False)`` (gte-base-en-v1.5 at
+                   full width, random weights from the seed; 256-text
+                   micro-batches at 128 tokens) and an ``EdgeRAGIndex`` on
+                   the main path's corpus, built with no ``embeddings=``,
+                   so the build embeds all 25,000 chunks on the card.  Query
+                   q is the text of one chunk of topic ``query_topic[q]``,
+                   drawn with the seed, embedded by the same embedder.  4
+                   batches of 16 through ``search_batch``'s three stages
+                   (timed apart), then one through ``RAGEngine.answer_batch``
+                   on the main path's generator with 2 new tokens.  Counts
+                   zeroed before the build, read after ``answer_batch``.
+                   Checks: every tier ran; non-causal ``flash_attention``
+                   launches are exactly layers x the embedder's
+                   micro-batches, causal ones 0 before ``answer_batch`` and
+                   then layers x requests; every regenerated row, and every
+                   query row, is bitwise the row the build embedded for
+                   that chunk; a query's source chunk is at rank 1 wherever
+                   its cluster was probed; ids equal a CPU index (the
+                   card's centroids, assignment and build rows, a
+                   ``TableEmbedder`` over those rows, the same query rows)
+                   outside near-ties, with the same tier decisions; 8 build
+                   rows within ``ENC_TOL`` of the same weights on the CPU,
+                   and bitwise those of a second embedder given the card's
+                   weights as ``params``.  Prints the build's and each
+                   batch's embed and tokenize seconds (the embedder's own
+                   counter), rows and micro-batches, each
+                   batch's stage seconds, and the last batch twice more
+                   under ``torch.profiler``, with the cache as it stands
+                   and emptied (device busy share, K5 and copy events).
   codec_paths      the same corpus, clustering, queries and generator under
                    each quantized storage codec: ``EdgeRAGIndex(
                    storage_codec="fp16" | "int8" | "pq")`` (pq in the memmap
@@ -123,10 +153,15 @@ Phases, one JSON line each:
                    device ms per call beside wall ms per call; and the fp32
                    ``slab_topk`` launch's device ms with L2 warm and with
                    L2 flushed before each call.
+  profiler_lead_in how many of each profiler window's ``LEAD_IN`` spin
+                   kernels the profiler lost, beside the window's seconds
+                   since the first window (see ``profiled``); a window
+                   that lost them all has failed already.
 
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
 library time, and the bound from this run's inputs; every row also carries
-the breakdown's device ms of the kernel and of its library call), the
+the breakdown's device ms of the kernel and of its library call; the K5
+encode row's launches are ``online_index``'s non-causal ones), the
 ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Bounds: bytes read once at HBM's
 3.35 TB/s against the function's operations at the fp32-accurate peak of
@@ -166,6 +201,8 @@ SLAB_INPUTS = "topk_inputs.pt"   # under build/: each top-k's recorded call
 NEAR_TIE = 1e-4           # |score gap| under which two ids may swap places
 SEED = 0
 PARITY_LAYERS, SLOT_LENS = 2, (128, 100, 77, 140)
+# ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
+# one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
 # Logits (|x| < ~10) of one 2-layer model on the card and the CPU: fp32
 # matmuls of up to 6,912 terms summed in other orders, a few ulps apart per
@@ -355,32 +392,60 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# torch.profiler may lose the device records of a window's first span of
+# time, a longer span the longer ago the process's first window was (a
+# lone kernel at a window's start goes missing within a minute of it).
+# Each window therefore opens with LEAD_IN spin kernels of LEAD_IN_CYCLES
+# SM cycles each (~0.1 ms at 1.98 GHz, so ~6.4 ms in all) that take that
+# loss; they are left out of every count, and ``lead_in_lost`` says how
+# many went missing.  A window that lost all of them may have lost records
+# of ``fn`` too, and fails.  LEAD_IN_LOST keeps every window's seconds
+# since the first window and its loss, printed at the end.
+LEAD_IN, LEAD_IN_CYCLES, LEAD_IN_EVENT = 64, 200_000, "spin_kernel"
+LEAD_IN_LOST: list = []
+
+
 def profiled(fn, count=(), events=False) -> dict:
     """Host wall ms of one call of ``fn`` (ending in a device sync) under
     ``torch.profiler``, the device time in it (kernels and copies only, so
     nothing is counted twice), the largest device events and, for each
     name in ``count``, how many device events had a name containing it and
     their device ms; with ``events``, every device event name's count and
-    device ms."""
+    device ms.  The window's ``LEAD_IN`` spin kernels run and finish before
+    ``fn`` starts and are counted nowhere."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    t_window = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(LEAD_IN):
+            torch.cuda._sleep(LEAD_IN_CYCLES)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = {}
+    dev, lead_in_seen, lead_in_ms = {}, 0, 0.0
     for ev in prof.key_averages():
         t = (getattr(ev, "self_device_time_total", 0)
              or getattr(ev, "self_cuda_time_total", 0)) / 1e3
         if t > 0 and str(ev.device_type).endswith("CUDA"):
-            dev[ev.key] = (ev.count, t)
+            if LEAD_IN_EVENT in ev.key:
+                lead_in_seen += ev.count
+                lead_in_ms += t
+            else:
+                dev[ev.key] = (ev.count, t)
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]
     out = {"wall_ms": wall_ms,
            "device_ms": sum(t for _, t in dev.values()) if dev
            else "not measured",
-           "top_device_events": [[k[:80], n, t] for k, (n, t) in top]}
+           "top_device_events": [[k[:80], n, t] for k, (n, t) in top],
+           "lead_in_lost": LEAD_IN - lead_in_seen,
+           "lead_in_spin_ms": lead_in_ms / lead_in_seen if lead_in_seen
+           else "not measured"}
+    LEAD_IN_LOST.append((t_window, out["lead_in_lost"]))
+    check(out["lead_in_lost"] < LEAD_IN, f"profiler: all {LEAD_IN} lead-in "
+          "kernels of a window lost; its records of the call may be too")
     if events:
         out["events"] = dev
     if count:
@@ -429,6 +494,22 @@ class StepRecorder:
         self.calls.append((q.clone(), k[rows, pos].clone(),
                            v[rows, pos].clone(), pos.clone()))
         return self.fn(q, k, v, lengths, **kw)
+
+
+class EmbedLog:
+    """Passes every call through to an embedder and keeps each call's
+    texts, rows and host wall seconds (the rows come back to the host as
+    numpy, so a call has waited for the card when it returns)."""
+
+    def __init__(self, embedder):
+        self.embedder = embedder
+        self.calls = []
+
+    def __call__(self, texts):
+        t0 = time.perf_counter()
+        rows = self.embedder(texts)
+        self.calls.append((list(texts), rows, time.perf_counter() - t0))
+        return rows
 
 
 def isolated_ids_equal(vals, ids, ref_ids, full, tol) -> int:
@@ -1187,6 +1268,230 @@ def encode_phase(dev, texts) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+def online_index(ctx) -> dict:
+    """EdgeRAG with gte-base at full width on the card as ``embed_fn``:
+    the build embeds the corpus through it and every regenerated cluster
+    goes through it again (module docstring, ``online_index``)."""
+    import copy
+    import torch
+    from repro_torch.convert import index_state_from_numpy
+    from repro_torch.core import EdgeRAGIndex
+    from repro_torch.data import ModelEmbedder, TableEmbedder
+    from repro_torch.data.embedder import MICRO_BATCH
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ivf_topk import topk_ip
+    from repro_torch.kernels.slab_topk import slab_topk
+    from repro_torch.models import encode
+    from repro_torch.serving import RAGEngine
+
+    ds, cost, dev, gen = ctx["ds"], ctx["cost"], ctx["dev"], ctx["gen"]
+    gcfg = gen.cfg
+    t_phase = time.perf_counter()
+    embedder = ModelEmbedder(reduced=False, seed=SEED, device=dev)
+    cfg = embedder.cfg
+    check(MICRO_BATCH == ENC_TEXTS and embedder.max_len == ENC_LEN,
+          "online_index: the embedder's micro-batch is not the encode shape")
+    log = EmbedLog(embedder)
+    index = EdgeRAGIndex(DIM, log, ds.get_chunks, cost, slo_s=ds.spec.slo_s,
+                         device=dev)
+    # query q is the text of one chunk of its topic, drawn with the seed
+    rng = np.random.default_rng(SEED)
+    n_q = (BATCHES + 1) * BATCH
+    src = np.array([rng.choice(np.flatnonzero(ds.topic_of_chunk == t))
+                    for t in ds.query_topic[:n_q]])
+    queries = [ds.texts[i] for i in src]
+
+    # ---- the path: counts zeroed just before, read just after ----------
+    topk_ip.launches = slab_topk.launches = decode_attention.launches = 0
+    slab_topk.launches_by_mode = dict.fromkeys(slab_topk.launches_by_mode, 0)
+    flash_attention.launches = 0
+    flash_attention.launches_by_mask = dict.fromkeys(
+        flash_attention.launches_by_mask, 0)
+    t0 = time.perf_counter()
+    assign = index.build(ds.chunk_ids, ds.texts, nlist=NLIST, seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    (_, built, build_embed_s), = log.calls      # one call over the corpus
+    build_micro = embedder.micro_batches
+    build_tokenize_s = embedder.tokenize_s
+    t0 = time.perf_counter()
+    q_embs = embedder(queries)
+    query_embed_s = time.perf_counter() - t0
+    per_batch, card = [], []
+    for b in range(BATCHES):
+        # search_batch's three stages, timed apart
+        n_calls, micro = len(log.calls), embedder.micro_batches
+        tok = embedder.tokenize_s
+        t0 = time.perf_counter()
+        state = index.search_begin(q_embs[b * BATCH:(b + 1) * BATCH], K,
+                                   NPROBE)
+        t1 = time.perf_counter()
+        index.search_fetch(state)
+        t2 = time.perf_counter()
+        ids, _, lats = index.search_finish(state)
+        t3 = time.perf_counter()
+        new = log.calls[n_calls:]
+        per_batch.append({
+            "retrieval_s": t3 - t0, "probe_plan_s": t1 - t0,
+            "fetch_s": t2 - t1, "pack_score_s": t3 - t2,
+            "embed_s": sum(c[2] for c in new), "embed_calls": len(new),
+            "rows_regenerated": sum(len(c[0]) for c in new),
+            "micro_batches": embedder.micro_batches - micro,
+            "tokenize_s": embedder.tokenize_s - tok})
+        card.append((ids, state.plan.probed_per_q, tier_decisions(lats)))
+    before_answer = dict(flash_attention.launches_by_mask)
+    engine = RAGEngine(index, gen, cost_model=cost, k=K, nprobe=NPROBE,
+                       max_new_tokens=CODEC_NEW_TOKENS)
+    last = slice(BATCHES * BATCH, n_q)
+    n_calls, micro = len(log.calls), embedder.micro_batches
+    p0, d0 = gen.prefill_wall_s, gen.decode_wall_s
+    t0 = time.perf_counter()
+    resp = engine.answer_batch(queries[last], q_embs[last], ds.get_chunks)
+    answer_s = time.perf_counter() - t0
+    launches = {"ivf_topk": topk_ip.launches,
+                "slab_topk": dict(slab_topk.launches_by_mode),
+                "flash_attention": dict(flash_attention.launches_by_mask),
+                "decode_attention": decode_attention.launches}
+    micro_batches = embedder.micro_batches
+    new = log.calls[n_calls:]
+    answer = {"wall_s": answer_s,
+              "retrieval_s": sum(r.ttft_wall_s for r in resp),
+              "prefill_s": gen.prefill_wall_s - p0,
+              "decode_s": gen.decode_wall_s - d0,
+              "embed_s": sum(c[2] for c in new),
+              "rows_regenerated": sum(len(c[0]) for c in new),
+              "micro_batches": embedder.micro_batches - micro}
+
+    # 1. every tier ran
+    card.append(([r.chunk_ids for r in resp], None,
+                 tier_decisions([r.retrieval for r in resp])))
+    flat = [t for _, _, dec in card for t in dec]
+    tiers = {name: sum(t[i] for t in flat) for i, name in
+             enumerate(("stored", "cached", "regenerated"))}
+    check(all(v > 0 for v in tiers.values()),
+          f"online_index: a tier never ran: {tiers}")
+    check(all(len(r.chunk_ids) == K
+              and len(r.output_tokens) == CODEC_NEW_TOKENS for r in resp),
+          "online_index: short retrieval or generation")
+    # 2. K5 non-causal once a layer a micro-batch; causal only in prefill
+    want = {"causal": gcfg.num_layers * BATCH,
+            "non_causal": cfg.num_layers * micro_batches}
+    check(before_answer["causal"] == 0
+          and launches["flash_attention"] == want
+          and launches["decode_attention"]
+          == gcfg.num_layers * CODEC_NEW_TOKENS * BATCH
+          and launches["ivf_topk"] > 0 and launches["slab_topk"]["fp32"] > 0,
+          f"online_index: launches {launches} ({micro_batches} "
+          f"micro-batches, causal {before_answer['causal']} before "
+          f"answer_batch); want flash_attention {want}")
+    # the build's rows: finite, unit norm
+    check(built.shape == (ds.n, DIM) and bool(np.isfinite(built).all()),
+          "online_index: bad build embeddings")
+    norm_err = float(np.abs(np.linalg.norm(built, axis=1) - 1).max())
+    check(norm_err < 1e-5, f"online_index: rows not unit norm ({norm_err})")
+    # 6. 8 rows against the same weights on the CPU; on the card, an
+    # embedder given those weights as ``params`` (on cuda:0, the embedder
+    # on the default device) gives the build's bits
+    given = ModelEmbedder(cfg, embedder.params)(ds.texts[:8])
+    check(np.array_equal(given, built[:8]), "online_index: an embedder "
+          "given the card's params differs from the build's rows")
+    m_cpu = copy.deepcopy(embedder.params).cpu()
+    toks, mask = embedder.tokenizer.encode_batch(ds.texts[:8],
+                                                 embedder.max_len)
+    e_cpu = encode(m_cpu, {"tokens": torch.from_numpy(toks).long(),
+                           "attn_mask": torch.from_numpy(mask)})
+    del m_cpu
+    cpu_err = float(np.abs(built[:8] - e_cpu.numpy()).max())
+    check(cpu_err <= ENC_TOL,
+          f"online_index: card vs CPU {cpu_err} > {ENC_TOL}")
+
+    # 4. a query's source chunk is at rank 1 wherever its cluster was probed
+    probed_src = 0
+    for b, (ids, probed, _) in enumerate(card[:BATCHES]):
+        for qi in range(BATCH):
+            s = src[b * BATCH + qi]
+            if assign[s] in probed[qi]:
+                probed_src += 1
+                check(ids[qi][0] == ds.chunk_ids[s],
+                      f"online_index: query {b * BATCH + qi}'s source chunk "
+                      f"{ds.chunk_ids[s]} probed but not at rank 1: "
+                      f"{list(ids[qi][:3])}")
+
+    # 5. the port's CPU index on the card's clustering and build rows
+    cpu_ix = EdgeRAGIndex(
+        DIM, TableEmbedder(dict(zip(ds.chunk_ids.tolist(), built)), DIM),
+        ds.get_chunks, cost, slo_s=ds.spec.slo_s, device="cpu")
+    index_state_from_numpy(cpu_ix, index.centroids, assign, ds.chunk_ids,
+                           ds.texts, built)
+    swaps = mismatches = 0
+    for b, (ids, _, dec) in enumerate(card):
+        rows = slice(b * BATCH, (b + 1) * BATCH)
+        chars = [len(q) for q in queries[rows]] if b == BATCHES else None
+        c_ids, c_vals, c_lats = cpu_ix.search_batch(q_embs[rows], K, NPROBE,
+                                                    query_chars=chars)
+        check(tier_decisions(c_lats) == dec, "online_index: the CPU run "
+              f"took other tier decisions in batch {b}")
+        s, m = near_tie_mismatches(ids, c_ids, c_vals)
+        swaps, mismatches = swaps + s, mismatches + m
+    check(mismatches == 0, f"online_index: {mismatches} ids differ from "
+          f"the CPU run outside near-ties")
+
+    # the last batch twice more under the profiler: as the cache stands
+    # (its clusters cached or stored), then with the cache emptied, so that
+    # it regenerates
+    profiles = {}
+    for name in ("cache_warm", "cache_cold"):
+        if name == "cache_cold":
+            index.cache = index.cache.fresh()
+        n_calls, micro = len(log.calls), embedder.micro_batches
+        tok = embedder.tokenize_s
+        prof = profiled(lambda: index.search_batch(q_embs[last], K, NPROBE),
+                        count=("flash_fwd", "score_merge", "Memcpy HtoD",
+                               "Memcpy DtoH"))
+        new = log.calls[n_calls:]
+        prof.update(micro_batches=embedder.micro_batches - micro,
+                    rows_regenerated=sum(len(c[0]) for c in new),
+                    embed_s=sum(c[2] for c in new),
+                    tokenize_s=embedder.tokenize_s - tok,
+                    busy_share=prof["device_ms"] / prof["wall_ms"]
+                    if isinstance(prof["device_ms"], float)
+                    else "not measured")
+        profiles[name] = prof
+
+    # 3. every regenerated row (and every query row) is the build's, bitwise
+    pos = {t: i for i, t in enumerate(ds.texts)}
+    regen_rows = not_bitwise = 0
+    max_diff = 0.0
+    for texts, rows in [(queries, q_embs)] + [(c[0], c[1])
+                                              for c in log.calls[1:]]:
+        ref = built[[pos[t] for t in texts]]
+        regen_rows += len(texts)
+        not_bitwise += int((rows != ref).any(axis=1).sum())
+        max_diff = max(max_diff, float(np.abs(rows - ref).max(initial=0.0)))
+    check(not_bitwise == 0, f"online_index: {not_bitwise} of {regen_rows} "
+          f"regenerated rows differ from the build's (max {max_diff})")
+
+    return {"phase": "online_index", "encoder": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "head_dim": cfg.head_dim,
+            "tokens_per_text": embedder.max_len,
+            "micro_batch": MICRO_BATCH, "records": ds.n, "nlist": index.nlist,
+            "index_build_s": build_s, "build_embed_s": build_embed_s,
+            "build_tokenize_s": build_tokenize_s,
+            "build_rows": len(built), "build_micro_batches": build_micro,
+            "stored_clusters_at_build": index.stats()["stored_clusters"],
+            "query_embed_s": query_embed_s, "per_batch": per_batch,
+            "answer_batch": answer, "tiers": tiers, "launches": launches,
+            "micro_batches": micro_batches,
+            "rows_checked_bitwise": regen_rows, "not_bitwise": not_bitwise,
+            "sources_probed": probed_src, "cpu_match": True,
+            "near_tie_swaps": swaps, "unit_norm_max_err": norm_err,
+            "rows_vs_cpu": 8, "max_abs_err_vs_cpu": cpu_err,
+            "tol": ENC_TOL, "warm_batch_profiles": profiles,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def check_attention(rec_flash, rec_dec, dev) -> dict:
     """The attention kernels against their plain versions on the card
     (module docstring, ``kernels_checked``)."""
@@ -1592,7 +1897,8 @@ def device_ms(runs: dict, calls: int) -> dict:
                      "events_per_call": {k[:80]: c
                                          for k, c in per_call.items()},
                      "wall_ms_per_call": prof["wall_ms"] / calls,
-                     "top_device_events": prof["top_device_events"][:2]}
+                     "top_device_events": prof["top_device_events"][:2],
+                     "lead_in_lost": prof["lead_in_lost"]}
     return out
 
 
@@ -1814,6 +2120,8 @@ def main() -> int:
     del recorded
     enc = encode_phase(dev, ds.texts[:ENC_TEXTS])
     emit(enc)
+    online = online_index({"ds": ds, "cost": cost, "dev": dev, "gen": gen})
+    emit(online)
 
     # ---- codec paths: fp16, int8, pq on the same corpus and generator ----
     ctx = {"ds": ds, "cost": cost, "dev": dev, "gen": gen,
@@ -1959,7 +2267,8 @@ def main() -> int:
     kernels += attention_rows(
         rec_flash, rec_dec,
         {"flash_attention_causal": main_by_mask["causal"],
-         "flash_attention_encode": enc["launches"]["non_causal"],
+         "flash_attention_encode":
+         online["launches"]["flash_attention"]["non_causal"],
          "decode_attention": launches["decode_attention"]}, report, k5_dev,
         k6_dev)
     kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"],
@@ -1983,6 +2292,12 @@ def main() -> int:
           "k5_vs_sdpa_device": k5_dev, "topk_vs_library_device": topk_dev,
           "k2_cold_vs_warm_l2": cold_l2_device_ms(
               calls["slab_topk"][0], TILED_EVENTS["slab_topk_fp32"])})
+    t_first = LEAD_IN_LOST[0][0]
+    emit({"phase": "profiler_lead_in", "lead_in": LEAD_IN,
+          "spin_cycles": LEAD_IN_CYCLES, "windows": len(LEAD_IN_LOST),
+          "lost_max": max(lost for _, lost in LEAD_IN_LOST),
+          "s_since_first_window_and_lost": [
+              [round(t - t_first, 1), lost] for t, lost in LEAD_IN_LOST]})
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
