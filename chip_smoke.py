@@ -59,6 +59,39 @@ Phases, one JSON line each:
                    equals the CPU's; plus D = 32, GQA, window and bf16
                    cases against the plain version.  Every K7 call gives
                    K6's bits on the dequantized cache.
+  continuous_batching
+                   ``ContinuousBatcher`` on the main path's generator
+                   (full-width sheared-llama-2.7b, 32 layers): 16 slots of
+                   145 positions (``BATCHER_LEN``), its KV cache ~1.52 GB.
+                   (a) a seeded trace of 32 requests in one ``run``
+                   (prompts of 16-128 tokens, budgets of 1-16), so slots
+                   free and refill at different ticks; (b) one batch of 16
+                   of the main path's queries through
+                   ``RAGEngine.answer_batch(..., batcher=)``, 16 new
+                   tokens; (c) the generator cut to 2 layers at full width,
+                   one set of weights drawn on the CPU and copied to the
+                   card, the trace's first 8 requests through a 4-slot
+                   batcher on each.  Counts zeroed before (a) and before
+                   (b), read after each.  Checks: every request of (a) and
+                   (b) completes with its budget of tokens in [0, vocab);
+                   an admission of (a) came after its first tick and a
+                   tick saw 4 or more distinct lengths among its active
+                   slots; K5 causal = layers x admissions, non-causal 0,
+                   K6 = layers x ticks with an active slot (512 / 512 in
+                   (b)); each request of (a) and (b) alone on the card at
+                   full depth (prefill, then ``decode_step`` on a one-row
+                   cache) gives the batcher's tokens wherever its top-2
+                   margin exceeds 2 x ``GEN_TOL`` (a request stops being
+                   compared at its first near-tie; 90% of tokens must be
+                   compared); in (c) the card's tokens equal the CPU's
+                   outside the CPU's near-ties and every step's logits
+                   agree within ``GEN_TOL``; one recorded K6 call of (a) at
+                   the batcher's shape and one K5 call at an odd prompt
+                   length equal their plain versions within
+                   :func:`attn_tol`.  Prints the walls, ticks and
+                   admissions, (b)'s decode wall per query beside the main
+                   path's, the distinct lengths per tick and the
+                   near-ties.
   encode           gte-base-en-v1.5 at full width (12 layers, d_model 768,
                    12 heads of 64; random weights from the seed): ``encode``
                    of 256 chunk texts of the corpus at 128 tokens on the card
@@ -135,8 +168,10 @@ Phases, one JSON line each:
                    batch == sequential, bitwise; and each
                    refusal (a head dim not built, a length of 0, a logit
                    softcap) raises, with the next launch running.
-  breakdown        one more retrieval batch, and one request's generation,
-                   under ``torch.profiler``: device time (kernels and copies)
+  breakdown        one more retrieval batch, one request's generation,
+                   and one ``ContinuousBatcher`` tick of 16 active slots
+                   (its ``decode_fwd`` events and copies counted) under
+                   ``torch.profiler``: device time (kernels and copies)
                    against host wall time, and in the retrieval batch
                    exactly one device launch of the one-launch top-k kernel
                    per ``ivf_topk`` and per fp32 ``slab_topk`` call (and no
@@ -161,7 +196,10 @@ Phases, one JSON line each:
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
 library time, and the bound from this run's inputs; every row also carries
 the breakdown's device ms of the kernel and of its library call; the K5
-encode row's launches are ``online_index``'s non-causal ones), the
+encode row's launches are ``online_index``'s non-causal ones; the
+``decode_attention_batcher`` row is K6 at ``continuous_batching``'s
+recorded (16, 1, 32, 80) call and per-slot lengths, with that phase's
+launches), the
 ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Bounds: bytes read once at HBM's
 3.35 TB/s against the function's operations at the fp32-accurate peak of
@@ -201,6 +239,11 @@ SLAB_INPUTS = "topk_inputs.pt"   # under build/: each top-k's recorded call
 NEAR_TIE = 1e-4           # |score gap| under which two ids may swap places
 SEED = 0
 PARITY_LAYERS, SLOT_LENS = 2, (128, 100, 77, 140)
+# continuous_batching: BATCH slots of the batcher's max_len (the longest
+# prompt, its new tokens and one), a trace of TRACE_REQUESTS requests, and
+# its first PARITY_REQUESTS through PARITY_SLOTS slots on the card and CPU
+BATCHER_LEN = MAX_PROMPT + NEW_TOKENS + 1
+TRACE_REQUESTS, PARITY_REQUESTS, PARITY_SLOTS = 32, 8, 4
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
 # one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
@@ -1224,6 +1267,354 @@ def kv_int8(dev, recorded) -> dict:
             "row": (q0, one[0][0], one[0][1], MAX_PROMPT + 1)}
 
 
+class BatcherLog:
+    """Wraps a batcher's ``admit`` and ``tick`` (instance attributes, so
+    its ``run`` calls them) and the model's ``decode_attention``: the
+    ticks so far at each admission, the sorted distinct lengths that the
+    active slots of each tick with one attend over (from the host's
+    ``lens``), the host seconds of each admission and of each tick with an
+    active slot (each ends in a copy to the host, so they cover the
+    device's work), and a clone of the first K6 call (q, K and V of the
+    whole cache, the (S,) lengths) of the first tick with the most
+    distinct active lengths so far."""
+
+    def __init__(self, batcher, decode_fn):
+        self.fn = decode_fn
+        self.admitted_at, self.tick_lens = [], []
+        self.admit_s, self.tick_s = [], []
+        self.ticks, self.armed, self.k6_call = 0, False, None
+        admit, tick = batcher.admit, batcher.tick
+
+        def admit_(*args, **kw):
+            t0 = time.perf_counter()
+            slot = admit(*args, **kw)
+            if slot is not None:
+                self.admit_s.append(time.perf_counter() - t0)
+                self.admitted_at.append(self.ticks)
+            return slot
+
+        def tick_():
+            active = [i for i, s in enumerate(batcher.slots) if not s.free]
+            if active:
+                lens = sorted(set((batcher.lens[active] + 1).tolist()))
+                self.armed = len(lens) > max(
+                    (len(t) for t in self.tick_lens), default=0)
+                self.tick_lens.append(lens)
+            self.ticks += 1
+            t0 = time.perf_counter()
+            n = tick()
+            if active:
+                self.tick_s.append(time.perf_counter() - t0)
+            return n
+        batcher.admit, batcher.tick = admit_, tick_
+
+    def __call__(self, q, k, v, lengths, **kw):
+        if self.armed:
+            self.armed = False
+            self.k6_call = (q.clone(), k.clone(), v.clone(),
+                            getattr(lengths, "lengths", lengths).clone())
+        return self.fn(q, k, v, lengths, **kw)
+
+
+def batcher_trace(vocab: int) -> list:
+    """The phase's seeded trace: prompts of 16-128 tokens drawn in [2,
+    vocab), budgets of 1-``NEW_TOKENS`` tokens."""
+    rng = np.random.default_rng(SEED + 24)
+    return [{"id": i, "prompt_tokens": rng.integers(
+                 2, vocab, int(rng.integers(16, MAX_PROMPT + 1))).tolist(),
+             "max_new_tokens": int(rng.integers(1, NEW_TOKENS + 1))}
+            for i in range(TRACE_REQUESTS)]
+
+
+def lone_run(model, prompt, budget, dev) -> tuple:
+    """One request alone: prefill, then ``decode_step`` on a one-row cache
+    of the batcher's length (``tests/test_batching.py``'s
+    ``sequential_generate``).  Returns (greedy tokens, each one's top-2
+    logit margin)."""
+    import torch
+    from repro_torch.models import decode_step, init_cache, prefill
+    caches = init_cache(model.cfg, 1, BATCHER_LEN, device=dev)
+    logits, _ = prefill(model, {"tokens": torch.tensor(
+        [prompt], dtype=torch.long, device=dev)}, caches)
+    toks, margins = [], []
+    for i in range(budget):
+        toks.append(int(logits[0].argmax()))
+        top2 = torch.topk(logits[0], 2).values.tolist()
+        margins.append(top2[0] - top2[1])
+        if i + 1 < budget:
+            logits, _ = decode_step(model, torch.tensor(
+                [[toks[-1]]], dtype=torch.long, device=dev), caches,
+                len(prompt) + i)
+    return toks, margins
+
+
+def near_tie_compare(got, want, margins) -> tuple:
+    """``got == want`` token by token while the reference's top-2 margin
+    exceeds 2 x ``GEN_TOL``; at the first step under it the request stops
+    being compared.  Returns (tokens compared, 1 if it stopped at a
+    near-tie else 0)."""
+    for t, (a, b, m) in enumerate(zip(got, want, margins)):
+        if m <= 2 * GEN_TOL:
+            return t, 1
+        check(a == b, f"continuous_batching: token {t} is {a}, the lone "
+              f"run's {b} (margin {m})")
+    return len(want), 0
+
+
+def logged_run(batcher, requests) -> dict:
+    """``batcher.run(requests)`` with every admission's and tick's logits
+    kept on the host per request (``batching.prefill`` and
+    ``decode_step`` wrapped): row t of a request gave its token t."""
+    from repro_torch.serving import batching as batching_mod
+    prefill_fn, decode_fn = batching_mod.prefill, batching_mod.decode_step
+    rows, last = {}, {}
+    admit = batcher.admit
+
+    def prefill_(*args, **kw):
+        out = prefill_fn(*args, **kw)
+        last["row"] = out[0][0].cpu()
+        return out
+
+    def decode_(*args, **kw):
+        out = decode_fn(*args, **kw)
+        host = out[0].cpu()
+        for i, s in enumerate(batcher.slots):
+            if not s.free:
+                rows[s.request_id].append(host[i])
+        return out
+
+    def admit_(rid, *args):
+        slot = admit(rid, *args)
+        if slot is not None:
+            rows[rid] = [last.pop("row")]
+        return slot
+    batcher.admit = admit_
+    batching_mod.prefill, batching_mod.decode_step = prefill_, decode_
+    try:
+        outs = batcher.run(requests)
+    finally:
+        batching_mod.prefill, batching_mod.decode_step = prefill_fn, decode_fn
+    return {"outs": {r["id"]: outs[r["id"]] for r in requests}, "rows": rows}
+
+
+def continuous_batching(ctx) -> tuple:
+    """``ContinuousBatcher`` on the main path's generator (module
+    docstring, ``continuous_batching``).  Returns the phase's line and the
+    recorded K6 call at the batcher's shape with its error, for the
+    ``kernels`` line."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import init_params
+    from repro_torch.models import model as model_mod
+    from repro_torch.serving import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    dev, gen, engine, ds = ctx["dev"], ctx["gen"], ctx["engine"], ctx["ds"]
+    gcfg, layers = gen.cfg, gen.cfg.num_layers
+    vocab = gcfg.vocab_size
+    b = ContinuousBatcher(gcfg, gen.params, num_slots=BATCH,
+                          max_len=BATCHER_LEN, device=dev)
+    log = BatcherLog(b, model_mod.decode_attention)
+    rec_odd = Recorder(model_mod.flash_attention,
+                       lambda q, k, v, causal=True, window=0:
+                       (causal, q.shape[1] % 2))
+    model_mod.decode_attention, model_mod.flash_attention = log, rec_odd
+
+    def zero_counts():
+        flash_attention.launches = decode_attention.launches = 0
+        flash_attention.launches_by_mask = dict.fromkeys(
+            flash_attention.launches_by_mask, 0)
+
+    def read_counts():
+        return {"flash_attention": dict(flash_attention.launches_by_mask),
+                "decode_attention": decode_attention.launches}
+
+    # (a) the seeded trace, one run
+    trace = batcher_trace(vocab)
+    zero_counts()
+    t0 = time.perf_counter()
+    outs = dict(b.run(trace))           # (b) reuses ids in ``completed``
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches_a = read_counts()
+    admissions, active_ticks = len(log.admitted_at), len(log.tick_lens)
+    ticks_a = log.ticks
+
+    # (b) one batch of the main path's queries through the engine
+    qs = [f"query-{i}" for i in range(BATCH)]
+    n_adm, n_tick = admissions, active_ticks
+    zero_counts()
+    t0 = time.perf_counter()
+    resp = engine.answer_batch(qs, ds.query_embs[:BATCH], ds.get_chunks,
+                               batcher=b)
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    launches_b = read_counts()
+    model_mod.decode_attention, model_mod.flash_attention = log.fn, rec_odd.fn
+    adm_b, ticks_b = len(log.admitted_at) - n_adm, len(log.tick_lens) - n_tick
+
+    # 1. every request completes with its budget of tokens, in range
+    check(sorted(outs) == list(range(TRACE_REQUESTS)) and all(
+        len(outs[r["id"]]) == r["max_new_tokens"] for r in trace),
+        "continuous_batching: a request of the trace did not complete with "
+        "its budget")
+    check(all(len(r.output_tokens) == NEW_TOKENS for r in resp),
+          "continuous_batching: an engine request is short of its budget")
+    check(all(0 <= t < vocab for toks in [outs[i] for i in outs]
+              + [r.output_tokens for r in resp] for t in toks),
+          "continuous_batching: a token out of range")
+    # 2. it was continuous
+    check(max(log.admitted_at[:n_adm]) > 0,
+          "continuous_batching: every admission came before the first tick")
+    most = max(len(t) for t in log.tick_lens[:n_tick])
+    check(most >= 4, f"continuous_batching: at most {most} distinct "
+          f"lengths in a tick")
+    # 3. exact launch counts
+    want_a = {"flash_attention": {"causal": layers * admissions,
+                                  "non_causal": 0},
+              "decode_attention": layers * active_ticks}
+    check(launches_a == want_a, f"continuous_batching: launches in the "
+          f"trace {launches_a}, want {want_a}")
+    want_b = {"causal": layers * BATCH, "decode": layers * NEW_TOKENS}
+    check(adm_b == BATCH and ticks_b == NEW_TOKENS and launches_b == {
+              "flash_attention": {"causal": want_b["causal"],
+                                  "non_causal": 0},
+              "decode_attention": want_b["decode"]},
+          f"continuous_batching: the engine batch launched {launches_b} "
+          f"in {adm_b} admissions and {ticks_b} ticks, want {want_b}")
+
+    # 4. each request alone on the card, full depth
+    t0 = time.perf_counter()
+    room = BATCHER_LEN - NEW_TOKENS - 1
+    lone_cases = [(r["prompt_tokens"], r["max_new_tokens"], outs[r["id"]])
+                  for r in trace]
+    lone_cases += [(gen.tokenizer.encode(" ".join(
+        ds.get_chunks(r.chunk_ids) + [r.query]), BATCHER_LEN)[:room],
+        NEW_TOKENS, r.output_tokens) for r in resp]
+    compared = near_ties = total = 0
+    for prompt, budget, got in lone_cases:
+        want, margins = lone_run(gen.params, prompt, budget, dev)
+        n, tie = near_tie_compare(got, want, margins)
+        compared, near_ties, total = compared + n, near_ties + tie, \
+            total + budget
+    lone_s = time.perf_counter() - t0
+    check(compared >= 0.9 * total, f"continuous_batching: {compared} of "
+          f"{total} tokens compared with the lone runs")
+
+    # (c) + 5. card against CPU: 2 layers at full width, 4 slots
+    cpu = torch.device("cpu")
+    cfg2 = dataclasses.replace(gcfg, num_layers=PARITY_LAYERS)
+    m_cpu = init_params(cfg2, seed=SEED, device="cpu")
+    m_card = copy.deepcopy(m_cpu).to(dev)
+    par = trace[:PARITY_REQUESTS]
+    runs = {name: logged_run(ContinuousBatcher(
+                cfg2, m, num_slots=PARITY_SLOTS, max_len=BATCHER_LEN,
+                device=d), par)
+            for name, m, d in (("card", m_card, dev), ("cpu", m_cpu, cpu))}
+    par_compared = par_ties = 0
+    par_err = 0.0
+    for r in par:
+        rid = r["id"]
+        tk, tc = runs["card"]["outs"][rid], runs["cpu"]["outs"][rid]
+        rk, rc = runs["card"]["rows"][rid], runs["cpu"]["rows"][rid]
+        check(len(rk) == len(rc) == r["max_new_tokens"] + 1,
+              f"continuous_batching: {len(rk)} / {len(rc)} logit rows for "
+              f"request {rid}")
+        for t, (lk, lc) in enumerate(zip(rk, rc)):
+            if t and tk[t - 1] != tc[t - 1]:
+                break                       # the inputs differ from here
+            par_err = max(par_err, float((lk - lc).abs().max()))
+            if t == len(tc):
+                break
+            top2 = torch.topk(lc, 2).values
+            if float(top2[0] - top2[1]) > 2 * GEN_TOL:
+                check(tk[t] == tc[t], f"continuous_batching: card token "
+                      f"{t} of request {rid} differs from the CPU's")
+                par_compared += 1
+            else:
+                par_ties += 1
+    check(par_err <= GEN_TOL, f"continuous_batching: card logits differ "
+          f"from the CPU's by {par_err} > {GEN_TOL}")
+    del m_cpu, m_card, runs
+
+    # 6. the recorded K6 and odd-length K5 calls against the plain versions
+    q, kc, vc, lens = log.k6_call
+    check(q.shape[0] == BATCH and kc.shape[1] == BATCHER_LEN,
+          f"continuous_batching: recorded K6 call {tuple(q.shape)}")
+    k6_err, k6_ratio = attn_err(decode_attention(q, kc, vc, lens),
+                                decode_plain(q, kc, vc, lens))
+    check(k6_ratio <= 1, f"continuous_batching: K6 error {k6_err} is "
+          f"{k6_ratio} x its allowance")
+    check((True, 1) in rec_odd.first, "continuous_batching: no prefill at "
+          "an odd prompt length")
+    (qo, ko, vo), _ = rec_odd.first[(True, 1)]
+    k5_err, k5_ratio = attn_err(flash_attention(qo, ko, vo, causal=True),
+                                flash_plain(qo, ko, vo, True))
+    check(k5_ratio <= 1, f"continuous_batching: K5 error {k5_err} at "
+          f"length {qo.shape[1]} is {k5_ratio} x its allowance")
+
+    main = ctx["per_batch"]
+    line = {
+        "phase": "continuous_batching", "generator": gcfg.name,
+        "layers": layers, "slots": BATCH, "max_len": BATCHER_LEN,
+        "kv_cache_bytes": sum(c.k.numel() * 4 * 2 for c in b.caches),
+        "trace": {"requests": TRACE_REQUESTS, "prompt_tokens": [
+                      len(r["prompt_tokens"]) for r in trace],
+                  "budgets": [r["max_new_tokens"] for r in trace],
+                  "wall_s": wall_a, "ticks": ticks_a,
+                  "ticks_with_active_slot": active_ticks,
+                  "admissions": admissions,
+                  "admitted_at_tick": log.admitted_at[:n_adm],
+                  "launches": launches_a,
+                  "admissions_s": sum(log.admit_s[:n_adm]),
+                  "ticks_s": sum(log.tick_s[:n_tick]),
+                  "distinct_lengths_per_tick": [
+                      len(t) for t in log.tick_lens[:n_tick]],
+                  "most_distinct_lengths": most},
+        "engine": {"requests": BATCH, "new_tokens": NEW_TOKENS,
+                   "wall_s": wall_b, "admissions": adm_b,
+                   "ticks": ticks_b, "launches": launches_b,
+                   "admissions_s": log.admit_s[n_adm:n_adm + adm_b],
+                   "ticks_s": log.tick_s[n_tick:n_tick + ticks_b],
+                   "decode_wall_s_per_query": resp[0].decode_wall_s,
+                   "retrieval_wall_s": sum(r.ttft_wall_s for r in resp),
+                   "main_path_batch0_per_query": {
+                       "decode_s": main[0]["decode_s"] / BATCH,
+                       "prefill_plus_decode_s": (main[0]["prefill_s"]
+                                                 + main[0]["decode_s"])
+                       / BATCH},
+                   "main_path_mean_per_query_prefill_plus_decode_s":
+                       sum(p["prefill_s"] + p["decode_s"] for p in main)
+                       / (len(main) * BATCH),
+                   "tiers": {"stored": sum(r.retrieval.n_storage_loads
+                                           for r in resp),
+                             "cached": sum(r.retrieval.n_cache_hits
+                                           for r in resp),
+                             "regenerated": sum(r.retrieval.n_generated
+                                                for r in resp)}},
+        "lone_runs": {"requests": len(lone_cases), "tokens": total,
+                      "compared": compared, "near_ties": near_ties,
+                      "seconds": lone_s, "tol": GEN_TOL},
+        "card_vs_cpu": {"layers": PARITY_LAYERS, "slots": PARITY_SLOTS,
+                        "requests": PARITY_REQUESTS,
+                        "tokens_compared": par_compared,
+                        "near_ties": par_ties, "max_abs_logit_err": par_err,
+                        "tol": GEN_TOL},
+        "k6_recorded": {"shape": list(q.shape), "cache": list(kc.shape),
+                        "lengths": lens.tolist(), "max_abs_err": k6_err,
+                        "err_over_allowance": k6_ratio},
+        "k5_odd_length": {"shape": list(qo.shape), "max_abs_err": k5_err,
+                          "err_over_allowance": k5_ratio},
+        "phase_s": time.perf_counter() - t_phase}
+    del b
+    return line, {"call": log.k6_call, "max_abs_err": k6_err,
+                  "launches": launches_a["decode_attention"]
+                  + launches_b["decode_attention"]}
+
+
 def encode_phase(dev, texts) -> dict:
     """gte-base at full width, ``encode`` on the card against the CPU
     (module docstring, ``encode``)."""
@@ -1671,6 +2062,7 @@ def decode_mask(q, kc, lens):
     there are over the batch) for ``scaled_dot_product_attention``."""
     import torch
     b, smax = q.shape[0], kc.shape[1]
+    lens = getattr(lens, "lengths", lens)           # a DecodeLengths
     valid = (torch.arange(smax, device=q.device)[None, :]
              < torch.as_tensor(lens, device=q.device).reshape(-1, 1))
     return valid[:, None, None, :], int(valid.expand(b, smax).sum())
@@ -1738,7 +2130,6 @@ def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev,
     ``k5_dev``'s and ``k6_dev``'s device ms per call of the kernel and of
     that library call."""
     import torch
-    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
 
     rows = []
@@ -1770,23 +2161,36 @@ def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev,
             "device_ms": k5_dev[shape]["flash_attention"]["device_ms_per_call"],
             "library_device_ms": k5_dev[shape]["sdpa"]["device_ms_per_call"]})
     (q, kc, vc, lens), _ = rec_dec.first[None]
+    rows.append(k6_row("decode_attention", q, kc, vc, lens,
+                       launches["decode_attention"],
+                       checked["decode_attention_decode"]["max_abs_err"],
+                       k6_dev))
+    return rows
+
+
+def k6_row(name, q, kc, vc, lens, launches, err, k6_dev) -> dict:
+    """A ``kernels`` line row of K6 at one decode input: ``lens`` an int,
+    or per-slot lengths as a :class:`DecodeLengths` (checked once, as the
+    model passes them, so a call is its one launch; the free slots'
+    lengths count too: K6 reads them all).  Bound and library as in
+    :func:`attention_rows`; ``k6_dev``: :func:`decode_device_ms` at it."""
+    from repro_torch.kernels.decode_attention import decode_attention
     (b, _, h, d), kh = q.shape, kc.shape[2]
     mask, n_valid = decode_mask(q, kc, lens)
+    raw = getattr(lens, "lengths", lens)
     lim = bound((n_valid * kh * d * 2 + 2 * q.numel()) * q.element_size(),
                 4 * h * d * n_valid)
-    rows.append({
-        "name": "decode_attention", "route": "cuda",
+    return {
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/kernel.py:86",
-        "launches": launches["decode_attention"],
-        "max_abs_err": checked["decode_attention_decode"]["max_abs_err"],
+        "launches": launches, "max_abs_err": err,
         "ms": cuda_ms(lambda: decode_attention(q, kc, vc, lens), 200),
-        "plain_ms": cuda_ms(lambda: decode_plain(q, kc, vc, lens), 10),
+        "plain_ms": cuda_ms(lambda: decode_plain(q, kc, vc, raw), 10),
         "bound_ms": lim[0], "bound_by": lim[1],
         "library_ms": cuda_ms(lambda: sdpa(q, kc, vc, attn_mask=mask), 200),
         "device_ms": k6_dev["decode_attention"]["device_ms_per_call"],
-        "library_device_ms": k6_dev["sdpa"]["device_ms_per_call"]})
-    return rows
+        "library_device_ms": k6_dev["sdpa"]["device_ms_per_call"]}
 
 
 def q8_row(row, launches, err, q8_dev) -> dict:
@@ -1948,7 +2352,8 @@ def main() -> int:
     from repro_torch.core import EdgeCostModel, EdgeRAGIndex
     from repro_torch.data.synthetic import scaled_beir
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_lengths)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ivf_topk import topk_ip
     from repro_torch.kernels.ivf_topk.ref import topk_ip_ref
@@ -1958,7 +2363,8 @@ def main() -> int:
     from repro_torch.models import init_params, param_count, prefill
     from repro_torch.models import model as model_mod
     from repro_torch.models.cache import init_cache
-    from repro_torch.serving import GeneratorModel, RAGEngine
+    from repro_torch.serving import (ContinuousBatcher, GeneratorModel,
+                                     RAGEngine)
 
     torch.backends.cuda.matmul.allow_tf32 = False      # fp32 means fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -2118,6 +2524,10 @@ def main() -> int:
     q8_inputs = kv8.pop("row")
     emit(kv8)
     del recorded
+    batching, k6_batcher = continuous_batching({
+        "dev": dev, "gen": gen, "engine": engine, "ds": ds,
+        "per_batch": per_batch})
+    emit(batching)
     enc = encode_phase(dev, ds.texts[:ENC_TEXTS])
     emit(enc)
     online = online_index({"ds": ds, "cost": cost, "dev": dev, "gen": gen})
@@ -2273,6 +2683,11 @@ def main() -> int:
         k6_dev)
     kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"],
                           q8_dev))
+    q, kc, vc, lens = k6_batcher["call"]
+    lens = decode_lengths(lens, q.shape[0], dev)
+    kernels.append(k6_row("decode_attention_batcher", q, kc, vc, lens,
+                          k6_batcher["launches"], k6_batcher["max_abs_err"],
+                          decode_device_ms(q, kc, vc, lens)))
 
     # ---- breakdown: one retrieval batch and one request's generation ----
     embs = ds.query_embs[BATCHES * BATCH:(BATCHES + 1) * BATCH]
@@ -2285,8 +2700,17 @@ def main() -> int:
     check(ret["calls"]["ivf_topk"] > 0 and ret["calls"]["slab_topk_fp32"] > 0,
           f"profiled retrieval batch: calls {ret['calls']}")
     gen_prof = profiled(lambda: gen.generate(prompt, NEW_TOKENS))
+    # one batcher tick of 16 active slots (the trace's first 16 prompts)
+    tb = ContinuousBatcher(gcfg, gen.params, num_slots=BATCH,
+                           max_len=BATCHER_LEN, device=dev)
+    for r in batcher_trace(gcfg.vocab_size)[:BATCH]:
+        tb.admit(r["id"], r["prompt_tokens"], NEW_TOKENS)
+    tb.tick()                                           # warm
+    tick_prof = profiled(tb.tick, count=("decode_fwd", "Memcpy HtoD",
+                                         "Memcpy DtoH"))
+    del tb
     emit({"phase": "breakdown", "retrieval_batch": ret,
-          "one_request_generation": gen_prof,
+          "one_request_generation": gen_prof, "one_batcher_tick": tick_prof,
           "k7_vs_k6_device": q8_dev, "k6_vs_sdpa_device": k6_dev,
           "decode_long": decode_long(dev),
           "k5_vs_sdpa_device": k5_dev, "topk_vs_library_device": topk_dev,

@@ -137,7 +137,7 @@ class ModelEmbedder:
                  device: DeviceLike = None):
         from repro_torch.configs import get_config
         from repro_torch.data.tokenizer import HashingTokenizer
-        from repro_torch.device import resolve_device
+        from repro_torch.device import resolve_device, same_device
         from repro_torch.models import encode, init_params
         self._encode = encode
         dev = resolve_device(device)
@@ -149,7 +149,7 @@ class ModelEmbedder:
         self.dim = cfg.d_model
         if params is None:
             params = init_params(cfg, seed=seed, device=dev)
-        elif not _same_device(params.device, dev):
+        elif not same_device(params.device, dev):
             raise ValueError(f"params are on {params.device}, the embedder "
                              f"runs on {dev}")
         self.params = params
@@ -192,15 +192,3 @@ class ModelEmbedder:
         return torch.cat(parts).cpu().numpy()
 
     __call__ = embed
-
-
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    """``cuda`` and ``cuda:<current>`` are one device."""
-    import torch
-    if a.type != b.type:
-        return False
-    if a.type != "cuda":
-        return True
-    cur = torch.cuda.current_device()
-    return (cur if a.index is None else a.index) == \
-        (cur if b.index is None else b.index)

@@ -24,3 +24,14 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "CPU explicitly")
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` and ``cuda:<current>`` are one device."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)

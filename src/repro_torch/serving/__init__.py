@@ -1,2 +1,3 @@
 from repro_torch.serving.engine import (BatchJob, GeneratorModel,  # noqa
                                         RAGEngine, RAGResponse)
+from repro_torch.serving.batching import ContinuousBatcher  # noqa

@@ -1,0 +1,148 @@
+"""Continuous batching for the generation model, on PyTorch.
+
+Port of ``repro.serving.batching``.  A fixed pool of ``num_slots`` decode
+slots shares one batched KV cache (one :class:`~repro_torch.models.cache.
+KVCache` per layer, (num_slots, max_len, KH, D)).  A request is admitted
+into a free slot: its prompt is prefilled alone, at its own unpadded
+length, into that slot's row of the cache.  One decode step (a tick)
+advances every slot one token with per-slot cache lengths, free slots
+included, as the reference does; a finished slot (its budget of tokens, or
+the cache's last position) is freed at once for the next waiting request.
+No batch-wide barrier.
+
+On the card every layer of an admission's prefill runs the prefill
+attention kernel (``flash_attention``, causal, at (1, L, H, D)) and every
+layer of a tick the decode kernel (``decode_attention``) with (num_slots,)
+lengths that differ from slot to slot.  Nothing here catches a kernel's
+error: a card run never takes a plain version.
+
+``lens`` and ``next_tok`` stay numpy arrays on the host, as in the
+reference.  A tick copies the slots' greedy tokens back to the host once.
+
+The one departure from the reference: :meth:`ContinuousBatcher.admit`
+refuses lengths the reference takes without a check, raising
+``ValueError`` before any launch for an empty prompt, for ``max_len -
+max_new_tokens - 1 < 1`` (a budget that leaves no room for the prompt) and
+for a budget under 1.  With the first two the reference slices the prompt
+from its end and decodes at negative cache positions, which the decode
+kernel refuses (a length under 1); with a budget of 0 it returns one token
+and may leave a freed slot at ``max_len``, past the cache, where the next
+tick's insert would index out of bounds.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import DeviceLike, resolve_device, same_device
+from repro_torch.models import (KVCache, Model, decode_step, init_cache,
+                                prefill)
+
+
+@dataclasses.dataclass
+class SlotState:
+    request_id: int = -1
+    tokens_out: List[int] = dataclasses.field(default_factory=list)
+    budget: int = 0
+
+    @property
+    def free(self) -> bool:
+        return self.request_id < 0
+
+
+class ContinuousBatcher:
+    """``params`` is a port :class:`Model` already on ``device`` (the card
+    unless ``"cpu"``); the model computes in fp32, so there is no
+    ``compute_dtype``."""
+
+    def __init__(self, cfg: ModelConfig, params: Model, *,
+                 num_slots: int = 4, max_len: int = 256,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        if not same_device(params.device, self.device):
+            raise ValueError(f"params are on {params.device}, the batcher "
+                             f"runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.caches = init_cache(cfg, num_slots, max_len, device=self.device)
+        self.lens = np.zeros(num_slots, np.int32)       # per-slot cache len
+        self.next_tok = np.zeros(num_slots, np.int32)
+        self.slots = [SlotState() for _ in range(num_slots)]
+        self.completed: Dict[int, List[int]] = {}
+
+    def admit(self, request_id: int, prompt_tokens: List[int],
+              max_new_tokens: int) -> Optional[int]:
+        """Prefill into a free slot; returns the slot or None if full.
+        Raises ``ValueError`` (before any launch) for an empty prompt, a
+        budget under 1, or a budget that leaves the prompt no position."""
+        room = self.max_len - max_new_tokens - 1
+        if room < 1 or max_new_tokens < 1 or not len(prompt_tokens):
+            raise ValueError(
+                f"request {request_id}: needs a prompt and 1 <= "
+                f"max_new_tokens <= max_len - 2 = {self.max_len - 2}; got "
+                f"{len(prompt_tokens)} prompt tokens and max_new_tokens="
+                f"{max_new_tokens}")
+        free = [i for i, s in enumerate(self.slots) if s.free]
+        if not free:
+            return None
+        slot = free[0]
+        L = min(len(prompt_tokens), room)
+        toks = torch.tensor([list(prompt_tokens[:L])], dtype=torch.long,
+                            device=self.device)
+        # prefill straight into the slot's row, zeroed first: positions L
+        # and beyond hold zeros, as the reference's copy of a fresh row does
+        rows = []
+        for c in self.caches:
+            c.k[slot].zero_()
+            c.v[slot].zero_()
+            rows.append(KVCache(c.k[slot:slot + 1], c.v[slot:slot + 1]))
+        last_logits, _ = prefill(self.params, {"tokens": toks}, rows)
+        self.lens[slot] = L
+        self.next_tok[slot] = int(last_logits[0].argmax())
+        self.slots[slot] = SlotState(request_id=request_id,
+                                     budget=max_new_tokens)
+        return slot
+
+    def tick(self) -> int:
+        """One decode step for all slots; returns #active."""
+        active = [i for i, s in enumerate(self.slots) if not s.free]
+        if not active:
+            return 0
+        toks = torch.from_numpy(self.next_tok.astype(np.int64)).to(
+            self.device).reshape(-1, 1)
+        lens = torch.from_numpy(self.lens.astype(np.int64)).to(self.device)
+        logits, _ = decode_step(self.params, toks, self.caches, lens)
+        nxt = logits.argmax(-1).cpu().numpy()           # one copy a tick
+        for i in active:
+            s = self.slots[i]
+            s.tokens_out.append(int(self.next_tok[i]))
+            self.lens[i] += 1
+            self.next_tok[i] = nxt[i]
+            if (len(s.tokens_out) >= s.budget
+                    or self.lens[i] >= self.max_len - 1):
+                self.completed[s.request_id] = s.tokens_out
+                self.slots[i] = SlotState()     # free immediately
+        return len(active)
+
+    def run(self, requests: List[Dict], tick_limit: int = 10_000
+            ) -> Dict[int, List[int]]:
+        """requests: [{id, prompt_tokens, max_new_tokens}] -> outputs."""
+        pending = list(requests)
+        ticks = 0
+        while (pending or any(not s.free for s in self.slots)) \
+                and ticks < tick_limit:
+            while pending:
+                r = pending[0]
+                if self.admit(r["id"], r["prompt_tokens"],
+                              r["max_new_tokens"]) is None:
+                    break
+                pending.pop(0)
+            self.tick()
+            ticks += 1
+        return self.completed

@@ -1,10 +1,11 @@
 """RAG serving engine: retrieve → assemble context → prefill → decode.
 
 Port of ``repro.serving.engine``.  Retrieval runs on the index's device and
-generation on the generator's (the card unless ``device="cpu"``).  The
-continuous batcher and the multi-tenant router come with later slices, so
-decode here goes through :class:`GeneratorModel` one request at a time, as
-the JAX engine does without a batcher.
+generation on the generator's (the card unless ``device="cpu"``).  Decode
+goes through a :class:`~repro_torch.serving.batching.ContinuousBatcher`
+when ``answer_batch`` is given one (``batcher=``), else through
+:class:`GeneratorModel` one request at a time, as in the JAX engine.  The
+multi-tenant router (``tenants=``) comes with a later slice.
 
 Ties the EdgeRAG index to the generation model.  TTFT = retrieval latency +
 prefill latency (paper §3.1); decode is measured but excluded from the
@@ -139,14 +140,18 @@ class RAGEngine:
     def answer_batch(self, queries: Sequence[str], query_embs: np.ndarray,
                      get_chunks: Optional[Callable[[Sequence[int]],
                                                    List[str]]] = None,
-                     *, prefetch: bool = False,
+                     *, batcher=None, prefetch: bool = False,
                      deadlines: Optional[Sequence[Optional[float]]] = None,
                      policy: Optional[DegradationPolicy] = None
                      ) -> List[RAGResponse]:
         """Batched serving path: one ``search_batch`` drives retrieval for
         the whole batch (cross-query cluster dedup + a single coalesced
-        embed call), then the generator decodes each prompt.  Wall-clock
-        figures are amortized uniformly over the batch.
+        embed call), then decode either goes through a
+        :class:`~repro_torch.serving.batching.ContinuousBatcher`
+        (``batcher=``, prompts admitted into decode slots so retrieval
+        batching and decode batching compose) or falls back to the
+        per-query generator.  Wall-clock figures are amortized uniformly
+        over the batch.
 
         ``prefetch=True``: plan the batch first (``index.plan_batch``) and
         issue the plan's storage loads ahead of execution, so in edge
@@ -171,7 +176,7 @@ class RAGEngine:
         self.stage_plan(job)
         self.stage_fetch(job)
         self.stage_score(job)
-        self.stage_decode(job)
+        self.stage_decode(job, batcher=batcher)
         # deferred index maintenance drains AFTER decode — split / merge /
         # restore work queued by online inserts/removes runs between serving
         # steps instead of inside a query's TTFT window.  Only when the
@@ -274,15 +279,30 @@ class RAGEngine:
                                      for lat in job.lats)
         return job
 
-    def stage_decode(self, job: BatchJob) -> BatchJob:
-        """S4 — prefill + decode through the generator, one prompt at a
-        time.  Service time: summed per-query prefill + ONE decode pass
-        (the cost model charges batch decode per token, not per
-        (token, slot))."""
+    def stage_decode(self, job: BatchJob, *, batcher=None) -> BatchJob:
+        """S4 — prefill + decode ticks, through a
+        :class:`~repro_torch.serving.batching.ContinuousBatcher`
+        (``batcher=``) or the per-query generator.  Service time: summed
+        per-query prefill + ONE decode pass (continuous-batching ticks
+        advance every live slot, so batch decode is per-token, not
+        per-(token, slot))."""
         nq = job.nq
         job.out_tokens = [[] for _ in range(nq)]
         job.decode_wall = 0.0
-        if self.generator is not None:
+        if batcher is not None:
+            tokenizer = (self.generator.tokenizer if self.generator
+                         is not None else HashingTokenizer(
+                             vocab_size=batcher.cfg.vocab_size))
+            t1 = time.perf_counter()
+            completed = batcher.run(
+                [{"id": qi,
+                  "prompt_tokens": tokenizer.encode(p, batcher.max_len),
+                  "max_new_tokens": self.max_new_tokens}
+                 for qi, p in enumerate(job.prompts)])
+            job.decode_wall = (time.perf_counter() - t1) / nq
+            for qi in range(nq):
+                job.out_tokens[qi] = completed.get(qi, [])
+        elif self.generator is not None:
             t1 = time.perf_counter()
             for qi, p in enumerate(job.prompts):
                 job.out_tokens[qi] = self.generator.generate(
