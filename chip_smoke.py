@@ -127,6 +127,49 @@ Phases, one JSON line each:
                    batch's stage seconds, and the last batch twice more
                    under ``torch.profiler``, with the cache as it stands
                    and emptied (device busy share, K5 and copy events).
+  staged_pipeline  ``StagedPipeline`` (``serving/pipeline.py``) on
+                   ``online_index``'s embedder, build rows, clustering and
+                   queries, with the main path's generator and a 16-slot
+                   ``ContinuousBatcher`` of ``BATCHER_LEN`` positions.  Twin
+                   indexes A and B (fp32, ``maintenance="deferred"``,
+                   ``cache_bytes=0``, so every batch's S2 regenerates through
+                   gte-base) on the build rows; on both, one chunk each of up
+                   to two clusters that no query probes on the card is
+                   rewritten in place, long enough that the cluster goes
+                   over its storage SLO (a deferred restore each).  (a) 4
+                   batches of 16, all arriving at 0, through the pipeline on
+                   A (its engine ``maintenance_owner="external"``, S4 through
+                   the batcher), then the same batches in order through
+                   ``answer_batch(..., batcher=)`` on B (the engine
+                   drains).  Counts zeroed before A's run, read after it.
+                   Checks: ids, scores and tokens bitwise B's; maintenance
+                   ran in bubbles (ops > 0), both queues empty after, every
+                   rewritten cluster ``storage_fresh``; the hidden fraction
+                   > 0; each stage fired once a batch (S1, S2 also once a
+                   replan); ``ivf_topk`` once an S1 fire, fp32 ``slab_topk``
+                   once an S3 fire, K5 non-causal = encoder layers x the
+                   embedder's micro-batches, causal = 32 x admissions, K6 =
+                   32 x ticks with an active slot; the restores' rows of the
+                   rewritten chunks bitwise those of the texts embedded
+                   alone.  (b) one more batch of 16 on A, an ``update`` of
+                   one chunk of a planned cluster made just after its first
+                   fetch: ``replans`` = 1, ``ivf_topk`` 2 launches, fp32
+                   ``slab_topk`` 1, and ids, scores and tokens equal to B
+                   (drained after (a)) given the same update before
+                   ``answer_batch``.  (c) (a) replayed on the port's CPU
+                   index (the same clustering, a ``TableEmbedder`` over the
+                   card's rows, those of the rewritten texts included, the
+                   same rewrites, ``generator=None``): ids equal outside
+                   near-ties, every count of the trace equal (fires,
+                   replans, bubble ops, checkpoints, queue depths), and its
+                   modeled seconds within ``SCHEDULE_RTOL`` where no
+                   near-tie swap changed a prompt.  Prints A's and B's wall
+                   seconds and A's host seconds per stage and in drains, the
+                   rows and embed seconds of each S2 fire and drain, the
+                   trace and the launches.  The pipeline orders the stages'
+                   work on the modeled clock; the work itself runs one
+                   stage at a time on the host, so nothing overlaps on the
+                   card and A's wall is that of serving the batches in turn.
   codec_paths      the same corpus, clustering, queries and generator under
                    each quantized storage codec: ``EdgeRAGIndex(
                    storage_codec="fp16" | "int8" | "pq")`` (pq in the memmap
@@ -196,10 +239,10 @@ Phases, one JSON line each:
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
 library time, and the bound from this run's inputs; every row also carries
 the breakdown's device ms of the kernel and of its library call; the K5
-encode row's launches are ``online_index``'s non-causal ones; the
-``decode_attention_batcher`` row is K6 at ``continuous_batching``'s
-recorded (16, 1, 32, 80) call and per-slot lengths, with that phase's
-launches), the
+encode row's launches are ``online_index``'s and ``staged_pipeline``'s
+non-causal ones; the ``decode_attention_batcher`` row is K6 at
+``continuous_batching``'s recorded (16, 1, 32, 80) call and per-slot
+lengths, with that phase's and ``staged_pipeline``'s counted launches), the
 ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Bounds: bytes read once at HBM's
 3.35 TB/s against the function's operations at the fp32-accurate peak of
@@ -244,6 +287,13 @@ PARITY_LAYERS, SLOT_LENS = 2, (128, 100, 77, 140)
 # its first PARITY_REQUESTS through PARITY_SLOTS slots on the card and CPU
 BATCHER_LEN = MAX_PROMPT + NEW_TOKENS + 1
 TRACE_REQUESTS, PARITY_REQUESTS, PARITY_SLOTS = 32, 8, 4
+# staged_pipeline: PIPE_BATCHES batches of BATCH through the pipeline; the
+# seeded maintenance rewrites one chunk in each of up to REWRITE_CLUSTERS
+# clusters, adding at least REWRITE_CHARS characters; the CPU replay's
+# modeled seconds agree to SCHEDULE_RTOL (the same formulas on the same
+# decisions: only the order of a few float sums could differ)
+PIPE_BATCHES, REWRITE_CLUSTERS, REWRITE_CHARS = 4, 2, 4000
+SCHEDULE_RTOL = 1e-9
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
 # one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
@@ -497,6 +547,32 @@ def profiled(fn, count=(), events=False) -> dict:
         out["device_ms_of"] = {name: sum(t for k, (_, t) in dev.items()
                                          if name in k) for name in count}
     return out
+
+
+def zero_launches() -> None:
+    """Sets the launch counts of ``ivf_topk``, ``slab_topk`` (by mode),
+    ``flash_attention`` (by mask) and ``decode_attention`` to 0."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ivf_topk import topk_ip
+    from repro_torch.kernels.slab_topk import slab_topk
+    topk_ip.launches = slab_topk.launches = 0
+    slab_topk.launches_by_mode = dict.fromkeys(slab_topk.launches_by_mode, 0)
+    flash_attention.launches = decode_attention.launches = 0
+    flash_attention.launches_by_mask = dict.fromkeys(
+        flash_attention.launches_by_mask, 0)
+
+
+def launch_counts() -> dict:
+    """The launches counted since :func:`zero_launches`."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ivf_topk import topk_ip
+    from repro_torch.kernels.slab_topk import slab_topk
+    return {"ivf_topk": topk_ip.launches,
+            "slab_topk": dict(slab_topk.launches_by_mode),
+            "flash_attention": dict(flash_attention.launches_by_mask),
+            "decode_attention": decode_attention.launches}
 
 
 class Recorder:
@@ -1659,20 +1735,20 @@ def encode_phase(dev, texts) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
-def online_index(ctx) -> dict:
+def online_index(ctx) -> tuple:
     """EdgeRAG with gte-base at full width on the card as ``embed_fn``:
     the build embeds the corpus through it and every regenerated cluster
-    goes through it again (module docstring, ``online_index``)."""
+    goes through it again (module docstring, ``online_index``).  Returns
+    the phase's line and what ``staged_pipeline`` reuses: the embedder,
+    the build's rows, centroids and assignment, and the query texts and
+    rows."""
     import copy
     import torch
     from repro_torch.convert import index_state_from_numpy
     from repro_torch.core import EdgeRAGIndex
     from repro_torch.data import ModelEmbedder, TableEmbedder
     from repro_torch.data.embedder import MICRO_BATCH
-    from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ivf_topk import topk_ip
-    from repro_torch.kernels.slab_topk import slab_topk
     from repro_torch.models import encode
     from repro_torch.serving import RAGEngine
 
@@ -1694,11 +1770,7 @@ def online_index(ctx) -> dict:
     queries = [ds.texts[i] for i in src]
 
     # ---- the path: counts zeroed just before, read just after ----------
-    topk_ip.launches = slab_topk.launches = decode_attention.launches = 0
-    slab_topk.launches_by_mode = dict.fromkeys(slab_topk.launches_by_mode, 0)
-    flash_attention.launches = 0
-    flash_attention.launches_by_mask = dict.fromkeys(
-        flash_attention.launches_by_mask, 0)
+    zero_launches()
     t0 = time.perf_counter()
     assign = index.build(ds.chunk_ids, ds.texts, nlist=NLIST, seed=SEED)
     torch.cuda.synchronize()
@@ -1740,10 +1812,7 @@ def online_index(ctx) -> dict:
     t0 = time.perf_counter()
     resp = engine.answer_batch(queries[last], q_embs[last], ds.get_chunks)
     answer_s = time.perf_counter() - t0
-    launches = {"ivf_topk": topk_ip.launches,
-                "slab_topk": dict(slab_topk.launches_by_mode),
-                "flash_attention": dict(flash_attention.launches_by_mask),
-                "decode_attention": decode_attention.launches}
+    launches = launch_counts()
     micro_batches = embedder.micro_batches
     new = log.calls[n_calls:]
     answer = {"wall_s": answer_s,
@@ -1880,6 +1949,316 @@ def online_index(ctx) -> dict:
             "near_tie_swaps": swaps, "unit_norm_max_err": norm_err,
             "rows_vs_cpu": 8, "max_abs_err_vs_cpu": cpu_err,
             "tol": ENC_TOL, "warm_batch_profiles": profiles,
+            "phase_s": time.perf_counter() - t_phase}, {
+        "embedder": embedder, "built": built, "centroids": index.centroids,
+        "assign": assign, "queries": queries, "q_embs": q_embs}
+
+
+def staged_pipeline(ctx) -> dict:
+    """``StagedPipeline`` on the card: gte-base regeneration, bubble
+    maintenance and the batcher's decode in one schedule on the modeled
+    clock (module docstring, ``staged_pipeline``)."""
+    import torch
+    from repro_torch.convert import index_state_from_numpy
+    from repro_torch.core import EdgeRAGIndex
+    from repro_torch.data import TableEmbedder
+    from repro_torch.serving import (ContinuousBatcher, PipelineBatch,
+                                     RAGEngine, StagedPipeline)
+
+    t_phase = time.perf_counter()
+    ds, cost, dev, gen = ctx["ds"], ctx["cost"], ctx["dev"], ctx["gen"]
+    embedder, built = ctx["embedder"], ctx["built"]
+    centroids, assign = ctx["centroids"], ctx["assign"]
+    queries, q_embs = ctx["queries"], ctx["q_embs"]
+    enc_layers, gen_layers = embedder.cfg.num_layers, gen.cfg.num_layers
+    # the phase's own chunk store: its rewrites stay out of ``ds``, which
+    # the later phases read
+    original = dict(zip(ds.chunk_ids.tolist(), ds.texts))
+    store = dict(original)
+
+    def get_chunks(ids):
+        return [store[int(i)] for i in ids]
+
+    def twin(embed_fn, get, device):
+        ix = EdgeRAGIndex(DIM, embed_fn, get, cost, slo_s=ds.spec.slo_s,
+                          cache_bytes=0, maintenance="deferred",
+                          device=device)
+        index_state_from_numpy(ix, centroids, assign, ds.chunk_ids,
+                               ds.texts, built)
+        return ix
+
+    def scored(ix):
+        """Keeps (ids, scores) of every ``search_finish`` of ``ix``."""
+        out, finish = [], ix.search_finish
+
+        def logged(state):
+            ids, vals, lats = finish(state)
+            out.append((ids, vals))
+            return ids, vals, lats
+        ix.search_finish = logged
+        return out
+
+    log_a = EmbedLog(embedder)
+    a, b = twin(log_a, get_chunks, dev), twin(embedder, get_chunks, dev)
+    scores_a, scores_b = scored(a), scored(b)
+    batches = [PipelineBatch(queries=queries[i * BATCH:(i + 1) * BATCH],
+                             query_embs=q_embs[i * BATCH:(i + 1) * BATCH])
+               for i in range(PIPE_BATCHES)]
+    last = PipelineBatch(queries=queries[BATCHES * BATCH:],
+                         query_embs=q_embs[BATCHES * BATCH:])
+
+    # seeded maintenance: one chunk each of up to two clusters that no
+    # query of the phase probes on the card (K1 gives each query the same
+    # probes alone or in any batch), the farthest from the probe cut
+    # first, rewritten in place: long enough that regenerating the cluster
+    # goes over the storage SLO, short of a split
+    probed = set().union(*a._probe(q_embs, NPROBE))
+    rank = np.argsort(np.argsort(-(q_embs.astype(np.float64)
+                                   @ centroids.astype(np.float64).T),
+                                 axis=1), axis=1).min(axis=0)
+    slo_chars = (ds.spec.slo_s - cost.embed_fixed_s) * cost.embed_chars_per_sec
+    rewrites, targets = {}, []
+    for cid in sorted(set(range(len(a.clusters))) - probed,
+                      key=lambda c: (-rank[c], c)):
+        cl = a.clusters[cid]
+        extra = max(REWRITE_CHARS, int(slo_chars - cl.char_count)
+                    + REWRITE_CHARS)
+        if cl.size == 0 or cl.char_count + extra + 4 >= a.split_max_chars:
+            continue
+        chunk = int(cl.ids[0])
+        rewrites[chunk] = store[chunk] + " rev" + " tok" * (extra // 4)
+        targets.append(cid)
+        if len(targets) == REWRITE_CLUSTERS:
+            break
+    check(len(targets) > 0, f"staged_pipeline: every cluster is probed "
+          f"({len(probed)} of {len(a.clusters)})")
+    rewritten_rows = embedder(list(rewrites.values()))   # for (c)'s table
+    store.update(rewrites)
+    for ix in (a, b):
+        for chunk, text in rewrites.items():
+            ix.update(chunk, text)
+    seeded = [(op.kind, op.cid) for op in a.maintenance.pending]
+    check(len(a.maintenance) > 0 and seeded == [
+              (op.kind, op.cid) for op in b.maintenance.pending]
+          and sorted(cid for _, cid in seeded) == sorted(targets),
+          f"staged_pipeline: seeded maintenance {seeded} on the "
+          f"clusters {targets}")
+
+    # (a) pipelined (A) against sequential (B), one 16-slot batcher
+    batcher = ContinuousBatcher(gen.cfg, gen.params, num_slots=BATCH,
+                                max_len=BATCHER_LEN, device=dev)
+    tlog = BatcherLog(batcher, None)        # admissions and active ticks
+    engine_a = RAGEngine(a, gen, cost_model=cost, k=K, nprobe=NPROBE,
+                         max_new_tokens=NEW_TOKENS,
+                         maintenance_owner="external")
+    host_s = dict.fromkeys(("s1", "s2", "s3", "s4", "drain"), 0.0)
+    regen = {"s2": [], "drain": []}       # per call: rows, embed seconds
+
+    def timed(name, fn):
+        def run(*args, **kw):
+            n_calls = len(log_a.calls)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            host_s[name] += time.perf_counter() - t0
+            if name in regen:
+                new = log_a.calls[n_calls:]
+                regen[name].append([sum(len(c[0]) for c in new),
+                                    sum(c[2] for c in new)])
+            return out
+        return run
+    for name, attr in (("s1", "stage_plan"), ("s2", "stage_fetch"),
+                       ("s3", "stage_score"), ("s4", "stage_decode")):
+        setattr(engine_a, attr, timed(name, getattr(engine_a, attr)))
+    a.maintenance.drain = timed("drain", a.maintenance.drain)
+
+    micro = embedder.micro_batches
+    zero_launches()
+    t0 = time.perf_counter()
+    resp_a, trace = StagedPipeline(engine_a, get_chunks,
+                                   batcher=batcher).run(batches)
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    launches_a = launch_counts()
+    micro_a = embedder.micro_batches - micro
+    admissions, active_ticks = len(tlog.admitted_at), len(tlog.tick_lens)
+    host_a, regen_a = dict(host_s), {n: list(v) for n, v in regen.items()}
+
+    engine_b = RAGEngine(b, gen, cost_model=cost, k=K, nprobe=NPROBE,
+                         max_new_tokens=NEW_TOKENS)
+    t0 = time.perf_counter()
+    resp_b = [engine_b.answer_batch(pb.queries, pb.query_embs, get_chunks,
+                                    batcher=batcher) for pb in batches]
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+
+    flat_a = [r for rs in resp_a for r in rs]
+    flat_b = [r for rs in resp_b for r in rs]
+    check(len(flat_a) == len(flat_b) == PIPE_BATCHES * BATCH
+          and [r.chunk_ids for r in flat_a] == [r.chunk_ids for r in flat_b]
+          and all(len(r.chunk_ids) == K for r in flat_a),
+          "staged_pipeline: pipelined ids differ from the sequential arm's")
+    check(len(scores_a) == len(scores_b) == PIPE_BATCHES and all(
+              np.array_equal(ia, ib) and np.array_equal(va, vb)
+              for (ia, va), (ib, vb) in zip(scores_a, scores_b)),
+          "staged_pipeline: pipelined scores not bitwise the sequential's")
+    check([r.output_tokens for r in flat_a]
+          == [r.output_tokens for r in flat_b]
+          and all(len(r.output_tokens) == NEW_TOKENS for r in flat_a),
+          "staged_pipeline: pipelined tokens differ from the sequential's")
+    ops = sum(st.maintenance_ops for st in trace.stages.values())
+    # a drain isolates an op that raises (counts it, re-queues it); none may
+    check(all(ix.maintenance.n_failures == 0 for ix in (a, b)),
+          f"staged_pipeline: maintenance ops raised: "
+          f"{[dict(ix.maintenance.quarantined) for ix in (a, b)]}")
+    check(trace.maintenance_in_bubbles_s > 0 and ops > 0
+          and len(a.maintenance) == 0 and len(b.maintenance) == 0
+          and all(a.clusters[c].storage_fresh and b.clusters[c].storage_fresh
+                  for c in targets),
+          f"staged_pipeline: {ops} ops in bubbles "
+          f"({trace.maintenance_in_bubbles_s} s), {len(a.maintenance)} "
+          f"left, targets fresh "
+          f"{[a.clusters[c].storage_fresh for c in targets]}")
+    fired = {s: st.n_fired for s, st in trace.stages.items()}
+    check(trace.hidden_retrieval_fraction > 0 and fired == {
+              "s1": PIPE_BATCHES + trace.replans,
+              "s2": PIPE_BATCHES + trace.replans,
+              "s3": PIPE_BATCHES, "s4": PIPE_BATCHES},
+          f"staged_pipeline: fired {fired}, replans {trace.replans}, "
+          f"hidden {trace.hidden_retrieval_fraction}")
+    want_a = {"ivf_topk": fired["s1"],
+              "slab_topk": {**dict.fromkeys(launches_a["slab_topk"], 0),
+                            "fp32": fired["s3"]},
+              "flash_attention": {"causal": gen_layers * admissions,
+                                  "non_causal": enc_layers * micro_a},
+              "decode_attention": gen_layers * active_ticks}
+    check(launches_a == want_a and admissions == PIPE_BATCHES * BATCH,
+          f"staged_pipeline: launches {launches_a} in {admissions} "
+          f"admissions, {active_ticks} active ticks and {micro_a} "
+          f"micro-batches; want {want_a}")
+    # the restores regenerated the rewritten chunks to (c)'s table rows
+    restored = {t: row for texts, rows, _ in log_a.calls
+                for t, row in zip(texts, rows) if t in rewrites.values()}
+    check(len(restored) == len(rewrites) and all(
+              np.array_equal(restored[t], r)
+              for t, r in zip(rewrites.values(), rewritten_rows)),
+          "staged_pipeline: a restore's rows of a rewritten chunk differ "
+          "from the same text embedded alone")
+
+    # (b) a content update after the first fetch sends the batch back to
+    # S1; B, drained by its engine after (a), is the twin it must equal
+    engine_s = RAGEngine(a, gen, cost_model=cost, k=K, nprobe=NPROBE,
+                         max_new_tokens=NEW_TOKENS,
+                         maintenance_owner="external")
+    fetch, mutated = engine_s.stage_fetch, {}
+
+    def fetch_then_update(job, **kw):
+        fetch(job, **kw)
+        if not mutated:
+            cid = next(iter(job.state.plan.owner))
+            chunk = int(a.clusters[cid].ids[0])
+            mutated.update(cid=cid, chunk=chunk,
+                           text=store[chunk] + " rev")
+            store[chunk] = mutated["text"]
+            a.update(chunk, mutated["text"])
+        return job
+    engine_s.stage_fetch = fetch_then_update
+    zero_launches()
+    t0 = time.perf_counter()
+    resp_s, trace_s = StagedPipeline(engine_s, get_chunks,
+                                     batcher=batcher).run([last])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches_s = launch_counts()
+    b.update(mutated["chunk"], mutated["text"])
+    seq = engine_b.answer_batch(last.queries, last.query_embs, get_chunks,
+                                batcher=batcher)
+    check(trace_s.replans == 1 and launches_s["ivf_topk"] == 2
+          and a.maintenance.n_failures == b.maintenance.n_failures == 0
+          and launches_s["slab_topk"]["fp32"] == 1,
+          f"staged_pipeline: the stale batch replanned {trace_s.replans} "
+          f"times, launches {launches_s}")
+    check([r.chunk_ids for r in resp_s[0]] == [r.chunk_ids for r in seq]
+          and [r.output_tokens for r in resp_s[0]]
+          == [r.output_tokens for r in seq]
+          and np.array_equal(scores_a[-1][1], scores_b[-1][1]),
+          "staged_pipeline: the replanned batch differs from the twin "
+          "updated before serving")
+
+    # (c) (a)'s schedule replayed on the CPU: the card's rows in a table
+    table = dict(zip(ds.chunk_ids.tolist(), built))
+    table.update(zip(rewrites, rewritten_rows))
+    cpu_store = {**original, **rewrites}
+
+    def cpu_chunks(ids):
+        return [cpu_store[int(i)] for i in ids]
+    c = twin(TableEmbedder(table, DIM), cpu_chunks, "cpu")
+    scores_c = scored(c)
+    for chunk, text in rewrites.items():
+        c.update(chunk, text)
+    resp_c, trace_c = StagedPipeline(
+        RAGEngine(c, None, cost_model=cost, k=K, nprobe=NPROBE,
+                  max_new_tokens=NEW_TOKENS, maintenance_owner="external"),
+        cpu_chunks).run(batches)
+    swaps = mismatches = 0
+    swapped = []
+    for i, ((ids, _), (c_ids, c_vals)) in enumerate(zip(scores_a, scores_c)):
+        s, m = near_tie_mismatches(ids, c_ids, c_vals)
+        swaps, mismatches = swaps + s, mismatches + m
+        if s:
+            swapped.append(i)
+    check(mismatches == 0 and c.maintenance.n_failures == 0,
+          f"staged_pipeline: {mismatches} ids differ from the CPU replay "
+          f"outside near-ties ({c.maintenance.n_failures} ops raised)")
+    counts = ("n_fired", "maintenance_ops", "checkpoints", "max_queue_depth")
+    card_counts = {s: [getattr(st, n) for n in counts]
+                   for s, st in trace.stages.items()}
+    cpu_counts = {s: [getattr(st, n) for n in counts]
+                  for s, st in trace_c.stages.items()}
+    check(card_counts == cpu_counts and trace.replans == trace_c.replans,
+          f"staged_pipeline: trace counts {card_counts} on the card, "
+          f"{cpu_counts} on the CPU")
+    close = lambda x, y: abs(x - y) <= SCHEDULE_RTOL * max(abs(x), abs(y))
+    if not swapped:           # a near-tie swap changes a prompt, so S4
+        d, dc = trace.as_dict(), trace_c.as_dict()
+        secs = [(k, d[k], dc[k]) for k in d
+                if isinstance(d[k], float)] + [
+            (f"{s}.{k}", v, dc["stages"][s][k])
+            for s, st in d["stages"].items()
+            for k, v in st.items() if isinstance(v, float)] + [
+            (f"response {i}", x, y) for i, (ra, rc) in
+            enumerate(zip(flat_a, [r for rs in resp_c for r in rs]))
+            for x, y in ((ra.ttft_edge_s, rc.ttft_edge_s),
+                         (ra.queue_wait_s, rc.queue_wait_s))]
+        off = [(k, x, y) for k, x, y in secs if not close(x, y)]
+        check(not off, f"staged_pipeline: modeled seconds differ from the "
+              f"CPU replay: {off[:4]}")
+
+    return {"phase": "staged_pipeline", "batches": PIPE_BATCHES,
+            "batch": BATCH, "k": K, "nprobe": NPROBE,
+            "new_tokens": NEW_TOKENS, "slots": BATCH,
+            "max_len": BATCHER_LEN, "cache_bytes": 0,
+            "rewritten_clusters": targets,
+            "rewritten_best_rank": rank[targets].tolist(),
+            "clusters_probed": len(probed),
+            "rewrite_chars": [len(t) for t in rewrites.values()],
+            "seeded_ops": seeded,
+            "pipelined_wall_s": wall_a, "sequential_wall_s": wall_b,
+            "pipelined_host_s": host_a,
+            "s2_rows_and_embed_s": regen_a["s2"],
+            "drain_rows_and_embed_s": regen_a["drain"],
+            "trace": trace.as_dict(), "launches": launches_a,
+            "admissions": admissions, "active_ticks": active_ticks,
+            "micro_batches": micro_a,
+            "stale": {"cid": mutated["cid"], "chunk": mutated["chunk"],
+                      "replans": trace_s.replans, "wall_s": wall_s,
+                      "launches": launches_s,
+                      "trace": trace_s.as_dict()},
+            "cpu_replay": {"near_tie_swaps": swaps,
+                           "batches_with_swaps": swapped,
+                           "counts_equal": True,
+                           "seconds_rtol": SCHEDULE_RTOL,
+                           "seconds_compared": not swapped},
             "phase_s": time.perf_counter() - t_phase}
 
 
@@ -2413,11 +2792,7 @@ def main() -> int:
     engine = RAGEngine(index, gen, cost_model=cost, k=K, nprobe=NPROBE,
                        max_new_tokens=NEW_TOKENS)
 
-    topk_ip.launches = slab_topk.launches = 0
-    slab_topk.launches_by_mode = dict.fromkeys(slab_topk.launches_by_mode, 0)
-    flash_attention.launches = decode_attention.launches = 0
-    flash_attention.launches_by_mask = dict.fromkeys(
-        flash_attention.launches_by_mask, 0)
+    zero_launches()
     t0 = time.perf_counter()
     assign = index.build(ds.chunk_ids, ds.texts, nlist=NLIST,
                          embeddings=ds.embeddings, seed=SEED)
@@ -2530,8 +2905,13 @@ def main() -> int:
     emit(batching)
     enc = encode_phase(dev, ds.texts[:ENC_TEXTS])
     emit(enc)
-    online = online_index({"ds": ds, "cost": cost, "dev": dev, "gen": gen})
+    online, reuse = online_index({"ds": ds, "cost": cost, "dev": dev,
+                                  "gen": gen})
     emit(online)
+    pipe = staged_pipeline({"ds": ds, "cost": cost, "dev": dev, "gen": gen,
+                            **reuse})
+    del reuse
+    emit(pipe)
 
     # ---- codec paths: fp16, int8, pq on the same corpus and generator ----
     ctx = {"ds": ds, "cost": cost, "dev": dev, "gen": gen,
@@ -2678,7 +3058,9 @@ def main() -> int:
         rec_flash, rec_dec,
         {"flash_attention_causal": main_by_mask["causal"],
          "flash_attention_encode":
-         online["launches"]["flash_attention"]["non_causal"],
+         online["launches"]["flash_attention"]["non_causal"]
+         + pipe["launches"]["flash_attention"]["non_causal"]
+         + pipe["stale"]["launches"]["flash_attention"]["non_causal"],
          "decode_attention": launches["decode_attention"]}, report, k5_dev,
         k6_dev)
     kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"],
@@ -2686,7 +3068,10 @@ def main() -> int:
     q, kc, vc, lens = k6_batcher["call"]
     lens = decode_lengths(lens, q.shape[0], dev)
     kernels.append(k6_row("decode_attention_batcher", q, kc, vc, lens,
-                          k6_batcher["launches"], k6_batcher["max_abs_err"],
+                          k6_batcher["launches"]
+                          + pipe["launches"]["decode_attention"]
+                          + pipe["stale"]["launches"]["decode_attention"],
+                          k6_batcher["max_abs_err"],
                           decode_device_ms(q, kc, vc, lens)))
 
     # ---- breakdown: one retrieval batch and one request's generation ----

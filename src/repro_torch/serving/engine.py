@@ -106,6 +106,7 @@ class BatchJob:
     retrieval_wall: float = 0.0
     maintenance_s: float = 0.0
     queue_wait_s: float = 0.0               # set by a pipeline at S1 fire
+    replans: int = 0                        # stale-plan S1 re-entries
     stage_edge_s: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property

@@ -33,7 +33,8 @@ def test_importing_every_module_loads_no_jax_or_repro():
                  "repro_torch.kernels.decode_attention.ops",
                  "repro_torch.kernels.decode_attention.ref",
                  "repro_torch.data.chunking", "repro_torch.data.embedder",
-                 "repro_torch.serving.batching"):
+                 "repro_torch.serving.batching",
+                 "repro_torch.serving.pipeline"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
