@@ -170,6 +170,50 @@ Phases, one JSON line each:
                    work on the modeled clock; the work itself runs one
                    stage at a time on the host, so nothing overlaps on the
                    card and A's wall is that of serving the batches in turn.
+  scheduler        ``RequestScheduler`` (``serving/scheduler.py``) and the
+                   metrics registry (``serving/metrics.py``).  (a) ``run``
+                   on the main path's serving stack: a fresh fp32 index
+                   (deferred maintenance, the main path's clustering, the
+                   table embedder regenerating) with one chunk rewritten
+                   in each of up to two clusters no query probes (a
+                   restore each), ``RAGEngine`` (k 10, nprobe 8) on the
+                   full-width generator with ``SCHED_NEW_TOKENS`` tokens;
+                   48 of the main path's queries with Poisson arrivals
+                   (seed 0, mean gap 1.25 x the main path's first batch's
+                   mean modeled TTFT, SLO 2 x that TTFT), tenant "a" on 3
+                   of every 4 and "b" on the rest, ``TokenBucketAdmission``
+                   at half and all of that TTFT's rate (burst 2); the
+                   ``serve_fn`` is ``answer(...).ttft_edge_s`` and the
+                   ``maintenance_fn`` the idle-gap drain of
+                   ``benchmarks/online_churn.py``.  Checks: every request
+                   completed once, a ``met`` and a ``rejected``,
+                   ``maintenance_s`` > 0 and the queue drained, K1 and K2
+                   once a served request, K5 causal 32 and K6 64 a served
+                   request; a CPU replay (generator None) gives the same
+                   outcomes, stamps within ``SCHEDULE_RTOL``, admission
+                   stats, ``maintenance_s`` and ids outside near-ties.
+                   (b) ``run_pipelined`` on ``staged_pipeline``'s setup
+                   (twin indexes with ``cache_bytes=0``, gte-base
+                   regenerating, the same kind of rewrites, a fresh
+                   16-slot batcher): 32 requests 0.05 modeled s apart at
+                   fiqa's SLO in batches of 16 (A), against the same two
+                   ``PipelineBatch`` es built by hand through
+                   ``StagedPipeline.run`` (B).  Checks: ids, scores,
+                   tokens, the trace and every request stamp bitwise B's;
+                   ``maintenance_s`` = the trace's bubble and final-drain
+                   seconds, > 0; K1 2, K2 2, K5 causal 32 x admissions,
+                   K6 32 x active ticks, K5 non-causal 12 x micro-batches;
+                   a CPU replay (a table of the card's rows) gives the
+                   same outcomes, stamps within ``SCHEDULE_RTOL`` and ids
+                   outside near-ties.  In both, ``collect_scheduler``
+                   (and ``collect_pipeline_trace``) render the same
+                   samples from the card's run and the replay's, values
+                   within ``SCHEDULE_RTOL``; the card's text goes to
+                   ``build/scheduler_run.prom`` and
+                   ``build/scheduler_pipelined.prom``.  Prints outcomes,
+                   admission stats, ``maintenance_s``, modeled latency p50
+                   / p99, each part's wall and launches, the sample
+                   counts and headline samples.
   codec_paths      the same corpus, clustering, queries and generator under
                    each quantized storage codec: ``EdgeRAGIndex(
                    storage_codec="fp16" | "int8" | "pq")`` (pq in the memmap
@@ -238,20 +282,26 @@ Phases, one JSON line each:
 
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
 library time, and the bound from this run's inputs; every row also carries
-the breakdown's device ms of the kernel and of its library call; the K5
-encode row's launches are ``online_index``'s and ``staged_pipeline``'s
-non-causal ones; the ``decode_attention_batcher`` row is K6 at
-``continuous_batching``'s recorded (16, 1, 32, 80) call and per-slot
-lengths, with that phase's and ``staged_pipeline``'s counted launches), the
+the breakdown's device ms of the kernel and of its library call), the
 ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``.  Bounds: bytes read once at HBM's
 3.35 TB/s against the function's operations at the fp32-accurate peak of
 the unit the kernel runs them on: for K5 the tensor cores, whose 495 TFLOP/s
 in TF32 give 165 TFLOP/s at fp32 accuracy (3xTF32 takes three TF32
 products for one fp32 product); for the others the CUDA cores' 67 TFLOP/s
-in fp32.  Any failed check raises,
-so the script exits non-zero without that last line; it also does so when
-no CUDA device is present or the package is missing beside it.
+in fp32.  A row's times and bound are at its one recorded input; its
+``launches`` is the sum of its ``launches_by_phase``: the launches of its
+kernel in its mode or mask that each phase driving a path of the port
+counted in its checked window (``main_path``, ``continuous_batching``'s
+trace and engine batch, ``encode``, ``online_index``, ``staged_pipeline``
+and its stale batch, ``scheduler`` (a) and (b)), whatever their shapes;
+K6 launched by a batcher's ticks goes to ``decode_attention_batcher`` (K6
+at ``continuous_batching``'s recorded (16, 1, 32, 80) call and per-slot
+lengths), every other K6 launch to ``decode_attention``; the codec rows
+take ``codec_paths``' launches and K7's row ``kv_int8``'s.  Any failed
+check raises, so the script exits non-zero without that last line; it also
+does so when no CUDA device is present or the package is missing beside
+it.
 """
 from __future__ import annotations
 
@@ -294,6 +344,20 @@ TRACE_REQUESTS, PARITY_REQUESTS, PARITY_SLOTS = 32, 8, 4
 # decisions: only the order of a few float sums could differ)
 PIPE_BATCHES, REWRITE_CLUSTERS, REWRITE_CHARS = 4, 2, 4000
 SCHEDULE_RTOL = 1e-9
+# scheduler: (a) SCHED_REQUESTS of the main path's queries through
+# RequestScheduler.run, Poisson arrivals with a mean gap of SCHED_GAP x the
+# main path's first batch's mean modeled TTFT, an SLO of SCHED_SLO x that
+# TTFT (fiqa's 1 s is under every modeled TTFT of the path, >= 2.2 s),
+# tenant "a" on 3 of every 4 requests and "b" on the rest, token buckets
+# of depth SCHED_BURST refilling at half and all of that TTFT's rate, and
+# SCHED_NEW_TOKENS new tokens a request; (b) PIPE_REQUESTS requests
+# PIPE_SPACING modeled s apart through run_pipelined in batches of BATCH.
+# (a)'s SLO, rates and tenant split are a smoke setting, chosen so that the
+# stream has met, missed and shed requests; they come from no source and
+# are no benchmark cell's
+SCHED_REQUESTS, SCHED_GAP, SCHED_SLO, SCHED_BURST = 48, 1.25, 2.0, 2.0
+SCHED_NEW_TOKENS = 2
+PIPE_REQUESTS, PIPE_SPACING = 32, 0.05
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
 # one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
@@ -573,6 +637,26 @@ def launch_counts() -> dict:
             "slab_topk": dict(slab_topk.launches_by_mode),
             "flash_attention": dict(flash_attention.launches_by_mask),
             "decode_attention": decode_attention.launches}
+
+
+def launch_rows(phases) -> dict:
+    """The ``launches_by_phase`` of the ``kernels`` line's path rows:
+    ``phases`` lists (phase, its counts as :func:`launch_counts` gives
+    them, any key missing being 0, and whether its K6 launches are a
+    batcher's ticks).  Returns each row's phases that launched it."""
+    rows = {}
+    for phase, counts, batched in phases:
+        attn = counts.get("flash_attention", {})
+        for row, n in (
+                ("ivf_topk", counts.get("ivf_topk", 0)),
+                ("slab_topk", counts.get("slab_topk", {}).get("fp32", 0)),
+                ("flash_attention", attn.get("causal", 0)),
+                ("flash_attention_encode", attn.get("non_causal", 0)),
+                ("decode_attention_batcher" if batched
+                 else "decode_attention", counts.get("decode_attention", 0))):
+            if n:
+                rows.setdefault(row, {})[phase] = n
+    return rows
 
 
 class Recorder:
@@ -1686,9 +1770,7 @@ def continuous_batching(ctx) -> tuple:
                           "err_over_allowance": k5_ratio},
         "phase_s": time.perf_counter() - t_phase}
     del b
-    return line, {"call": log.k6_call, "max_abs_err": k6_err,
-                  "launches": launches_a["decode_attention"]
-                  + launches_b["decode_attention"]}
+    return line, {"call": log.k6_call, "max_abs_err": k6_err}
 
 
 def encode_phase(dev, texts) -> dict:
@@ -1954,21 +2036,82 @@ def online_index(ctx) -> tuple:
         "assign": assign, "queries": queries, "q_embs": q_embs}
 
 
+def close(x, y) -> bool:
+    """Modeled seconds of the card's run and a CPU replay agree."""
+    return abs(x - y) <= SCHEDULE_RTOL * max(abs(x), abs(y))
+
+
+def twin(ctx, embed_fn, get_chunks, device, rows, **kw):
+    """An fp32 ``EdgeRAGIndex`` with deferred maintenance on ``ctx``'s
+    corpus and clustering (``centroids``, ``assign``), its second level
+    from ``rows``; ``kw`` goes to the index (``cache_bytes``)."""
+    from repro_torch.convert import index_state_from_numpy
+    from repro_torch.core import EdgeRAGIndex
+    ds = ctx["ds"]
+    ix = EdgeRAGIndex(DIM, embed_fn, get_chunks, ctx["cost"],
+                      slo_s=ds.spec.slo_s, maintenance="deferred",
+                      device=device, **kw)
+    index_state_from_numpy(ix, ctx["centroids"], ctx["assign"],
+                           ds.chunk_ids, ds.texts, rows)
+    return ix
+
+
+def scored(ix) -> list:
+    """Keeps (ids, scores) of every ``search_finish`` of ``ix``."""
+    out, finish = [], ix.search_finish
+
+    def logged(state):
+        ids, vals, lats = finish(state)
+        out.append((ids, vals))
+        return ids, vals, lats
+    ix.search_finish = logged
+    return out
+
+
+def offpath_rewrites(ix, store, q_embs, centroids, ctx, phase) -> tuple:
+    """Seeded maintenance: one chunk each of up to ``REWRITE_CLUSTERS``
+    clusters of ``ix`` that no query of ``q_embs`` probes (K1 gives each
+    query the same probes alone or in any batch), the farthest from the
+    probe cut first, rewritten: long enough that regenerating the cluster
+    goes over the storage SLO, short of a split.  Returns (rewrites
+    {chunk: text}, the clusters, the probed set, each cluster's best
+    rank over the queries); applying them is the caller's."""
+    ds, cost = ctx["ds"], ctx["cost"]
+    probed = set().union(*ix._probe(q_embs, NPROBE))
+    rank = np.argsort(np.argsort(-(q_embs.astype(np.float64)
+                                   @ centroids.astype(np.float64).T),
+                                 axis=1), axis=1).min(axis=0)
+    slo_chars = (ds.spec.slo_s - cost.embed_fixed_s) * cost.embed_chars_per_sec
+    rewrites, targets = {}, []
+    for cid in sorted(set(range(len(ix.clusters))) - probed,
+                      key=lambda c: (-rank[c], c)):
+        cl = ix.clusters[cid]
+        extra = max(REWRITE_CHARS, int(slo_chars - cl.char_count)
+                    + REWRITE_CHARS)
+        if cl.size == 0 or cl.char_count + extra + 4 >= ix.split_max_chars:
+            continue
+        chunk = int(cl.ids[0])
+        rewrites[chunk] = store[chunk] + " rev" + " tok" * (extra // 4)
+        targets.append(cid)
+        if len(targets) == REWRITE_CLUSTERS:
+            break
+    check(len(targets) > 0, f"{phase}: every cluster is probed "
+          f"({len(probed)} of {len(ix.clusters)})")
+    return rewrites, targets, probed, rank
+
+
 def staged_pipeline(ctx) -> dict:
     """``StagedPipeline`` on the card: gte-base regeneration, bubble
     maintenance and the batcher's decode in one schedule on the modeled
     clock (module docstring, ``staged_pipeline``)."""
     import torch
-    from repro_torch.convert import index_state_from_numpy
-    from repro_torch.core import EdgeRAGIndex
     from repro_torch.data import TableEmbedder
     from repro_torch.serving import (ContinuousBatcher, PipelineBatch,
                                      RAGEngine, StagedPipeline)
 
     t_phase = time.perf_counter()
     ds, cost, dev, gen = ctx["ds"], ctx["cost"], ctx["dev"], ctx["gen"]
-    embedder, built = ctx["embedder"], ctx["built"]
-    centroids, assign = ctx["centroids"], ctx["assign"]
+    embedder, built, centroids = ctx["embedder"], ctx["built"], ctx["centroids"]
     queries, q_embs = ctx["queries"], ctx["q_embs"]
     enc_layers, gen_layers = embedder.cfg.num_layers, gen.cfg.num_layers
     # the phase's own chunk store: its rewrites stay out of ``ds``, which
@@ -1979,27 +2122,9 @@ def staged_pipeline(ctx) -> dict:
     def get_chunks(ids):
         return [store[int(i)] for i in ids]
 
-    def twin(embed_fn, get, device):
-        ix = EdgeRAGIndex(DIM, embed_fn, get, cost, slo_s=ds.spec.slo_s,
-                          cache_bytes=0, maintenance="deferred",
-                          device=device)
-        index_state_from_numpy(ix, centroids, assign, ds.chunk_ids,
-                               ds.texts, built)
-        return ix
-
-    def scored(ix):
-        """Keeps (ids, scores) of every ``search_finish`` of ``ix``."""
-        out, finish = [], ix.search_finish
-
-        def logged(state):
-            ids, vals, lats = finish(state)
-            out.append((ids, vals))
-            return ids, vals, lats
-        ix.search_finish = logged
-        return out
-
     log_a = EmbedLog(embedder)
-    a, b = twin(log_a, get_chunks, dev), twin(embedder, get_chunks, dev)
+    a = twin(ctx, log_a, get_chunks, dev, built, cache_bytes=0)
+    b = twin(ctx, embedder, get_chunks, dev, built, cache_bytes=0)
     scores_a, scores_b = scored(a), scored(b)
     batches = [PipelineBatch(queries=queries[i * BATCH:(i + 1) * BATCH],
                              query_embs=q_embs[i * BATCH:(i + 1) * BATCH])
@@ -2007,31 +2132,8 @@ def staged_pipeline(ctx) -> dict:
     last = PipelineBatch(queries=queries[BATCHES * BATCH:],
                          query_embs=q_embs[BATCHES * BATCH:])
 
-    # seeded maintenance: one chunk each of up to two clusters that no
-    # query of the phase probes on the card (K1 gives each query the same
-    # probes alone or in any batch), the farthest from the probe cut
-    # first, rewritten in place: long enough that regenerating the cluster
-    # goes over the storage SLO, short of a split
-    probed = set().union(*a._probe(q_embs, NPROBE))
-    rank = np.argsort(np.argsort(-(q_embs.astype(np.float64)
-                                   @ centroids.astype(np.float64).T),
-                                 axis=1), axis=1).min(axis=0)
-    slo_chars = (ds.spec.slo_s - cost.embed_fixed_s) * cost.embed_chars_per_sec
-    rewrites, targets = {}, []
-    for cid in sorted(set(range(len(a.clusters))) - probed,
-                      key=lambda c: (-rank[c], c)):
-        cl = a.clusters[cid]
-        extra = max(REWRITE_CHARS, int(slo_chars - cl.char_count)
-                    + REWRITE_CHARS)
-        if cl.size == 0 or cl.char_count + extra + 4 >= a.split_max_chars:
-            continue
-        chunk = int(cl.ids[0])
-        rewrites[chunk] = store[chunk] + " rev" + " tok" * (extra // 4)
-        targets.append(cid)
-        if len(targets) == REWRITE_CLUSTERS:
-            break
-    check(len(targets) > 0, f"staged_pipeline: every cluster is probed "
-          f"({len(probed)} of {len(a.clusters)})")
+    rewrites, targets, probed, rank = offpath_rewrites(
+        a, store, q_embs, centroids, ctx, "staged_pipeline")
     rewritten_rows = embedder(list(rewrites.values()))   # for (c)'s table
     store.update(rewrites)
     for ix in (a, b):
@@ -2192,7 +2294,8 @@ def staged_pipeline(ctx) -> dict:
 
     def cpu_chunks(ids):
         return [cpu_store[int(i)] for i in ids]
-    c = twin(TableEmbedder(table, DIM), cpu_chunks, "cpu")
+    c = twin(ctx, TableEmbedder(table, DIM), cpu_chunks, "cpu", built,
+             cache_bytes=0)
     scores_c = scored(c)
     for chunk, text in rewrites.items():
         c.update(chunk, text)
@@ -2218,7 +2321,6 @@ def staged_pipeline(ctx) -> dict:
     check(card_counts == cpu_counts and trace.replans == trace_c.replans,
           f"staged_pipeline: trace counts {card_counts} on the card, "
           f"{cpu_counts} on the CPU")
-    close = lambda x, y: abs(x - y) <= SCHEDULE_RTOL * max(abs(x), abs(y))
     if not swapped:           # a near-tie swap changes a prompt, so S4
         d, dc = trace.as_dict(), trace_c.as_dict()
         secs = [(k, d[k], dc[k]) for k in d
@@ -2259,6 +2361,362 @@ def staged_pipeline(ctx) -> dict:
                            "counts_equal": True,
                            "seconds_rtol": SCHEDULE_RTOL,
                            "seconds_compared": not swapped},
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def metric_samples(text: str) -> list:
+    """(name and labels, value) of every sample line of a Prometheus text
+    exposition."""
+    out = []
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out.append((key, float(value.replace("+Inf", "inf"))))
+    return out
+
+
+def metrics_agree(card, cpu, name: str, phase: str) -> dict:
+    """Holds the card run's registry text against the CPU replay's (the
+    same names, label sets and sample count; values within
+    ``SCHEDULE_RTOL``), writes the card's under ``build/`` and returns the
+    sample count and where the text went."""
+    a, b = metric_samples(card), metric_samples(cpu)
+    check([k for k, _ in a] == [k for k, _ in b],
+          f"{phase}: metric samples differ from the CPU replay's: "
+          f"{sorted(set(a) ^ set(b))[:4]}")
+    off = [(k, x, y) for (k, x), (_, y) in zip(a, b) if not close(x, y)]
+    check(not off, f"{phase}: metric values differ from the CPU replay's: "
+          f"{off[:4]}")
+    path = ROOT / "build" / name
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(card)
+    return {"samples": len(a), "file": str(path.relative_to(ROOT))}
+
+
+def stamps_agree(card, cpu, phase: str) -> None:
+    """The same requests in the same order with the same outcomes, and
+    their stamps within ``SCHEDULE_RTOL``."""
+    check([(r.rid, r.outcome) for r in card]
+          == [(r.rid, r.outcome) for r in cpu],
+          f"{phase}: outcomes differ from the CPU replay's")
+    off = [(r.rid, x, y) for r, c in zip(card, cpu)
+           for x, y in ((r.start_s, c.start_s), (r.finish_s, c.finish_s))
+           if not close(x, y)]
+    check(not off, f"{phase}: stamps differ from the CPU replay's: "
+          f"{off[:4]}")
+
+
+def scheduler_phase(ctx) -> dict:
+    """``RequestScheduler`` on the card: (a) ``run`` over a queued,
+    admission-controlled stream on the main path's index and generator,
+    (b) ``run_pipelined`` on ``staged_pipeline``'s setup (module
+    docstring, ``scheduler``)."""
+    import types
+
+    import torch
+    from repro_torch.data import TableEmbedder
+    from repro_torch.serving import (ContinuousBatcher, PipelineBatch,
+                                     RAGEngine, RequestScheduler,
+                                     StagedPipeline, TokenBucketAdmission)
+    from repro_torch.serving.metrics import (MetricsRegistry,
+                                             collect_pipeline_trace,
+                                             collect_scheduler)
+
+    t_phase = time.perf_counter()
+    ds, cost, dev, gen = ctx["ds"], ctx["cost"], ctx["dev"], ctx["gen"]
+    gen_layers = gen.cfg.num_layers
+    original = dict(zip(ds.chunk_ids.tolist(), ds.texts))
+
+    # ---- (a) run: a Poisson stream on the main path's serving stack ----
+    main = {"ds": ds, "cost": cost, "centroids": ctx["main_centroids"],
+            "assign": ctx["main_assign"]}
+    mean_ttft = float(np.mean([r.ttft_edge_s for r in ctx["first_batch"]]))
+    mu = 1.0 / mean_ttft
+    arrivals = np.cumsum(np.random.default_rng(SEED).exponential(
+        SCHED_GAP * mean_ttft, SCHED_REQUESTS))
+    stream = [dict(arrival_s=float(t), query=f"query-{i}",
+                   query_emb=ds.query_embs[i], query_chars=len(f"query-{i}"),
+                   slo_s=SCHED_SLO * mean_ttft,
+                   tenant="b" if i % 4 == 3 else "a")
+              for i, t in enumerate(arrivals)]
+    rates = {"a": 0.5 * mu, "b": mu}
+
+    def serve_stream(device, generator, seeded=None):
+        """(a) on a fresh index on ``device``, with launches zeroed just
+        before ``run``; the rewrites are chosen on this index unless
+        ``seeded`` (rewrites, clusters) gives them.  Returns the
+        scheduler, the index, the responses and their (ids, scores) in
+        serve order, the rewrites and clusters, and the wall seconds of
+        ``run``."""
+        store = dict(original)
+        ix = twin(main, ds.embedder,
+                  lambda ids: [store[int(i)] for i in ids], device,
+                  ds.embeddings)
+        if seeded is None:
+            seeded = offpath_rewrites(ix, store, ds.query_embs[
+                :SCHED_REQUESTS], main["centroids"], main,
+                "scheduler (a)")[:2]
+        rewrites, targets = seeded
+        store.update(rewrites)
+        for chunk, text in rewrites.items():
+            ix.update(chunk, text)
+        queued = sorted(op.cid for op in ix.maintenance.pending)
+        check(queued == sorted(targets), f"scheduler (a): seeded "
+              f"maintenance on {queued}, rewrites on {sorted(targets)}")
+        engine = RAGEngine(ix, generator, cost_model=cost, k=K,
+                           nprobe=NPROBE, max_new_tokens=SCHED_NEW_TOKENS,
+                           maintenance_owner="external")
+        scores = scored(ix)
+        sched = RequestScheduler(TokenBucketAdmission(rates,
+                                                      burst=SCHED_BURST))
+        for kw in stream:
+            sched.submit(**kw)
+        served = []
+
+        def serve(req):                 # as examples/edge_serving.py
+            served.append(engine.answer(req.query, req.query_emb,
+                                        ix.get_chunks))
+            return served[-1].ttft_edge_s
+
+        def idle_drain(gap_s):          # as benchmarks/online_churn.py
+            if gap_s is None:
+                return ix.maintenance.drain(None).edge_s
+            return ix.maintenance.drain(gap_s, strict=True).edge_s
+        zero_launches()
+        t0 = time.perf_counter()
+        sched.run(serve, maintenance_fn=idle_drain)
+        if generator is not None:
+            torch.cuda.synchronize()
+        return (sched, ix, served, scores, seeded,
+                time.perf_counter() - t0)
+
+    sched, ix, served, scores, seeded, wall_run = serve_stream(dev, gen)
+    launches_run = launch_counts()
+    n_served = len(served)
+    counts = sched.outcome_counts()
+    check(sorted(r.rid for r in sched.completed)
+          == list(range(SCHED_REQUESTS))
+          and n_served == SCHED_REQUESTS - counts["rejected"]
+          and not sched.errors,
+          f"scheduler (a): {len(sched.completed)} completed, {n_served} "
+          f"served, errors {sched.errors[:2]}")
+    check(counts["met"] > 0 and counts["rejected"] > 0,
+          f"scheduler (a): outcomes {counts}")
+    check(sched.maintenance_s > 0 and len(ix.maintenance) == 0
+          and ix.maintenance.n_failures == 0,
+          f"scheduler (a): maintenance {sched.maintenance_s} s, "
+          f"{len(ix.maintenance)} left, {ix.maintenance.n_failures} raised")
+    check(all(len(r.output_tokens) == SCHED_NEW_TOKENS
+              and len(r.chunk_ids) == K for r in served),
+          "scheduler (a): a response is short of tokens or ids")
+    want_run = {"ivf_topk": n_served,
+                "slab_topk": {**dict.fromkeys(launches_run["slab_topk"], 0),
+                              "fp32": n_served},
+                "flash_attention": {"causal": gen_layers * n_served,
+                                    "non_causal": 0},
+                "decode_attention": gen_layers * SCHED_NEW_TOKENS * n_served}
+    check(launches_run == want_run, f"scheduler (a): launches "
+          f"{launches_run} for {n_served} served; want {want_run}")
+    # the CPU replay: the same stream, rewrites and clustering
+    r_sched, _, r_served, r_scores, _, _ = serve_stream("cpu", None, seeded)
+    check(len(r_scores) == len(scores) == n_served,
+          f"scheduler (a): {len(r_scores)} requests served on the CPU, "
+          f"{n_served} on the card")
+    swaps, mismatches = near_tie_mismatches(
+        [i[0] for i, _ in scores], [i[0] for i, _ in r_scores],
+        [v[0] for _, v in r_scores])
+    check(mismatches == 0, f"scheduler (a): {mismatches} ids differ from "
+          f"the CPU replay outside near-ties")
+    stamps_agree(sched.completed, r_sched.completed, "scheduler (a)")
+    check(sched.admission.stats() == r_sched.admission.stats()
+          and close(sched.maintenance_s, r_sched.maintenance_s),
+          f"scheduler (a): admission {sched.admission.stats()} and "
+          f"{sched.maintenance_s} s of maintenance on the card, "
+          f"{r_sched.admission.stats()} and {r_sched.maintenance_s} s on "
+          f"the CPU")
+    text_run = collect_scheduler(MetricsRegistry(), sched).render()
+    metrics_run = metrics_agree(
+        text_run, collect_scheduler(MetricsRegistry(), r_sched).render(),
+        "scheduler_run.prom", "scheduler (a)")
+    metrics_run["headline"] = {
+        k: v for k, v in metric_samples(text_run) if k.startswith((
+            "edgerag_requests_total", "edgerag_admission",
+            "edgerag_maintenance"))}
+    lat = [r.latency_s for r in sched.completed if not r.rejected]
+    busy = sum(r.finish_s - r.start_s for r in sched.completed)
+    part_a = {"requests": SCHED_REQUESTS, "served": n_served,
+              "new_tokens": SCHED_NEW_TOKENS,
+              "slo_s": SCHED_SLO * mean_ttft,
+              "mean_ttft_edge_s": mean_ttft, "mean_gap_s": SCHED_GAP
+              * mean_ttft, "rates_per_s": rates, "burst": SCHED_BURST,
+              "rewritten_clusters": seeded[1],
+              "outcomes": counts, "admission": sched.admission.stats(),
+              "maintenance_s": sched.maintenance_s,
+              "latency_p50_s": float(np.percentile(lat, 50)),
+              "latency_p99_s": float(np.percentile(lat, 99)),
+              "slo_hit_rate": sched.slo_hit_rate(),
+              "utilisation": busy / (max(r.finish_s for r in sched.completed)
+                                     - stream[0]["arrival_s"]),
+              "wall_s": wall_run,
+              "launches": launches_run, "near_tie_swaps": swaps,
+              "metrics": metrics_run}
+    del ix, served
+
+    # ---- (b) run_pipelined on staged_pipeline's setup ------------------
+    embedder, built, slo = ctx["embedder"], ctx["built"], ds.spec.slo_s
+    queries = ctx["queries"][:PIPE_REQUESTS]
+    q_embs = ctx["q_embs"][:PIPE_REQUESTS]
+    enc_layers = embedder.cfg.num_layers
+    store = dict(original)
+
+    def get_chunks(ids):
+        return [store[int(i)] for i in ids]
+    a = twin(ctx, embedder, get_chunks, dev, built, cache_bytes=0)
+    b = twin(ctx, embedder, get_chunks, dev, built, cache_bytes=0)
+    scores_a, scores_b = scored(a), scored(b)
+    rewrites, targets, _, _ = offpath_rewrites(
+        a, store, q_embs, ctx["centroids"], ctx, "scheduler (b)")
+    rewritten_rows = embedder(list(rewrites.values()))   # the replay's
+    store.update(rewrites)
+    for x in (a, b):
+        for chunk, text in rewrites.items():
+            x.update(chunk, text)
+    check(sorted(op.cid for op in a.maintenance.pending) == sorted(targets)
+          == sorted(op.cid for op in b.maintenance.pending),
+          f"scheduler (b): seeded maintenance on {targets}")
+    batcher = ContinuousBatcher(gen.cfg, gen.params, num_slots=BATCH,
+                                max_len=BATCHER_LEN, device=dev)
+    tlog = BatcherLog(batcher, None)        # admissions and active ticks
+    arrive = [PIPE_SPACING * i for i in range(PIPE_REQUESTS)]
+
+    def engine(x, generator):
+        return RAGEngine(x, generator, cost_model=cost, k=K, nprobe=NPROBE,
+                         max_new_tokens=NEW_TOKENS,
+                         maintenance_owner="external")
+
+    def pipelined(x, generator, get, with_batcher):
+        s = RequestScheduler()
+        for i, t in enumerate(arrive):
+            s.submit(t, query=queries[i], query_emb=q_embs[i],
+                     query_chars=len(queries[i]), slo_s=slo)
+        s.run_pipelined(StagedPipeline(
+            engine(x, generator), get,
+            batcher=batcher if with_batcher else None), batch_size=BATCH)
+        return s
+
+    micro = embedder.micro_batches
+    zero_launches()
+    t0 = time.perf_counter()
+    sched_a = pipelined(a, gen, get_chunks, True)
+    torch.cuda.synchronize()
+    wall_pipe = time.perf_counter() - t0
+    launches_pipe = launch_counts()
+    micro_a = embedder.micro_batches - micro
+    admissions, active_ticks = len(tlog.admitted_at), len(tlog.tick_lens)
+    trace = sched_a.pipeline_trace
+
+    # B: the same two batches built by hand, with test-local requests
+    reqs_b = [types.SimpleNamespace(arrival_s=t, start_s=0.0, finish_s=0.0,
+                                    degraded=False) for t in arrive]
+    batches = [PipelineBatch(
+        queries=queries[j:j + BATCH], query_embs=q_embs[j:j + BATCH],
+        arrival_s=max(arrive[j:j + BATCH]), slos=[slo] * BATCH,
+        requests=reqs_b[j:j + BATCH])
+        for j in range(0, PIPE_REQUESTS, BATCH)]
+    t0 = time.perf_counter()
+    resp_b, trace_b = StagedPipeline(engine(b, gen), get_chunks,
+                                     batcher=batcher).run(batches)
+    torch.cuda.synchronize()
+    wall_hand = time.perf_counter() - t0
+    flat_a, flat_b = sched_a.pipeline_responses, [r for rs in resp_b
+                                                  for r in rs]
+    check(len(flat_a) == len(flat_b) == PIPE_REQUESTS
+          and [r.chunk_ids for r in flat_a] == [r.chunk_ids for r in flat_b]
+          and [r.output_tokens for r in flat_a]
+          == [r.output_tokens for r in flat_b]
+          and all(len(r.output_tokens) == NEW_TOKENS for r in flat_a),
+          "scheduler (b): run_pipelined's ids or tokens differ from the "
+          "hand-built batches'")
+    check(len(scores_a) == len(scores_b) == PIPE_REQUESTS // BATCH and all(
+              np.array_equal(ia, ib) and np.array_equal(va, vb)
+              for (ia, va), (ib, vb) in zip(scores_a, scores_b)),
+          "scheduler (b): run_pipelined's scores not bitwise the "
+          "hand-built batches'")
+    check(trace.as_dict() == trace_b.as_dict(),
+          "scheduler (b): run_pipelined's trace differs from the "
+          "hand-built batches'")
+    check([(r.start_s, r.finish_s, r.degraded) for r in sched_a.completed]
+          == [(r.start_s, r.finish_s, r.degraded) for r in reqs_b],
+          "scheduler (b): request stamps differ from the hand-built "
+          "batches'")
+    check(sched_a.maintenance_s == trace.maintenance_in_bubbles_s
+          + trace.final_drain_s and sched_a.maintenance_s > 0
+          and len(a.maintenance) == len(b.maintenance) == 0
+          and a.maintenance.n_failures == b.maintenance.n_failures == 0,
+          f"scheduler (b): maintenance {sched_a.maintenance_s} s against "
+          f"the trace's {trace.maintenance_in_bubbles_s} + "
+          f"{trace.final_drain_s}, {len(a.maintenance)} left")
+    fired = {s: st.n_fired for s, st in trace.stages.items()}
+    want_pipe = {"ivf_topk": PIPE_REQUESTS // BATCH,
+                 "slab_topk": {**dict.fromkeys(launches_pipe["slab_topk"], 0),
+                               "fp32": PIPE_REQUESTS // BATCH},
+                 "flash_attention": {"causal": gen_layers * admissions,
+                                     "non_causal": enc_layers * micro_a},
+                 "decode_attention": gen_layers * active_ticks}
+    check(launches_pipe == want_pipe and admissions == PIPE_REQUESTS
+          and trace.replans == 0,
+          f"scheduler (b): launches {launches_pipe} in {admissions} "
+          f"admissions, {active_ticks} active ticks and {micro_a} "
+          f"micro-batches, fired {fired}; want {want_pipe}")
+
+    # the CPU replay: the card's rows in a table, no generator
+    table = dict(zip(ds.chunk_ids.tolist(), built))
+    table.update(zip(rewrites, rewritten_rows))
+    cpu_store = {**original, **rewrites}
+    c = twin(ctx, TableEmbedder(table, DIM),
+             lambda ids: [cpu_store[int(i)] for i in ids], "cpu", built,
+             cache_bytes=0)
+    scores_c = scored(c)
+    for chunk, text in rewrites.items():
+        c.update(chunk, text)
+    sched_c = pipelined(c, None, c.get_chunks, False)
+    swaps_b = mismatches = 0
+    for (ids, _), (c_ids, c_vals) in zip(scores_a, scores_c):
+        s_, m_ = near_tie_mismatches(ids, c_ids, c_vals)
+        swaps_b, mismatches = swaps_b + s_, mismatches + m_
+    check(mismatches == 0 and len(scores_c) == len(scores_a),
+          f"scheduler (b): {mismatches} ids differ from the CPU replay "
+          f"outside near-ties")
+    stamps_agree(sched_a.completed, sched_c.completed, "scheduler (b)")
+    check(sched_a.outcome_counts() == sched_c.outcome_counts()
+          and close(sched_a.maintenance_s, sched_c.maintenance_s),
+          f"scheduler (b): outcomes {sched_a.outcome_counts()} on the "
+          f"card, {sched_c.outcome_counts()} on the CPU")
+
+    def registry(s):
+        reg = collect_scheduler(MetricsRegistry(), s)
+        return collect_pipeline_trace(reg, s.pipeline_trace).render()
+    text_pipe = registry(sched_a)
+    metrics_pipe = metrics_agree(text_pipe, registry(sched_c),
+                                 "scheduler_pipelined.prom", "scheduler (b)")
+    metrics_pipe["headline"] = {
+        k: v for k, v in metric_samples(text_pipe) if k.startswith((
+            "edgerag_requests_total", "edgerag_pipeline_"))}
+    lat_b = [r.latency_s for r in sched_a.completed]
+    part_b = {"requests": PIPE_REQUESTS, "spacing_s": PIPE_SPACING,
+              "batch_size": BATCH, "slo_s": slo, "new_tokens": NEW_TOKENS,
+              "slots": BATCH, "cache_bytes": 0,
+              "rewritten_clusters": targets,
+              "outcomes": sched_a.outcome_counts(),
+              "maintenance_s": sched_a.maintenance_s,
+              "latency_p50_s": float(np.percentile(lat_b, 50)),
+              "latency_p99_s": float(np.percentile(lat_b, 99)),
+              "run_pipelined_wall_s": wall_pipe,
+              "hand_built_wall_s": wall_hand, "trace": trace.as_dict(),
+              "launches": launches_pipe, "admissions": admissions,
+              "active_ticks": active_ticks, "micro_batches": micro_a,
+              "near_tie_swaps": swaps_b, "metrics": metrics_pipe}
+    return {"phase": "scheduler", "run": part_a, "run_pipelined": part_b,
             "phase_s": time.perf_counter() - t_phase}
 
 
@@ -2910,8 +3368,29 @@ def main() -> int:
     emit(online)
     pipe = staged_pipeline({"ds": ds, "cost": cost, "dev": dev, "gen": gen,
                             **reuse})
-    del reuse
     emit(pipe)
+    sched = scheduler_phase({"ds": ds, "cost": cost, "dev": dev, "gen": gen,
+                             "first_batch": responses[0],
+                             "main_centroids": index.centroids,
+                             "main_assign": assign, **reuse})
+    del reuse
+    emit(sched)
+    by_row = launch_rows([
+        ("main_path", {**launches, "slab_topk": main_by_mode,
+                       "flash_attention": main_by_mask}, False),
+        ("continuous_batching", batching["trace"]["launches"], True),
+        ("continuous_batching_engine", batching["engine"]["launches"],
+         True),
+        ("encode", {"flash_attention": enc["launches"]}, False),
+        ("online_index", online["launches"], False),
+        ("staged_pipeline", pipe["launches"], True),
+        ("staged_pipeline_stale", pipe["stale"]["launches"], True),
+        ("scheduler_run", sched["run"]["launches"], False),
+        ("scheduler_run_pipelined", sched["run_pipelined"]["launches"],
+         True)])
+
+    def n_path(row):
+        return sum(by_row[row].values())
 
     # ---- codec paths: fp16, int8, pq on the same corpus and generator ----
     ctx = {"ds": ds, "cost": cost, "dev": dev, "gen": gen,
@@ -3036,7 +3515,7 @@ def main() -> int:
         {"name": "ivf_topk", "route": "cuda",
          "source": "src/repro_torch/csrc/ivf_topk.cu",
          "replaces": "src/repro/kernels/ivf_topk/kernel.py:98",
-         "launches": launches["ivf_topk"], "max_abs_err": err1,
+         "launches": n_path("ivf_topk"), "max_abs_err": err1,
          "ms": cuda_ms(calls["ivf_topk"][0], 200),
          "plain_ms": cuda_ms(lambda: topk_ip_ref(e1, q1, k1), 10),
          "bound_ms": b1[0], "bound_by": b1[1],
@@ -3046,8 +3525,10 @@ def main() -> int:
          ["device_ms_per_call"]}]
     for mode, ((e, q, v, k), kw) in slab_inputs.items():
         name = "slab_topk" if mode == "fp32" else f"slab_topk_{mode}"
-        n_launch = (launches["slab_topk"] if mode == "fp32" else
+        n_launch = (n_path("slab_topk") if mode == "fp32" else
                     codecs[CODECS.index(mode)]["launches"][mode])
+        if mode != "fp32":
+            by_row[name] = {"codec_paths": n_launch}
         kernels.append(slab_row(mode, e, q, v, k, kw, n_launch,
                                 report[name]["max_abs_err"], calls[name],
                                 topk_dev))
@@ -3056,23 +3537,21 @@ def main() -> int:
     q8_dev = q8_device_ms(q8_inputs)
     kernels += attention_rows(
         rec_flash, rec_dec,
-        {"flash_attention_causal": main_by_mask["causal"],
-         "flash_attention_encode":
-         online["launches"]["flash_attention"]["non_causal"]
-         + pipe["launches"]["flash_attention"]["non_causal"]
-         + pipe["stale"]["launches"]["flash_attention"]["non_causal"],
-         "decode_attention": launches["decode_attention"]}, report, k5_dev,
-        k6_dev)
+        {"flash_attention_causal": n_path("flash_attention"),
+         "flash_attention_encode": n_path("flash_attention_encode"),
+         "decode_attention": n_path("decode_attention")},
+        report, k5_dev, k6_dev)
     kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"],
                           q8_dev))
+    by_row["decode_attention_q8"] = {"kv_int8": kv8["launches"]}
     q, kc, vc, lens = k6_batcher["call"]
     lens = decode_lengths(lens, q.shape[0], dev)
     kernels.append(k6_row("decode_attention_batcher", q, kc, vc, lens,
-                          k6_batcher["launches"]
-                          + pipe["launches"]["decode_attention"]
-                          + pipe["stale"]["launches"]["decode_attention"],
+                          n_path("decode_attention_batcher"),
                           k6_batcher["max_abs_err"],
                           decode_device_ms(q, kc, vc, lens)))
+    for row in kernels:
+        row["launches_by_phase"] = by_row[row["name"]]
 
     # ---- breakdown: one retrieval batch and one request's generation ----
     embs = ds.query_embs[BATCHES * BATCH:(BATCHES + 1) * BATCH]

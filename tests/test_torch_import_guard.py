@@ -34,7 +34,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
                  "repro_torch.kernels.decode_attention.ref",
                  "repro_torch.data.chunking", "repro_torch.data.embedder",
                  "repro_torch.serving.batching",
-                 "repro_torch.serving.pipeline"):
+                 "repro_torch.serving.pipeline",
+                 "repro_torch.serving.scheduler",
+                 "repro_torch.serving.metrics"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -70,3 +72,12 @@ def test_ast_scan_finds_no_jax_or_repro_import():
         for name in _imported_names(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+@pytest.mark.parametrize("name", ["scheduler", "metrics"])
+def test_serving_bookkeeping_imports_no_torch(name):
+    """The scheduler and the metrics registry are pure Python, as in the
+    JAX package: neither module imports torch itself (the
+    ``repro_torch.serving`` package does, through the engine)."""
+    path = PKG / "serving" / f"{name}.py"
+    assert all(n.split(".")[0] != "torch" for n in _imported_names(path))

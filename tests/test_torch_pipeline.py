@@ -416,7 +416,8 @@ def test_request_stamps(sides):
     """Requests attached to the batches are stamped with decode-stage
     entry, first token out and ``degraded``: the JAX scheduler's
     ``Request`` on one side, any object with those fields on the other
-    (the port's scheduler comes later).  Batches as ``run_pipelined``
+    (``tests/test_torch_scheduler.py`` holds the port's ``Request``).
+    Batches as ``run_pipelined``
     groups 6 requests arriving 0.05 s apart, 3 a batch."""
     stamped, traces = [], []
     for side, er in zip(sides, _pair(sides)):
