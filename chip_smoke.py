@@ -32,6 +32,28 @@ Phases, one JSON line each:
                    every decode step the decode kernel (``decode_attention``);
                    their launches must be exactly layers x requests and
                    layers x new tokens x requests.
+  baselines        the paper's Table 4 rows 1-2 on the main path's corpus
+                   and 64 queries (k 10).  ``FlatIndex`` on the card holds
+                   all 25,000 rows (76,800,000 bytes) and takes each batch
+                   of 16 in one ``search``: exactly 4 ``ivf_topk`` launches
+                   (the first K1 launches past 2,048 rows, so on 64-row
+                   tiles) and no other kernel; ids equal a
+                   ``FlatIndex(device="cpu")`` outside near-ties, scores
+                   within ``score_tol``.  ``IVFIndex.build`` (nlist 125, the
+                   main path's seed, timed) must give the main path's
+                   assignment or the count of chunks that differ is printed
+                   and the main path's clustering loaded
+                   (``ivf_state_from_numpy``); then the 64 queries one at a
+                   time at nprobe 8: exactly 2 ``ivf_topk`` launches a query
+                   (probe and scan), ids equal as sets to the main path's
+                   EdgeRAG retrieval of the same queries outside near-ties
+                   (the paper's §6.3.1 claim), scores within ``score_tol``;
+                   how many queries' ids and scores are bitwise the main
+                   path's is printed, not gated.  Recall@10 of IVF against
+                   flat at nprobe 1, 4, 8, 16 and 125 (2 launches a query
+                   each, checked) must not decrease and must be >= 0.999 at
+                   125.  Prints the flat wall per batch, the IVF wall per
+                   query, the build seconds and the recalls.
   generator_parity the full-width generator cut to 2 layers (head dim 80, 32
                    heads, vocab 32000), one set of weights drawn on the CPU
                    from the seed and copied to the card: prefill of 128
@@ -231,7 +253,8 @@ Phases, one JSON line each:
                    its device time under ``torch.profiler``.
   kernels_checked  each kernel (ivf_topk; slab_topk in fp32, fp16, int8 and
                    pq) against its plain PyTorch version on the card, at the
-                   recorded inputs of the main path and the codec paths:
+                   recorded inputs of the main path, the flat scan of
+                   ``baselines`` and the codec paths:
                    scores within the stated tolerance and ids equal away from
                    near-ties (pq: bitwise); bitwise on integer-valued inputs;
                    a batch bitwise equal to its queries run one at a time;
@@ -270,7 +293,8 @@ Phases, one JSON line each:
                    and bound there; each K6 and K7 call one device event;
                    K5 against
                    ``scaled_dot_product_attention`` at the recorded prefill
-                   and encode inputs; and each top-k kernel against its
+                   and encode inputs; and each top-k kernel (K1 at the
+                   probe's and the flat scan's inputs) against its
                    library call at its ``kernels`` inputs: 100 calls each,
                    device ms per call beside wall ms per call; and the fp32
                    ``slab_topk`` launch's device ms with L2 warm and with
@@ -292,9 +316,12 @@ products for one fp32 product); for the others the CUDA cores' 67 TFLOP/s
 in fp32.  A row's times and bound are at its one recorded input; its
 ``launches`` is the sum of its ``launches_by_phase``: the launches of its
 kernel in its mode or mask that each phase driving a path of the port
-counted in its checked window (``main_path``, ``continuous_batching``'s
-trace and engine batch, ``encode``, ``online_index``, ``staged_pipeline``
-and its stale batch, ``scheduler`` (a) and (b)), whatever their shapes;
+counted in its checked window (``main_path``, ``baselines``' IVF searches
+at nprobe 8, ``continuous_batching``'s trace and engine batch, ``encode``,
+``online_index``, ``staged_pipeline`` and its stale batch, ``scheduler``
+(a) and (b)), whatever their shapes; ``ivf_topk_flat`` is K1 at the flat
+scan's recorded call (16 x 25,000 x 768) and takes ``baselines``' flat
+launches, the recall sweep's launches go to no row;
 K6 launched by a batcher's ticks goes to ``decode_attention_batcher`` (K6
 at ``continuous_batching``'s recorded (16, 1, 32, 80) call and per-slot
 lengths), every other K6 launch to ``decode_attention``; the codec rows
@@ -358,6 +385,8 @@ SCHEDULE_RTOL = 1e-9
 SCHED_REQUESTS, SCHED_GAP, SCHED_SLO, SCHED_BURST = 48, 1.25, 2.0, 2.0
 SCHED_NEW_TOKENS = 2
 PIPE_REQUESTS, PIPE_SPACING = 32, 0.05
+# baselines: recall@K of the IVF index against the flat one at these nprobe
+RECALL_NPROBES = (1, 4, NPROBE, 16, NLIST)
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
 # one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
@@ -643,12 +672,15 @@ def launch_rows(phases) -> dict:
     """The ``launches_by_phase`` of the ``kernels`` line's path rows:
     ``phases`` lists (phase, its counts as :func:`launch_counts` gives
     them, any key missing being 0, and whether its K6 launches are a
-    batcher's ticks).  Returns each row's phases that launched it."""
+    batcher's ticks).  ``ivf_topk_flat`` counts K1's launches over the
+    whole corpus (``baselines``' flat scan), ``ivf_topk`` every other K1
+    launch.  Returns each row's phases that launched it."""
     rows = {}
     for phase, counts, batched in phases:
         attn = counts.get("flash_attention", {})
         for row, n in (
                 ("ivf_topk", counts.get("ivf_topk", 0)),
+                ("ivf_topk_flat", counts.get("ivf_topk_flat", 0)),
                 ("slab_topk", counts.get("slab_topk", {}).get("fp32", 0)),
                 ("flash_attention", attn.get("causal", 0)),
                 ("flash_attention_encode", attn.get("non_causal", 0)),
@@ -2720,6 +2752,151 @@ def scheduler_phase(ctx) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+def set_mismatches(ids, vals, ref_ids, ref_vals) -> tuple:
+    """(swaps, mismatches) of two top-k id lists compared as sets, query by
+    query: an id in one list and not the other is a swap across the top-k's
+    edge when its score lies within NEAR_TIE of the reference's k-th score,
+    else a mismatch.  Swaps count the reference's ids that went missing."""
+    swaps = mismatches = 0
+    for qi in range(len(ids)):
+        edge = ref_vals[qi][-1]
+        got, want = set(ids[qi].tolist()), set(ref_ids[qi].tolist())
+        for i, v in zip(ref_ids[qi].tolist(), ref_vals[qi]):
+            if i not in got:
+                near = abs(v - edge) <= NEAR_TIE
+                swaps, mismatches = swaps + near, mismatches + (not near)
+        for i, v in zip(ids[qi].tolist(), vals[qi]):
+            if i not in want and abs(v - edge) > NEAR_TIE:
+                mismatches += 1
+    return swaps, mismatches
+
+
+def baselines(ctx) -> tuple:
+    """The paper's Table 4 rows 1-2 on the card: ``FlatIndex`` and
+    ``IVFIndex`` on the main path's corpus and queries (module docstring,
+    ``baselines``).  Returns the phase line and the flat scan's recorded
+    K1 call (the corpus on the card, the first batch's queries)."""
+    import torch
+    from repro_torch.convert import ivf_state_from_numpy
+    from repro_torch.core import FlatIndex, IVFIndex
+
+    t_phase = time.perf_counter()
+    ds, cost, dev = ctx["ds"], ctx["cost"], ctx["dev"]
+    main_ids, main_vals = ctx["main_ids"], ctx["main_vals"]
+    n_q = BATCHES * BATCH
+    queries = ds.query_embs[:n_q]
+    e_dev = torch.from_numpy(ds.embeddings).to(dev)
+    tol = score_tol(e_dev, torch.from_numpy(queries).to(dev))
+
+    # ---- flat: one K1 launch a batch of 16 over all 25,000 rows ---------
+    flat = FlatIndex(DIM, cost, device=dev)
+    flat.add(ds.embeddings, ds.chunk_ids)
+    check(flat.memory_bytes() == RECORDS * DIM * 4 and flat.ntotal == RECORDS,
+          f"flat index holds {flat.memory_bytes()} bytes, {flat.ntotal} rows")
+    torch.cuda.synchronize()
+    zero_launches()
+    found = [flat.search(queries[b * BATCH:(b + 1) * BATCH], K)
+             for b in range(BATCHES)]
+    flat_counts = launch_counts()
+    check(flat_counts["ivf_topk"] == BATCHES
+          and not any(flat_counts["slab_topk"].values())
+          and not any(flat_counts["flash_attention"].values())
+          and flat_counts["decode_attention"] == 0,
+          f"flat searches launched {flat_counts}; want {BATCHES} ivf_topk")
+    f_ids = np.concatenate([f[0] for f in found])
+    f_vals = np.concatenate([f[1] for f in found])
+    cpu_flat = FlatIndex(DIM, cost, device="cpu")
+    cpu_flat.add(ds.embeddings, ds.chunk_ids)
+    c_ids, c_vals, _ = cpu_flat.search(queries, K)
+    flat_swaps, flat_mism = near_tie_mismatches(f_ids, c_ids, c_vals)
+    flat_err = float(np.abs(f_vals - c_vals).max())
+    check(flat_mism == 0, f"flat: {flat_mism} ids differ from the CPU "
+          "outside near-ties")
+    check(flat_err <= tol, f"flat scores {flat_err} from the CPU's > {tol}")
+
+    # ---- IVF: the same k-means as the main path's index, on the card ----
+    t0 = time.perf_counter()
+    ivf = IVFIndex(DIM, cost, device=dev)
+    assign = ivf.build(ds.embeddings, ds.chunk_ids, nlist=NLIST, seed=SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    assign_differs = int((assign != ctx["main_assign"]).sum())
+    if assign_differs:
+        ivf_state_from_numpy(ivf, ctx["main_centroids"], ctx["main_assign"],
+                             ds.chunk_ids, ds.embeddings)
+    check(ivf.memory_bytes() == (NLIST + RECORDS) * DIM * 4
+          and ivf.ntotal == RECORDS,
+          f"IVF index holds {ivf.memory_bytes()} bytes, {ivf.ntotal} rows")
+
+    def ivf_run(nprobe):
+        out = [ivf.search(queries[qi], K, nprobe) for qi in range(n_q)]
+        return (np.concatenate([o[0] for o in out]),
+                np.concatenate([o[1] for o in out]), [o[2] for o in out])
+
+    torch.cuda.synchronize()
+    zero_launches()
+    i_ids, i_vals, i_lats = ivf_run(NPROBE)
+    ivf_counts = launch_counts()
+    check(ivf_counts["ivf_topk"] == 2 * n_q
+          and not any(ivf_counts["slab_topk"].values())
+          and not any(ivf_counts["flash_attention"].values())
+          and ivf_counts["decode_attention"] == 0,
+          f"IVF searches launched {ivf_counts}; want {2 * n_q} ivf_topk "
+          "(a probe and a scan a query)")
+    # §6.3.1 on the card: the IVF baseline retrieves what EdgeRAG did
+    ivf_swaps, ivf_mism = set_mismatches(i_ids, i_vals, main_ids, main_vals)
+    ivf_err = float(np.abs(i_vals - main_vals).max())
+    check(ivf_mism == 0, f"IVF: {ivf_mism} ids differ as sets from the main "
+          "path's EdgeRAG retrieval outside near-ties")
+    check(ivf_err <= tol, f"IVF scores {ivf_err} from the main path's > {tol}")
+    bitwise = int(sum(np.array_equal(i_vals[qi], main_vals[qi])
+                      and np.array_equal(i_ids[qi], main_ids[qi])
+                      for qi in range(n_q)))
+
+    # ---- recall@10 of IVF against flat as nprobe grows ------------------
+    zero_launches()
+    recall = {}
+    for nprobe in RECALL_NPROBES:
+        ids = i_ids if nprobe == NPROBE else ivf_run(nprobe)[0]
+        recall[nprobe] = float(np.mean([
+            len(set(ids[qi].tolist()) & set(f_ids[qi].tolist())) / K
+            for qi in range(n_q)]))
+    sweep = topk_calls()["ivf_topk"]
+    want_sweep = 2 * n_q * (len(RECALL_NPROBES) - 1)
+    check(sweep == want_sweep, f"recall sweep: {sweep} ivf_topk launches, "
+          f"want {want_sweep}")
+    rs = [recall[n] for n in RECALL_NPROBES]
+    check(rs == sorted(rs), f"recall@{K} decreases as nprobe grows: {recall}")
+    check(recall[NLIST] >= 0.999, f"recall@{K} at nprobe {NLIST} "
+          f"(every cluster) {recall[NLIST]} < 0.999")
+
+    walls = [lat.wall_s for lat in i_lats]
+    out = {"phase": "baselines", "records": RECORDS, "dim": DIM, "k": K,
+           "flat": {"memory_bytes": flat.memory_bytes(),
+                    "batches": BATCHES, "batch": BATCH,
+                    "wall_s_per_batch": [f[2].wall_s for f in found],
+                    "modeled_l2_s": found[0][2].l2_mem_load_s
+                    + found[0][2].l2_search_s,
+                    "launches": flat_counts["ivf_topk"],
+                    "cpu_near_tie_swaps": flat_swaps,
+                    "cpu_max_abs_err": flat_err, "score_tol": tol},
+           "ivf": {"nlist": ivf.nlist, "nprobe": NPROBE,
+                   "memory_bytes": ivf.memory_bytes(), "build_s": build_s,
+                   "assign_differs_from_main_path": assign_differs,
+                   "queries": n_q, "wall_s_per_query": {
+                       "mean": float(np.mean(walls)),
+                       "median": float(np.median(walls)),
+                       "first": walls[0], "max": float(max(walls))},
+                   "launches": ivf_counts["ivf_topk"],
+                   "vs_edgerag_near_tie_swaps": ivf_swaps,
+                   "vs_edgerag_max_abs_err": ivf_err,
+                   "vs_edgerag_bitwise_queries": bitwise},
+           "recall_at_k_vs_flat": {str(n): r for n, r in recall.items()},
+           "recall_sweep_launches": sweep,
+           "phase_s": time.perf_counter() - t_phase}
+    return out, (e_dev, torch.from_numpy(queries[:BATCH]).to(dev))
+
+
 def check_attention(rec_flash, rec_dec, dev) -> dict:
     """The attention kernels against their plain versions on the card
     (module docstring, ``kernels_checked``)."""
@@ -3250,6 +3427,14 @@ def main() -> int:
     engine = RAGEngine(index, gen, cost_model=cost, k=K, nprobe=NPROBE,
                        max_new_tokens=NEW_TOKENS)
 
+    finished = []                 # each batch's (ids, scores), for baselines
+
+    def finish_logged(state, finish=index.search_finish):
+        out = finish(state)
+        finished.append((np.array(out[0]), np.array(out[1])))
+        return out
+
+    index.search_finish = finish_logged
     zero_launches()
     t0 = time.perf_counter()
     assign = index.build(ds.chunk_ids, ds.texts, nlist=NLIST,
@@ -3276,6 +3461,9 @@ def main() -> int:
                 "decode_attention": decode_attention.launches}
     main_by_mode = dict(slab_topk.launches_by_mode)
     main_by_mask = dict(flash_attention.launches_by_mask)
+    del index.search_finish
+    main_ids = np.concatenate([ids for ids, _ in finished])
+    main_vals = np.concatenate([vals for _, vals in finished])
 
     flat = [r for resp in responses for r in resp]
     tiers = {"stored": sum(r.retrieval.n_storage_loads for r in flat),
@@ -3295,6 +3483,9 @@ def main() -> int:
               and all(0 <= t < gcfg.vocab_size for t in r.output_tokens)
               for r in flat), "generated tokens out of range")
     check(all(len(r.chunk_ids) == K for r in flat), "short retrieval")
+    check(len(finished) == BATCHES and main_ids.tolist()
+          == [r.chunk_ids for r in flat], "the logged retrieval is not the "
+          "responses'")
 
     # the port's own CPU run on the same clustering and the same batches
     cpu_ix = EdgeRAGIndex(DIM, ds.embedder, ds.get_chunks, cost,
@@ -3350,6 +3541,13 @@ def main() -> int:
           "cpu_match": True, "near_tie_swaps": swaps,
           "reduced_model_card_vs_cpu_max_err": small_err})
 
+    # ---- the Table 4 baselines on the main path's corpus ----------------
+    base, flat_call = baselines({"ds": ds, "cost": cost, "dev": dev,
+                                 "main_ids": main_ids, "main_vals": main_vals,
+                                 "main_centroids": index.centroids,
+                                 "main_assign": assign})
+    emit(base)
+
     # ---- the generator on the card against the CPU; encode -------------
     parity, recorded = generator_parity(dev)
     emit(parity)
@@ -3387,7 +3585,9 @@ def main() -> int:
         ("staged_pipeline_stale", pipe["stale"]["launches"], True),
         ("scheduler_run", sched["run"]["launches"], False),
         ("scheduler_run_pipelined", sched["run_pipelined"]["launches"],
-         True)])
+         True),
+        ("baselines", {"ivf_topk": base["ivf"]["launches"],
+                       "ivf_topk_flat": base["flat"]["launches"]}, False)])
 
     def n_path(row):
         return sum(by_row[row].values())
@@ -3439,6 +3639,23 @@ def main() -> int:
     report["ivf_topk"] = {"max_abs_err": err1, "tol": tol1,
                           "ids_checked": n1}
 
+    # ivf_topk over the whole corpus (baselines' flat scan): 64-row tiles
+    fe, fq = flat_call
+    tolf = score_tol(fe, fq)
+    kv, ki = topk_ip(fe, fq, K)
+    pv, pi = topk_ip_ref(fe, fq, K)
+    errf = float((kv - pv).abs().max())
+    check(errf <= tolf, f"ivf_topk (flat) error {errf} > {tolf}")
+    fullf = (fq.double() @ fe.double().T).cpu().numpy()
+    nf = isolated_ids_equal(kv.cpu().numpy(), ki.cpu().numpy(),
+                            pi.cpu().numpy(), fullf, tolf)
+    for i in range(fq.shape[0]):
+        s = topk_ip(fe, fq[i:i + 1], K)
+        check(torch.equal(s[0][0], kv[i]) and torch.equal(s[1][0], ki[i]),
+              "ivf_topk (flat) batch != sequential")
+    report["ivf_topk_flat"] = {"max_abs_err": errf, "tol": tolf,
+                               "ids_checked": nf}
+
     # slab_topk (fp32)
     member = v2 < NOT_PROBED
     n_valid = member.sum(1)
@@ -3485,6 +3702,7 @@ def main() -> int:
     report.update(check_attention(rec_flash, rec_dec, dev))
     emit({"phase": "kernels_checked",
           "ivf_topk_shape": [*e1.shape, q1.shape[0], k1],
+          "ivf_topk_flat_shape": [*fe.shape, fq.shape[0], K],
           "slab_topk_shape": {m: [*a[0].shape, a[1].shape[0], a[3]]
                               for m, (a, _) in rec_slab.first.items()},
           "integer_inputs": "bitwise", "batch_vs_sequential": "bitwise",
@@ -3499,7 +3717,9 @@ def main() -> int:
     torch.save({"ivf_topk": ((e1, q1, None, k1), {}), **slab_inputs},
                ROOT / "build" / SLAB_INPUTS)
     calls = {"ivf_topk": (lambda: topk_ip(e1, q1, k1),
-                          lambda: torch.topk(q1 @ e1.T, k1))}
+                          lambda: torch.topk(q1 @ e1.T, k1)),
+             "ivf_topk_flat": (lambda: topk_ip(fe, fq, K),
+                               lambda: torch.topk(fq @ fe.T, K))}
     for mode, ((e, q, v, k), kw) in slab_inputs.items():
         calls["slab_topk" if mode == "fp32" else f"slab_topk_{mode}"] = (
             lambda e=e, q=q, v=v, k=k, kw=kw: slab_topk(e, q, v, k, **kw),
@@ -3508,7 +3728,8 @@ def main() -> int:
                           for tag, fn in zip(("", "_library"), pair)}, 100)
     for name in calls:
         one_kernel_event(topk_dev, name, TILED_EVENTS[
-            "slab_topk_fp32" if name == "slab_topk" else name])
+            {"slab_topk": "slab_topk_fp32",
+             "ivf_topk_flat": "ivf_topk"}.get(name, name)])
     (n, d), nq = e1.shape, q1.shape[0]
     b1 = bound((n * d + nq * d) * 4 + nq * k1 * 8, 2 * nq * n * d)
     kernels = [
@@ -3523,6 +3744,20 @@ def main() -> int:
          "device_ms": topk_dev["ivf_topk"]["device_ms_per_call"],
          "library_device_ms": topk_dev["ivf_topk_library"]
          ["device_ms_per_call"]}]
+    (n, d), nq = fe.shape, fq.shape[0]
+    bf = bound((n * d + nq * d) * 4 + nq * K * 8, 2 * nq * n * d)
+    kernels.append(
+        {"name": "ivf_topk_flat", "route": "cuda",
+         "source": "src/repro_torch/csrc/ivf_topk.cu",
+         "replaces": "src/repro/kernels/ivf_topk/kernel.py:98",
+         "launches": n_path("ivf_topk_flat"), "max_abs_err": errf,
+         "ms": cuda_ms(calls["ivf_topk_flat"][0], 200),
+         "plain_ms": cuda_ms(lambda: topk_ip_ref(fe, fq, K), 5),
+         "bound_ms": bf[0], "bound_by": bf[1],
+         "library_ms": cuda_ms(calls["ivf_topk_flat"][1], 200),
+         "device_ms": topk_dev["ivf_topk_flat"]["device_ms_per_call"],
+         "library_device_ms": topk_dev["ivf_topk_flat_library"]
+         ["device_ms_per_call"]})
     for mode, ((e, q, v, k), kw) in slab_inputs.items():
         name = "slab_topk" if mode == "fp32" else f"slab_topk_{mode}"
         n_launch = (n_path("slab_topk") if mode == "fp32" else

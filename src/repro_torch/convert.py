@@ -11,6 +11,8 @@ the JAX side), so the port itself never touches JAX.
   cluster assignment into a port index (then runs Alg. 1 as ``build``
   does).  Parity tests use it because k-means argmin near-ties make two
   separately trained indexes a bad comparison.
+* :func:`ivf_state_from_numpy` — the same for the IVF baseline
+  (:class:`~repro_torch.core.ivf_index.IVFIndex`).
 * :func:`pq_codebook_from_numpy` — a JAX ``PQCodebook`` (its numpy
   ``codebooks``, ``dim`` and ``version``) as the port's
   :class:`~repro_torch.core.pq.PQCodebook`, for
@@ -79,3 +81,14 @@ def index_state_from_numpy(index, centroids: np.ndarray, assign: np.ndarray,
     ``build`` does when it is None."""
     index._install(chunk_ids, texts, embeddings, np.asarray(centroids),
                    np.asarray(assign), pq_codebook=pq_codebook)
+
+
+def ivf_state_from_numpy(index, centroids: np.ndarray, assign: np.ndarray,
+                         chunk_ids: Sequence[int],
+                         embeddings: np.ndarray) -> None:
+    """Load first-level ``centroids`` (nlist, d) and the per-chunk cluster
+    ``assign`` (n,) of another index into the port
+    :class:`~repro_torch.core.ivf_index.IVFIndex` ``index``: its clusters
+    then hold exactly those chunks' ``embeddings`` on its device."""
+    index._install(np.asarray(centroids), np.asarray(assign), chunk_ids,
+                   embeddings)

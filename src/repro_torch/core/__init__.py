@@ -1,5 +1,12 @@
-"""EdgeRAG core of the port: the pruned IVF index with selective storage
-(Alg. 1) and cost-aware caching (Alg. 2/3), on PyTorch."""
+"""EdgeRAG core of the port, on PyTorch.
+
+Index zoo (Table 4):
+  FlatIndex              exhaustive baseline
+  IVFIndex               two-level, all embeddings resident
+  EdgeRAGIndex           pruned second level + selective storage (Alg. 1)
+                         + cost-aware caching (Alg. 2/3); flags give the
+                         IVF+Gen / IVF+Gen+Load ablations
+"""
 from repro_torch.core.cache_policy import (CostAwareLFUCache,  # noqa
                                            MinLatencyThresholdController)
 from repro_torch.core.costs import EdgeCostModel, LatencyBreakdown  # noqa
@@ -7,6 +14,8 @@ from repro_torch.core.edgerag import EdgeCluster, EdgeRAGIndex  # noqa
 from repro_torch.core.faults import (CorruptPayloadError,  # noqa
                                      DegradationPolicy, FaultInjector,
                                      IOOutcome)
+from repro_torch.core.flat_index import FlatIndex  # noqa
+from repro_torch.core.ivf_index import IVFIndex  # noqa
 from repro_torch.core.kmeans import kmeans  # noqa
 from repro_torch.core.maintenance import (MaintenanceOp,  # noqa
                                           MaintenanceReport,

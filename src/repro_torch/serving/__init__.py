@@ -6,3 +6,6 @@ from repro_torch.serving.pipeline import (PipelineBatch, PipelineTrace,  # noqa
 from repro_torch.serving.scheduler import (Request,  # noqa
                                            RequestScheduler,
                                            TokenBucketAdmission)
+from repro_torch.serving.simulator import (EdgeSimulator,  # noqa
+                                           TenantTrace, simulate_ttft,
+                                           zipf_over_tenants)

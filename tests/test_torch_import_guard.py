@@ -36,7 +36,9 @@ def test_importing_every_module_loads_no_jax_or_repro():
                  "repro_torch.serving.batching",
                  "repro_torch.serving.pipeline",
                  "repro_torch.serving.scheduler",
-                 "repro_torch.serving.metrics"):
+                 "repro_torch.serving.metrics",
+                 "repro_torch.core.flat_index", "repro_torch.core.ivf_index",
+                 "repro_torch.serving.simulator"):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -74,10 +76,11 @@ def test_ast_scan_finds_no_jax_or_repro_import():
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
 
 
-@pytest.mark.parametrize("name", ["scheduler", "metrics"])
+@pytest.mark.parametrize("name", ["scheduler", "metrics", "simulator"])
 def test_serving_bookkeeping_imports_no_torch(name):
-    """The scheduler and the metrics registry are pure Python, as in the
-    JAX package: neither module imports torch itself (the
-    ``repro_torch.serving`` package does, through the engine)."""
+    """The scheduler, the metrics registry and the edge simulator are pure
+    Python and numpy, as in the JAX package: none of these modules imports
+    torch itself (the ``repro_torch.serving`` package does, through the
+    engine)."""
     path = PKG / "serving" / f"{name}.py"
     assert all(n.split(".")[0] != "torch" for n in _imported_names(path))
