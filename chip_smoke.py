@@ -236,6 +236,46 @@ Phases, one JSON line each:
                    admission stats, ``maintenance_s``, modeled latency p50
                    / p99, each part's wall and launches, the sample
                    counts and headline samples.
+  tenancy          ``TenantRouter`` (``core/tenant.py``) on the card:
+                   tenant "fiqa" (the main path's corpus, rows and nlist-125
+                   clustering) beside "scidocs" (``scaled_beir("scidocs")``
+                   at Table 2's 3,600 records and dim 768, clustered once on
+                   the CPU at nlist 18, 200 chunks a cluster), memory
+                   storage, fp32, the default cache, deferred maintenance,
+                   each tenant regenerating through a ``TableEmbedder`` over
+                   its own rows (logged), and a shared storage budget of
+                   fiqa's standalone stored bytes plus half of scidocs'.
+                   4 batches of 16 requests, each request's tenant drawn by
+                   ``zipf_over_tenants(2, 64, seed=0)`` (every batch holds
+                   both, checked) and its row its tenant's next query.
+                   (a) each batch in one ``search_batch``: one K1 launch a
+                   tenant and ONE fp32 ``slab_topk`` launch; ids and scores
+                   bitwise those of two standalone card indexes (2 K1 and 2
+                   K2 a batch); each embedder saw only its tenant's texts;
+                   puts refused, per-tenant bytes summing to the total.
+                   (b) a router holding fiqa alone equals a standalone
+                   index with the same cache on the main path's 4 batches,
+                   bitwise: ids, scores and every modeled field.  (c) (a)
+                   replayed on a CPU router: ids outside near-ties, tier
+                   decisions and the cache, storage and maintenance stats
+                   equal, ``collect_router``'s samples within
+                   ``SCHEDULE_RTOL`` (the card's text to
+                   ``build/tenancy.prom``).  (d) one mixed batch through
+                   ``RAGEngine(router, <the main generator>).answer_batch(
+                   ..., tenants=)`` with 2 new tokens: every context a text
+                   of its query's tenant, K1 2, K2 1, K5 causal and K6 as
+                   the main path's rule gives, ids equal to the CPU
+                   router's outside near-ties.  (e) 32 tenant-tagged
+                   requests 0.05 modeled s apart through
+                   ``RequestScheduler.run_pipelined`` (no generator)
+                   against the same two ``PipelineBatch(tenants=...)``
+                   built by hand on a twin router: ids, scores, trace and
+                   stamps bitwise, K1 = tenants a batch, K2 1 a batch.
+                   (f) the two tenants on an int8 router, one batch: one
+                   int8 ``slab_topk`` launch over both tenants' stored
+                   clusters, ids and tier decisions equal to a CPU int8
+                   router's.  Prints the fused and silo walls a batch,
+                   the launches and the stored bytes.
   codec_paths      the same corpus, clustering, queries and generator under
                    each quantized storage codec: ``EdgeRAGIndex(
                    storage_codec="fp16" | "int8" | "pq")`` (pq in the memmap
@@ -254,7 +294,8 @@ Phases, one JSON line each:
   kernels_checked  each kernel (ivf_topk; slab_topk in fp32, fp16, int8 and
                    pq) against its plain PyTorch version on the card, at the
                    recorded inputs of the main path, the flat scan of
-                   ``baselines`` and the codec paths:
+                   ``baselines``, the codec paths and ``tenancy`` (a)'s
+                   first fused batch (both tenants' clusters in one slab):
                    scores within the stated tolerance and ids equal away from
                    near-ties (pq: bitwise); bitwise on integer-valued inputs;
                    a batch bitwise equal to its queries run one at a time;
@@ -319,13 +360,14 @@ kernel in its mode or mask that each phase driving a path of the port
 counted in its checked window (``main_path``, ``baselines``' IVF searches
 at nprobe 8, ``continuous_batching``'s trace and engine batch, ``encode``,
 ``online_index``, ``staged_pipeline`` and its stale batch, ``scheduler``
-(a) and (b)), whatever their shapes; ``ivf_topk_flat`` is K1 at the flat
+(a) and (b), ``tenancy`` (a), (d) and (e)), whatever their shapes; ``ivf_topk_flat`` is K1 at the flat
 scan's recorded call (16 x 25,000 x 768) and takes ``baselines``' flat
 launches, the recall sweep's launches go to no row;
 K6 launched by a batcher's ticks goes to ``decode_attention_batcher`` (K6
 at ``continuous_batching``'s recorded (16, 1, 32, 80) call and per-slot
 lengths), every other K6 launch to ``decode_attention``; the codec rows
-take ``codec_paths``' launches and K7's row ``kv_int8``'s.  Any failed
+take ``codec_paths``' launches (int8 also ``tenancy`` (f)'s) and K7's row
+``kv_int8``'s.  Any failed
 check raises, so the script exits non-zero without that last line; it also
 does so when no CUDA device is present or the package is missing beside
 it.
@@ -385,6 +427,11 @@ SCHEDULE_RTOL = 1e-9
 SCHED_REQUESTS, SCHED_GAP, SCHED_SLO, SCHED_BURST = 48, 1.25, 2.0, 2.0
 SCHED_NEW_TOKENS = 2
 PIPE_REQUESTS, PIPE_SPACING = 32, 0.05
+# tenancy: the main path's corpus as tenant "fiqa" beside "scidocs" at
+# Table 2's record count and gte-base's width, clustered at SCI_NLIST (the
+# main path's 200 chunks a cluster); the engine batch's new tokens
+TENANTS, SCI_RECORDS, SCI_NLIST = ("fiqa", "scidocs"), 3_600, 18
+TENANCY_NEW_TOKENS = 2
 # baselines: recall@K of the IVF index against the flat one at these nprobe
 RECALL_NPROBES = (1, 4, NPROBE, 16, NLIST)
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
@@ -1090,6 +1137,34 @@ def slab_row(mode, e, q, v, k, kw, launches, err, calls, dev_ms) -> dict:
             "device_ms": dev_ms[name]["device_ms_per_call"],
             "library_device_ms": dev_ms[f"{name}_library"]
             ["device_ms_per_call"]}
+
+
+def check_slab_fp32(e, q, v, k, where: str) -> dict:
+    """fp32 ``slab_topk`` at one recorded call against its plain version:
+    member lanes' scores within ``score_tol``, ids equal away from
+    near-ties, and the batch bitwise its queries one at a time."""
+    import torch
+    from repro_torch.kernels.slab_topk import NOT_PROBED, slab_topk
+    from repro_torch.kernels.slab_topk.ref import NEG_INF, slab_topk_ref
+    member = v < NOT_PROBED
+    lane = torch.arange(k, device=e.device)[None, :] < member.sum(1)[:, None]
+    tol = score_tol(e, q)
+    kv, kr = slab_topk(e, q, v, k)
+    pv, pr = slab_topk_ref(e, q, v, k)
+    err = float((kv - pv)[lane].abs().max())
+    check(err <= tol, f"{where} error {err} > {tol}")
+    full = torch.where(member, q.double() @ e.double().T,
+                       NEG_INF).cpu().numpy()
+    n = isolated_ids_equal(torch.where(lane, kv, NEG_INF).cpu().numpy(),
+                           torch.where(lane, kr, -1).cpu().numpy(),
+                           torch.where(lane, pr, -1).cpu().numpy(), full, tol)
+    for i in range(q.shape[0]):
+        one = slab_topk(e, q[i:i + 1], v[i:i + 1], k)
+        check(torch.equal(one[0][0], kv[i]) and torch.equal(one[1][0], kr[i]),
+              f"{where} batch != sequential")
+    return {"max_abs_err": err, "tol": tol, "ids_checked": n,
+            "member_pairs": int(member.sum()), "shape": [*e.shape,
+                                                         q.shape[0], k]}
 
 
 def attn_tol(d: int) -> float:
@@ -2752,6 +2827,338 @@ def scheduler_phase(ctx) -> dict:
             "phase_s": time.perf_counter() - t_phase}
 
 
+def add_counts(total: dict, counts: dict) -> dict:
+    """``total`` plus ``counts`` (as :func:`launch_counts` gives them),
+    key by key, nested dicts included."""
+    out = dict(total)
+    for k, v in counts.items():
+        out[k] = (add_counts(out.get(k, {}), v) if isinstance(v, dict)
+                  else out.get(k, 0) + v)
+    return out
+
+
+def want_counts(ivf=0, fp32=0, causal=0, decode=0, **modes) -> dict:
+    """A :func:`launch_counts` dict: ``ivf`` K1 launches, ``fp32`` (and
+    ``modes``) slab_topk launches by mode, K5 causal, K6; nothing else."""
+    from repro_torch.kernels.slab_topk import slab_topk
+    return {"ivf_topk": ivf,
+            "slab_topk": {**dict.fromkeys(slab_topk.launches_by_mode, 0),
+                          "fp32": fp32, **modes},
+            "flash_attention": {"causal": causal, "non_causal": 0},
+            "decode_attention": decode}
+
+
+def tenancy(ctx) -> dict:
+    """``TenantRouter`` on the card: two tenants' retrieval fused into one
+    ``slab_topk`` launch a batch, through the engine, pipeline and
+    scheduler (module docstring, ``tenancy``)."""
+    import types
+
+    import torch
+    from repro_torch.convert import index_state_from_numpy
+    from repro_torch.core import EdgeRAGIndex, TenantRouter
+    from repro_torch.core import edgerag as edgerag_mod
+    from repro_torch.core.kmeans import kmeans
+    from repro_torch.data.synthetic import scaled_beir
+    from repro_torch.serving import (PipelineBatch, RAGEngine,
+                                     RequestScheduler, StagedPipeline,
+                                     zipf_over_tenants)
+    from repro_torch.serving.metrics import MetricsRegistry, collect_router
+
+    t_phase = time.perf_counter()
+    ds, cost, dev, gen = ctx["ds"], ctx["cost"], ctx["dev"], ctx["gen"]
+    gen_layers = gen.cfg.num_layers
+    sci = scaled_beir("scidocs", n_records=SCI_RECORDS, dim=DIM,
+                      n_queries=BATCHES * BATCH, seed=SEED)
+    t0 = time.perf_counter()
+    sci_centroids, sci_assign = kmeans(sci.embeddings, SCI_NLIST, iters=20,
+                                       seed=SEED, device="cpu")
+    sci_cluster_s = time.perf_counter() - t0
+    data = {"fiqa": (ds, ctx["main_centroids"], ctx["main_assign"]),
+            "scidocs": (sci, sci_centroids, sci_assign)}
+    own = {t: set(d.texts) for t, (d, _, _) in data.items()}
+
+    # requests: Zipf over the two tenants, each taking its tenant's next
+    # query row; (d)'s batch takes (a)'s first batch's tenants on the
+    # tenants' next rows
+    draw = zipf_over_tenants(len(TENANTS), BATCHES * BATCH, seed=SEED)
+    names = [TENANTS[int(i)] for i in draw.tenant_ids] + \
+        [TENANTS[int(i)] for i in draw.tenant_ids[:BATCH]]
+    used = dict.fromkeys(TENANTS, 0)
+    rows = []
+    for t in names:
+        rows.append(data[t][0].query_embs[used[t]])
+        used[t] += 1
+    batches = [(names[j:j + BATCH], np.stack(rows[j:j + BATCH]))
+               for j in range(0, len(names), BATCH)]
+    batch_d = batches.pop()
+    for b, (tn, _) in enumerate(batches):
+        check(set(tn) == set(TENANTS), f"tenancy: batch {b} holds only "
+              f"{sorted(set(tn))}")
+
+    def router(device, budget=None, codec="fp32", logs=None):
+        r = TenantRouter(DIM, cost, storage_codec=codec,
+                         storage_budget_bytes=budget, device=device)
+        for t, (d, cents, assign) in data.items():
+            embed = d.embedder if logs is None else \
+                logs.setdefault(t, EmbedLog(d.embedder))
+            index_state_from_numpy(
+                r.create_tenant(t, embed, d.get_chunks, slo_s=d.spec.slo_s),
+                cents, assign, d.chunk_ids, d.texts, d.embeddings)
+        return r
+
+    def silo(t, device):
+        d, cents, assign = data[t]
+        ix = EdgeRAGIndex(DIM, d.embedder, d.get_chunks, cost,
+                          slo_s=d.spec.slo_s, maintenance="deferred",
+                          device=device)
+        index_state_from_numpy(ix, cents, assign, d.chunk_ids, d.texts,
+                               d.embeddings)
+        return ix
+
+    # ---- (a) fused against silos, on a shared budget --------------------
+    silos = {t: silo(t, dev) for t in TENANTS}
+    stored = {t: ix.storage_bytes() for t, ix in silos.items()}
+    budget = stored["fiqa"] + stored["scidocs"] // 2
+    logs = {}
+    card = router(dev, budget, logs=logs)
+    rec = Recorder(edgerag_mod.slab_topk, lambda e, q, v, k, **kw: None)
+    launches_a = {}
+    card_out, walls = [], {"fused": [], "silos": []}
+    for b, (tn, embs) in enumerate(batches):
+        if b == 0:
+            edgerag_mod.slab_topk, outer = rec, edgerag_mod.slab_topk
+        zero_launches()
+        t0 = time.perf_counter()
+        ids, vals, lats = card.search_batch(embs, K, NPROBE, tenants=tn)
+        walls["fused"].append(time.perf_counter() - t0)
+        fused = launch_counts()
+        if b == 0:
+            edgerag_mod.slab_topk = outer
+        check(fused == want_counts(ivf=len(TENANTS), fp32=1),
+              f"tenancy (a): batch {b} launched {fused}; want one K1 a "
+              f"tenant and one fp32 slab_topk")
+        card_out.append((ids, vals, tier_decisions(lats)))
+        zero_launches()
+        t0 = time.perf_counter()
+        for t in TENANTS:
+            local = [i for i, x in enumerate(tn) if x == t]
+            s_ids, s_vals, _ = silos[t].search_batch(embs[local], K, NPROBE)
+            check(np.array_equal(s_ids, ids[local])
+                  and np.array_equal(s_vals, vals[local]),
+                  f"tenancy (a): batch {b}, tenant {t}: fused ids or "
+                  f"scores not bitwise the silo's")
+        walls["silos"].append(time.perf_counter() - t0)
+        silo_counts = launch_counts()
+        check(silo_counts == want_counts(ivf=len(TENANTS),
+                                         fp32=len(TENANTS)),
+              f"tenancy (a): the silos of batch {b} launched {silo_counts}")
+        launches_a = add_counts(add_counts(launches_a, fused), silo_counts)
+    for t, log in logs.items():
+        seen = [x for texts, _, _ in log.calls for x in texts]
+        check(seen and set(seen) <= own[t], f"tenancy (a): tenant {t}'s "
+              f"embedder saw {len(set(seen) - own[t])} texts of another "
+              f"tenant ({len(seen)} in all)")
+    st = card.stats()["storage"]
+    check(st["put_rejected"] > 0 and st["total_bytes"] <= budget
+          and sum(st["per_tenant"].values()) == st["total_bytes"],
+          f"tenancy (a): storage {st} under a budget of {budget}")
+
+    # ---- (b) one tenant: a router equals a standalone index -------------
+    one = TenantRouter(DIM, cost, device=dev)
+    d, cents, assign = data["fiqa"]
+    index_state_from_numpy(
+        one.create_tenant("fiqa", d.embedder, d.get_chunks,
+                          slo_s=d.spec.slo_s),
+        cents, assign, d.chunk_ids, d.texts, d.embeddings)
+    alone = EdgeRAGIndex(DIM, d.embedder, d.get_chunks, cost,
+                         slo_s=d.spec.slo_s, cache_bytes=one.cache
+                         .capacity_bytes, maintenance="deferred",
+                         device=dev)
+    index_state_from_numpy(alone, cents, assign, d.chunk_ids, d.texts,
+                           d.embeddings)
+    for b in range(BATCHES):
+        embs = ds.query_embs[b * BATCH:(b + 1) * BATCH]
+        chars = [len(f"query-{b * BATCH + i}") for i in range(BATCH)]
+        r_ids, r_vals, r_lats = one.search_batch(embs, K, NPROBE, chars,
+                                                 tenants="fiqa")
+        a_ids, a_vals, a_lats = alone.search_batch(embs, K, NPROBE, chars)
+        strip = lambda lat: {**vars(lat), "wall_s": None}
+        check(np.array_equal(r_ids, a_ids) and np.array_equal(r_vals, a_vals)
+              and [strip(x) for x in r_lats] == [strip(x) for x in a_lats],
+              f"tenancy (b): batch {b} of the one-tenant router differs "
+              f"from the standalone index")
+    check(one.memory_bytes() == alone.memory_bytes()
+          and one.tenant("fiqa").threshold.threshold
+          == alone.threshold.threshold,
+          "tenancy (b): resident bytes or Alg. 3 threshold differ")
+    del one, alone
+
+    # ---- (c) the CPU replay ----------------------------------------------
+    cpu = router("cpu", budget)
+    swaps = mismatches = 0
+    for b, ((tn, embs), (ids, _, dec)) in enumerate(zip(batches, card_out)):
+        c_ids, c_vals, c_lats = cpu.search_batch(embs, K, NPROBE, tenants=tn)
+        check(tier_decisions(c_lats) == dec, f"tenancy (c): the CPU router "
+              f"took other tier decisions in batch {b}")
+        s_, m_ = near_tie_mismatches(ids, c_ids, c_vals)
+        swaps, mismatches = swaps + s_, mismatches + m_
+    check(mismatches == 0, f"tenancy (c): {mismatches} ids differ from the "
+          f"CPU router outside near-ties")
+    card_st, cpu_st = card.stats(), cpu.stats()
+    for part in ("cache", "storage", "maintenance"):
+        check(card_st[part] == cpu_st[part], f"tenancy (c): stats()"
+              f"[{part!r}] {card_st[part]} on the card, {cpu_st[part]} on "
+              f"the CPU")
+    text = collect_router(MetricsRegistry(), card).render()
+    metrics = metrics_agree(text, collect_router(MetricsRegistry(),
+                                                 cpu).render(),
+                            "tenancy.prom", "tenancy (c)")
+
+    # ---- (d) the engine at full width -------------------------------------
+    tn, embs = batch_d
+    queries = [f"{t}-query-{i}" for i, t in enumerate(tn)]
+    engine = RAGEngine(card, gen, cost_model=cost, k=K, nprobe=NPROBE,
+                       max_new_tokens=TENANCY_NEW_TOKENS)
+    zero_launches()
+    t0 = time.perf_counter()
+    resp = engine.answer_batch(queries, embs, tenants=tn)
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    launches_d = launch_counts()
+    want = want_counts(ivf=len(set(tn)), fp32=1, causal=gen_layers * BATCH,
+                       decode=gen_layers * TENANCY_NEW_TOKENS * BATCH)
+    check(launches_d == want, f"tenancy (d): launches {launches_d}; want "
+          f"{want}")
+    check(all(len(r.output_tokens) == TENANCY_NEW_TOKENS
+              and len(r.chunk_ids) == K and r.context
+              and all(c in own[t] for c in r.context)
+              for r, t in zip(resp, tn)),
+          "tenancy (d): a response is short, or holds another tenant's "
+          "text")
+    c_ids, c_vals, _ = cpu.search_batch(
+        embs, K, NPROBE, [len(q) for q in queries], tenants=tn)
+    swaps_d, mismatches = near_tie_mismatches([r.chunk_ids for r in resp],
+                                              c_ids, c_vals)
+    check(mismatches == 0, f"tenancy (d): {mismatches} ids differ from the "
+          f"CPU router outside near-ties")
+    del cpu
+
+    # ---- (e) run_pipelined against the same batches built by hand --------
+    a, b_ = router(dev, budget), router(dev, budget)
+    scores_a, scores_b = scored(a), scored(b_)
+    req_names = names[:PIPE_REQUESTS]
+    req_rows, arrive = rows[:PIPE_REQUESTS], [PIPE_SPACING * i for i in
+                                              range(PIPE_REQUESTS)]
+    req_q = [f"{t}-request-{i}" for i, t in enumerate(req_names)]
+    slos = [data[t][0].spec.slo_s for t in req_names]
+
+    def engine_of(x):
+        return RAGEngine(x, None, cost_model=cost, k=K, nprobe=NPROBE,
+                         maintenance_owner="external")
+    sched = RequestScheduler()
+    for i, t in enumerate(arrive):
+        sched.submit(t, query=req_q[i], query_emb=req_rows[i],
+                     query_chars=len(req_q[i]), slo_s=slos[i],
+                     tenant=req_names[i])
+    zero_launches()
+    t0 = time.perf_counter()
+    sched.run_pipelined(StagedPipeline(engine_of(a), None), batch_size=BATCH)
+    wall_e = time.perf_counter() - t0
+    launches_e = launch_counts()
+    trace = sched.pipeline_trace
+    reqs_b = [types.SimpleNamespace(arrival_s=t, start_s=0.0, finish_s=0.0,
+                                    degraded=False) for t in arrive]
+    hand = [PipelineBatch(
+        queries=req_q[j:j + BATCH], query_embs=np.stack(req_rows[j:j + BATCH]),
+        arrival_s=max(arrive[j:j + BATCH]), slos=slos[j:j + BATCH],
+        requests=reqs_b[j:j + BATCH], tenants=req_names[j:j + BATCH])
+        for j in range(0, PIPE_REQUESTS, BATCH)]
+    t0 = time.perf_counter()
+    resp_b, trace_b = StagedPipeline(engine_of(b_), None).run(hand)
+    wall_hand = time.perf_counter() - t0
+    flat_b = [r for rs in resp_b for r in rs]
+    check([r.chunk_ids for r in sched.pipeline_responses]
+          == [r.chunk_ids for r in flat_b]
+          and len(flat_b) == PIPE_REQUESTS, "tenancy (e): run_pipelined's "
+          "ids differ from the hand-built batches'")
+    check(len(scores_a) == len(scores_b) == PIPE_REQUESTS // BATCH and all(
+              np.array_equal(ia, ib) and np.array_equal(va, vb)
+              for (ia, va), (ib, vb) in zip(scores_a, scores_b)),
+          "tenancy (e): run_pipelined's scores not bitwise the hand-built "
+          "batches'")
+    check(trace.as_dict() == trace_b.as_dict() and trace.replans == 0,
+          "tenancy (e): run_pipelined's trace differs from the hand-built "
+          "batches' or replanned")
+    check([(r.start_s, r.finish_s, r.degraded) for r in sched.completed]
+          == [(r.start_s, r.finish_s, r.degraded) for r in reqs_b],
+          "tenancy (e): request stamps differ from the hand-built batches'")
+    want = want_counts(ivf=sum(len(set(x.tenants)) for x in hand),
+                       fp32=trace.stages["s3"].n_fired)
+    check(launches_e == want and trace.stages["s3"].n_fired == len(hand),
+          f"tenancy (e): launches {launches_e}; want {want}")
+    del a, b_
+
+    # ---- (f) int8: both tenants' stored clusters in one int8 launch ------
+    r8, c8 = router(dev, codec="int8"), router("cpu", codec="int8")
+    packed, pack = [], r8.resolver.pack_slab
+
+    def pack_logged(*args):
+        packed.append(pack(*args))
+        return packed[-1]
+    r8.resolver.pack_slab = pack_logged
+    tn, embs = batches[0]
+    zero_launches()
+    ids, _, lats = r8.search_batch(embs, K, NPROBE, tenants=tn)
+    launches_f = launch_counts()
+    int8_tenants = sorted({key[0] for seg in packed[0].segments
+                           if seg.kind == "int8" for key in seg.clusters})
+    check(launches_f["slab_topk"]["int8"] == 1
+          and launches_f["slab_topk"]["fp32"] <= 1
+          and launches_f["ivf_topk"] == len(TENANTS)
+          and int8_tenants == sorted(TENANTS),
+          f"tenancy (f): launches {launches_f}, int8 segment of tenants "
+          f"{int8_tenants}")
+    c_ids, c_vals, c_lats = c8.search_batch(embs, K, NPROBE, tenants=tn)
+    swaps_f, mismatches = near_tie_mismatches(ids, c_ids, c_vals)
+    check(mismatches == 0 and tier_decisions(c_lats) == tier_decisions(lats),
+          f"tenancy (f): {mismatches} ids differ from the CPU int8 router "
+          f"outside near-ties, or its tier decisions differ")
+
+    n_rows = {t: sum(len(x[0]) for x in log.calls) for t, log in logs.items()}
+    return {"phase": "tenancy", "tenants": {
+                t: {"records": d.n, "nlist": len(c), "slo_s": d.spec.slo_s,
+                    "stored_bytes_alone": stored[t],
+                    "stored_bytes_in_router": st["per_tenant"][t],
+                    "regenerated_rows": n_rows.get(t, 0)}
+                for t, (d, c, _) in data.items()},
+            "scidocs_kmeans_cpu_s": sci_cluster_s,
+            "budget_bytes": budget,
+            "budget_rule": "fiqa's standalone stored bytes + half of "
+                           "scidocs'",
+            "put_rejected": st["put_rejected"],
+            "requests_per_batch": [{t: tn.count(t) for t in TENANTS}
+                                   for tn, _ in batches],
+            "fused_wall_s_per_batch": walls["fused"],
+            "silo_wall_s_per_batch": walls["silos"],
+            "cache_hit_rate": card_st["cache"]["hit_rate"],
+            "cpu_match": True, "near_tie_swaps": swaps,
+            "metrics": metrics,
+            "engine": {"wall_s": wall_d, "launches": launches_d,
+                       "new_tokens": TENANCY_NEW_TOKENS,
+                       "near_tie_swaps": swaps_d},
+            "run_pipelined": {"requests": PIPE_REQUESTS,
+                              "wall_s": wall_e, "hand_built_wall_s":
+                              wall_hand, "launches": launches_e,
+                              "outcomes": sched.outcome_counts(),
+                              "trace": trace.as_dict()},
+            "int8": {"launches": launches_f, "near_tie_swaps": swaps_f},
+            "launches": add_counts(add_counts(launches_a, launches_d),
+                                   launches_e),
+            "record": rec.first[None],
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def set_mismatches(ids, vals, ref_ids, ref_vals) -> tuple:
     """(swaps, mismatches) of two top-k id lists compared as sets, query by
     query: an id in one list and not the other is a swap across the top-k's
@@ -3573,6 +3980,10 @@ def main() -> int:
                              "main_assign": assign, **reuse})
     del reuse
     emit(sched)
+    ten = tenancy({"ds": ds, "cost": cost, "dev": dev, "gen": gen,
+                   "main_centroids": index.centroids, "main_assign": assign})
+    ten_call = ten.pop("record")
+    emit(ten)
     by_row = launch_rows([
         ("main_path", {**launches, "slab_topk": main_by_mode,
                        "flash_attention": main_by_mask}, False),
@@ -3586,6 +3997,7 @@ def main() -> int:
         ("scheduler_run", sched["run"]["launches"], False),
         ("scheduler_run_pipelined", sched["run_pipelined"]["launches"],
          True),
+        ("tenancy", ten["launches"], False),
         ("baselines", {"ivf_topk": base["ivf"]["launches"],
                        "ivf_topk_flat": base["flat"]["launches"]}, False)])
 
@@ -3657,20 +4069,7 @@ def main() -> int:
                                "ids_checked": nf}
 
     # slab_topk (fp32)
-    member = v2 < NOT_PROBED
-    n_valid = member.sum(1)
-    lane = torch.arange(k2, device=dev)[None, :] < n_valid[:, None]
-    tol2 = score_tol(e2, q2)
-    kv, kr = slab_topk(e2, q2, v2, k2)
-    pv, pr = slab_topk_ref(e2, q2, v2, k2)
-    err2 = float((kv - pv)[lane].abs().max())
-    check(err2 <= tol2, f"slab_topk error {err2} > {tol2}")
-    full2 = torch.where(member, q2.double() @ e2.double().T,
-                        NEG_INF).cpu().numpy()
-    n2 = isolated_ids_equal(torch.where(lane, kv, NEG_INF).cpu().numpy(),
-                            torch.where(lane, kr, -1).cpu().numpy(),
-                            torch.where(lane, pr, -1).cpu().numpy(), full2,
-                            tol2)
+    report["slab_topk"] = check_slab_fp32(e2, q2, v2, k2, "slab_topk")
     ei, qi_ = rint(e2.shape, -3, 4), rint(q2.shape, -2, 3)
     a, b = slab_topk(ei, qi_, v2, k2), slab_topk_ref(ei, qi_, v2, k2)
     check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
@@ -3680,10 +4079,6 @@ def main() -> int:
         slab_topk_ref(ones, torch.ones_like(q2), v2, k2)
     check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
           "slab_topk all-tie rows")
-    for i in range(q2.shape[0]):
-        s = slab_topk(e2, q2[i:i + 1], v2[i:i + 1], k2)
-        check(torch.equal(s[0][0], kv[i]) and torch.equal(s[1][0], kr[i]),
-              "slab_topk batch != sequential")
     ev, er = slab_topk(e2[:0], q2, v2[:, :0], k2)
     check(bool(torch.isinf(ev).all() and (er == ROW_PAD).all()),
           "slab_topk empty slab")
@@ -3691,9 +4086,10 @@ def main() -> int:
     b = slab_topk_ref(ei[:5], qi_, v2[:, :5].contiguous(), 5)
     check(bool((a[1][:, 5:] == ROW_PAD).all()
                and torch.equal(a[1][:, :5], b[1])), "slab_topk k > N")
-    report["slab_topk"] = {"max_abs_err": err2, "tol": tol2,
-                           "ids_checked": n2,
-                           "member_pairs": int(member.sum())}
+    # the fused call of tenancy (a)'s first batch: both tenants' clusters
+    (et, qt, vt, kt), _ = ten_call
+    report["slab_topk_tenancy"] = check_slab_fp32(et, qt, vt, kt,
+                                                  "slab_topk (tenancy)")
     for mode in CODECS:
         (e, q, v, k), kw = rec_slab.first[mode]
         report[f"slab_topk_{mode}"] = check_quantized(mode, e, q, v, k, kw,
@@ -3760,10 +4156,13 @@ def main() -> int:
          ["device_ms_per_call"]})
     for mode, ((e, q, v, k), kw) in slab_inputs.items():
         name = "slab_topk" if mode == "fp32" else f"slab_topk_{mode}"
-        n_launch = (n_path("slab_topk") if mode == "fp32" else
-                    codecs[CODECS.index(mode)]["launches"][mode])
         if mode != "fp32":
-            by_row[name] = {"codec_paths": n_launch}
+            by_row[name] = {"codec_paths":
+                            codecs[CODECS.index(mode)]["launches"][mode]}
+            if mode == "int8":
+                by_row[name]["tenancy"] = ten["int8"]["launches"][
+                    "slab_topk"]["int8"]
+        n_launch = n_path(name)
         kernels.append(slab_row(mode, e, q, v, k, kw, n_launch,
                                 report[name]["max_abs_err"], calls[name],
                                 topk_dev))

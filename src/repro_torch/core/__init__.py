@@ -6,6 +6,11 @@ Index zoo (Table 4):
   EdgeRAGIndex           pruned second level + selective storage (Alg. 1)
                          + cost-aware caching (Alg. 2/3); flags give the
                          IVF+Gen / IVF+Gen+Load ablations
+
+Multi-tenancy:
+  TenantRouter           many indexes on one shared storage / cache /
+                         maintenance substrate, mixed batches fused into
+                         one slab launch per storage representation
 """
 from repro_torch.core.cache_policy import (CostAwareLFUCache,  # noqa
                                            MinLatencyThresholdController)
@@ -22,3 +27,4 @@ from repro_torch.core.maintenance import (MaintenanceOp,  # noqa
                                           MaintenanceScheduler)
 from repro_torch.core.resolver import ClusterResolver, ResolutionPlan  # noqa
 from repro_torch.core.storage import StorageBackend  # noqa
+from repro_torch.core.tenant import TenantRouter  # noqa

@@ -5,8 +5,10 @@ the host in numpy, as in the JAX package; the centroid probe (``topk_ip``),
 k-means and the slab scoring (``slab_topk``) run on the index's ``device``
 (the card unless ``device="cpu"``).  Stored clusters may use any storage
 codec (``storage_codec=`` fp32 / fp16 / int8 / pq, ``storage_mode=`` memory /
-disk / memmap); the sharded ``mesh=`` route, durability and tenancy come
-with later slices.
+disk / memmap), or a storage backend and cache handed in (``storage=``,
+``cache=``: a :class:`~repro_torch.core.tenant.TenantRouter`'s tenant
+views); the sharded ``mesh=`` route and durability come with later
+slices.
 
 Improves the two-level IVF index for memory-constrained serving:
 
@@ -121,7 +123,7 @@ from repro_torch.core.pq import PQCodebook, pq_luts
 from repro_torch.core.resolver import (ClusterResolver, ResolutionPlan,
                                        SlabPayload)
 from repro_torch.core.storage import StorageBackend
-from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.device import DeviceLike, resolve_device, same_device
 from repro_torch.kernels.ivf_topk.ops import topk_ip
 from repro_torch.kernels.slab_topk.ops import NOT_PROBED, slab_topk
 
@@ -282,7 +284,8 @@ class EdgeRAGIndex:
                  merge_min_size: int = 2,
                  maintenance: str = "sync",
                  maintenance_budget_s: Optional[float] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 storage=None, cache=None):
         assert maintenance in ("sync", "deferred"), maintenance
         self.device = resolve_device(device)
         self.dim = dim
@@ -291,12 +294,25 @@ class EdgeRAGIndex:
         self.cost = cost_model or EdgeCostModel()
         self.slo_s = slo_s
         self.store_heavy = store_heavy
-        if cache_bytes is None:
-            cache_bytes = int(0.07 * self.cost.device_memory_bytes)  # §6.3.4
-        self.cache = CostAwareLFUCache(cache_bytes)
+        # ``storage`` / ``cache`` inject SHARED substrates (a TenantRouter's
+        # TenantStorageView / TenantCacheView); None keeps the owned ones
+        if cache is not None:
+            self.cache = cache
+        else:
+            if cache_bytes is None:
+                cache_bytes = int(0.07 * self.cost.device_memory_bytes)
+            self.cache = CostAwareLFUCache(cache_bytes)            # §6.3.4
         self.threshold = MinLatencyThresholdController()
-        self.storage = StorageBackend(storage_mode, root=storage_root,
-                                      codec=storage_codec, device=self.device)
+        if storage is None:
+            storage = StorageBackend(storage_mode, root=storage_root,
+                                     codec=storage_codec, device=self.device)
+        else:
+            st_dev = torch.device("cuda" if storage.device is None
+                                  else storage.device)
+            if not same_device(st_dev, self.device):
+                raise ValueError(
+                    f"storage on {st_dev} for an index on {self.device}")
+        self.storage = storage
         self.resolver = ClusterResolver(self)
         self.centroids: Optional[np.ndarray] = None
         self.clusters: List[EdgeCluster] = []
@@ -351,11 +367,16 @@ class EdgeRAGIndex:
         if self.storage.codec == "pq":
             # codebook lifecycle: TRAIN AT BUILD on the full corpus, before
             # any Alg. 1 put encodes against it (a rebuild retrains — the
-            # version bump invalidates the cleared previous-corpus blobs)
-            if pq_codebook is None:
-                self.storage.train_pq(embeddings, seed=pq_seed)
-            else:
+            # version bump invalidates the cleared previous-corpus blobs).
+            # On a SHARED backend (TenantStorageView) the codebook belongs
+            # to the medium: the first tenant's build trains it and later
+            # tenants reuse it (retraining would invalidate their
+            # neighbours' blobs — that is retrain_pq's explicit job)
+            shared = hasattr(self.storage, "backend")
+            if pq_codebook is not None:
                 self.storage.install_pq(pq_codebook)
+            elif not (shared and self.storage.pq is not None):
+                self.storage.train_pq(embeddings, seed=pq_seed)
         self.centroids = np.array(centroids, np.float32)
         self.clusters = []
         self._chunk_cluster = {}

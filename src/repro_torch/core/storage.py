@@ -1,7 +1,7 @@
 """Second-level embedding storage backend with quantized codecs.
 
-Port of ``repro.core.storage`` (per-tenant keys and ``TenantStorageView``
-come with the tenancy slice).  Models the paper's split between DRAM
+Port of ``repro.core.storage``, without ``payload_crc`` and its per-key
+cache (the durability slice brings them).  Models the paper's split between DRAM
 (first-level centroids, cache) and SD-card storage (precomputed
 heavy-cluster embeddings).  The ``disk`` mode writes .npz files so
 persistence is real; the ``memory`` mode keeps payloads in a dict.  Either
@@ -56,6 +56,16 @@ re-persists it.  ``self.faults`` takes a
 temp file and ``os.replace``s it, so a crash never tears a blob.  The first
 on-disk write claims its ``(root, namespace)`` slot; a second live writer on
 the same slot raises instead of interleaving blobs.
+
+MULTI-TENANCY: a key is a bare cluster id or a ``(tenant, cid)`` tuple.
+Tuple keys land in ``tenant_<name>/cluster_<cid>.npz`` under the root on
+disk and are plain dict keys in memory; ``keys()`` lists both forms.
+:class:`TenantStorageView` gives one tenant an int-keyed facade over a
+shared backend (a :class:`~repro_torch.core.tenant.TenantRouter` holds one
+backend and hands each tenant a view, so one root keeps one writer).
+``budget_bytes`` is one quota over every key of the backend, all tenants
+together: a ``put`` past it stores nothing, returns 0 and counts in
+``io_stats["put_rejected"]``.
 """
 from __future__ import annotations
 
@@ -66,7 +76,7 @@ import tempfile
 import weakref
 import zipfile
 import zlib
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -82,11 +92,15 @@ CODECS = ("fp32", "fp16", "int8", "pq")
 MODES = ("memory", "disk", "memmap")
 _CODEBOOK_FILE = "pq_codebook.npz"
 _CLUSTER_FILE = re.compile(r"^cluster_(\d+)\.npz$")
+_TENANT_DIR = re.compile(r"^tenant_([A-Za-z0-9._-]+)$")
 # tmp files our writers leave behind when a put/train dies mid-write — the
 # only .tmp names clear() sweeps (foreign files stay)
 _STALE_TMP = re.compile(r"^(cluster_\d+\.npz|pq_codebook\.npz)\.tmp$")
 _NAMESPACE_RE = re.compile(r"^[A-Za-z0-9._-]*$")
 _CHECKSUM_KEY = "crc"
+
+#: blob key: a bare cluster id, or ``(tenant, cid)`` on a shared backend
+StorageKey = Union[int, Tuple[str, int]]
 
 
 def payload_checksum(payload: Dict[str, np.ndarray]) -> int:
@@ -133,8 +147,8 @@ class StorageBackend:
         self.pq_m = pq_m
         self.pq: Optional[PQCodebook] = None
         self.device = device            # where train_pq runs its Lloyd steps
-        self._mem: Dict[int, Dict[str, np.ndarray]] = {}
-        self._nbytes: Dict[int, int] = {}           # stored payload bytes
+        self._mem: Dict[StorageKey, Dict[str, np.ndarray]] = {}
+        self._nbytes: Dict[StorageKey, int] = {}    # stored payload bytes
         self.root: Optional[str] = None
         self._base: Optional[str] = None            # root[/namespace]
         if mode != "memory":
@@ -214,10 +228,14 @@ class StorageBackend:
         return cb
 
     # ---- filesystem (disk and memmap modes) ------------------------------------
-    def _path(self, key: int) -> str:
+    def _path(self, key: StorageKey) -> str:
         if self.root is None:
             raise RuntimeError(
                 "memory-mode StorageBackend has no filesystem root")
+        if isinstance(key, tuple):
+            tenant, cid = key
+            return os.path.join(self._base, f"tenant_{tenant}",
+                                f"cluster_{cid}.npz")
         return os.path.join(self._base, f"cluster_{key}.npz")
 
     def _claim_root(self):
@@ -247,7 +265,7 @@ class StorageBackend:
                 os.remove(tmp)
             raise
 
-    def _load(self, key: int) -> Optional[Dict[str, np.ndarray]]:
+    def _load(self, key: StorageKey) -> Optional[Dict[str, np.ndarray]]:
         """Raw physical read (checksum member included).  An unreadable
         disk blob raises :class:`CorruptPayloadError`."""
         if self.mode == "memory":
@@ -264,7 +282,7 @@ class StorageBackend:
             raise CorruptPayloadError(f"unreadable blob for key {key}: {e}")
 
     @staticmethod
-    def _load_memmap(path: str, key: int) -> Dict[str, np.ndarray]:
+    def _load_memmap(path: str, key: StorageKey) -> Dict[str, np.ndarray]:
         """Open an npz as read-only ``np.memmap`` views, one per member.
 
         ``np.savez`` stores members uncompressed (ZIP_STORED), so each
@@ -306,7 +324,7 @@ class StorageBackend:
             raise CorruptPayloadError(f"unreadable blob for key {key}: {e}")
 
     # ---- verified / retried reads ----------------------------------------
-    def _read_once(self, key: int, outcome: IOOutcome
+    def _read_once(self, key: StorageKey, outcome: IOOutcome
                    ) -> Optional[Dict[str, np.ndarray]]:
         """One read attempt: physical load, injected faults, checksum
         verification.  Returns the CRC-stripped payload, ``None`` for a
@@ -329,7 +347,7 @@ class StorageBackend:
         self.io_stats["verified"] += 1
         return body
 
-    def _load_checked(self, key: int, outcome: IOOutcome
+    def _load_checked(self, key: StorageKey, outcome: IOOutcome
                       ) -> Optional[Dict[str, np.ndarray]]:
         """Bounded retry-with-exponential-backoff around :meth:`_read_once`.
         Backoff is MODELED edge seconds recorded on ``outcome``."""
@@ -376,7 +394,7 @@ class StorageBackend:
         return None
 
     # ---- public API ------------------------------------------------------
-    def put(self, key: int, embeddings: np.ndarray) -> int:
+    def put(self, key: StorageKey, embeddings: np.ndarray) -> int:
         """Returns the stored byte size (payload bytes in memory mode, the
         file size in disk/memmap modes), or 0 if ``budget_bytes`` refused the write
         (nothing stored; the caller keeps the cluster on the regen path)."""
@@ -395,18 +413,19 @@ class StorageBackend:
         else:
             self._claim_root()
             path = self._path(key)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
             self._atomic_savez(path, stored)
             nbytes = os.stat(path).st_size
         self._nbytes[key] = nbytes
         return nbytes
 
-    def get(self, key: int) -> np.ndarray:
+    def get(self, key: StorageKey) -> np.ndarray:
         payload = self._load_checked(key, IOOutcome(key))
         if payload is None:
             raise KeyError(key)
         return self.decode(payload)
 
-    def get_many(self, keys: Sequence[int],
+    def get_many(self, keys: Sequence[StorageKey],
                  outcomes: Optional[List[IOOutcome]] = None
                  ) -> List[Optional[np.ndarray]]:
         """Batched load in ``keys`` order; a missing or exhausted key yields
@@ -414,7 +433,7 @@ class StorageBackend:
         return [None if p is None else self.decode(p)
                 for p in self.get_many_raw(keys, outcomes)]
 
-    def get_many_raw(self, keys: Sequence[int],
+    def get_many_raw(self, keys: Sequence[StorageKey],
                      outcomes: Optional[List[IOOutcome]] = None
                      ) -> List[Optional[Dict[str, np.ndarray]]]:
         """Batched load of the payload dicts as stored (read-only), in
@@ -427,7 +446,7 @@ class StorageBackend:
                 outcomes.append(o)
         return out
 
-    def delete(self, key: int):
+    def delete(self, key: StorageKey):
         self._nbytes.pop(key, None)
         if self.mode == "memory":
             self._mem.pop(key, None)
@@ -449,23 +468,37 @@ class StorageBackend:
             cb_path = os.path.join(self._base, _CODEBOOK_FILE)
             if os.path.exists(cb_path):
                 os.remove(cb_path)
-            for f in os.listdir(self._base):
-                if _STALE_TMP.match(f):
-                    os.remove(os.path.join(self._base, f))
+            for d in [self._base] + self._tenant_dirs():
+                for f in os.listdir(d):
+                    if _STALE_TMP.match(f):
+                        os.remove(os.path.join(d, f))
 
-    def __contains__(self, key: int) -> bool:
+    def __contains__(self, key: StorageKey) -> bool:
         if self.mode == "memory":
             return key in self._mem
         return os.path.exists(self._path(key))
 
-    def keys(self) -> List[int]:
+    def _tenant_dirs(self) -> List[str]:
+        """The ``tenant_<name>/`` subdirectories of the base directory."""
+        return [os.path.join(self._base, e) for e in os.listdir(self._base)
+                if _TENANT_DIR.match(e)
+                and os.path.isdir(os.path.join(self._base, e))]
+
+    def keys(self) -> List[StorageKey]:
         if self.mode == "memory":
             return list(self._mem)
-        # only our cluster_<n>.npz blobs: foreign files are not ours
-        return [int(m.group(1)) for m in
-                (_CLUSTER_FILE.match(f) for f in os.listdir(self._base)) if m]
+        # only our cluster_<n>.npz blobs, at the top and in tenant_<name>/
+        # subdirectories: foreign files are not ours
+        out: List[StorageKey] = [
+            int(m.group(1)) for m in
+            (_CLUSTER_FILE.match(f) for f in os.listdir(self._base)) if m]
+        for d in self._tenant_dirs():
+            tenant = _TENANT_DIR.match(os.path.basename(d)).group(1)
+            out += [(tenant, int(m.group(1))) for m in
+                    (_CLUSTER_FILE.match(f) for f in os.listdir(d)) if m]
+        return out
 
-    def stored_bytes(self, key: int) -> int:
+    def stored_bytes(self, key: StorageKey) -> int:
         """Stored bytes of one cluster (what a load streams)."""
         if key not in self._nbytes:       # e.g. fresh instance on an old root
             if self.mode == "memory":
@@ -483,3 +516,120 @@ class StorageBackend:
 
     def total_bytes(self) -> int:
         return sum(self.stored_bytes(k) for k in self.keys())
+
+    def tenant_bytes(self, tenant: str) -> int:
+        """Stored bytes under one tenant's ``(tenant, cid)`` keys."""
+        return sum(self.stored_bytes(k) for k in self.keys()
+                   if isinstance(k, tuple) and k[0] == tenant)
+
+
+class TenantStorageView:
+    """One tenant's int-keyed facade over a SHARED :class:`StorageBackend`.
+
+    Every cluster id becomes ``(tenant, cid)`` before it reaches the
+    backend, so an :class:`~repro_torch.core.edgerag.EdgeRAGIndex` holding
+    a view does not see its neighbours while all tenants' blobs share the
+    backend's one ``budget_bytes``.  ``keys`` / ``clear`` / ``stored_bytes``
+    / ``total_bytes`` are scoped to the tenant; ``mode``, ``codec``,
+    ``root``, ``device``, ``io_stats``, ``faults`` and the PQ codebook are
+    the backend's (one storage medium: faults, IO accounting and the
+    codebook are physical, not per tenant)."""
+
+    def __init__(self, backend: StorageBackend, tenant: str):
+        self.backend = backend
+        self.tenant = str(tenant)
+
+    def _k(self, cid: int) -> Tuple[str, int]:
+        return (self.tenant, int(cid))
+
+    # shared physical properties ------------------------------------------
+    @property
+    def mode(self) -> str:
+        return self.backend.mode
+
+    @property
+    def codec(self) -> str:
+        return self.backend.codec
+
+    @property
+    def root(self) -> Optional[str]:
+        return self.backend.root
+
+    @property
+    def device(self) -> DeviceLike:
+        return self.backend.device
+
+    @property
+    def io_stats(self) -> Dict[str, float]:
+        return self.backend.io_stats
+
+    @property
+    def faults(self) -> Optional[FaultInjector]:
+        return self.backend.faults
+
+    @faults.setter
+    def faults(self, injector: Optional[FaultInjector]):
+        self.backend.faults = injector
+
+    @property
+    def pq(self) -> Optional[PQCodebook]:
+        """The SHARED product-quantization codebook."""
+        return self.backend.pq
+
+    def train_pq(self, embeddings: np.ndarray, **kw) -> PQCodebook:
+        return self.backend.train_pq(embeddings, **kw)
+
+    def install_pq(self, cb: PQCodebook) -> PQCodebook:
+        return self.backend.install_pq(cb)
+
+    # key-mapped blob API --------------------------------------------------
+    def put(self, cid: int, embeddings: np.ndarray) -> int:
+        return self.backend.put(self._k(cid), embeddings)
+
+    def get(self, cid: int) -> np.ndarray:
+        try:
+            return self.backend.get(self._k(cid))
+        except KeyError:
+            raise KeyError(cid)
+
+    def get_many(self, cids: Sequence[int],
+                 outcomes: Optional[List[IOOutcome]] = None
+                 ) -> List[Optional[np.ndarray]]:
+        return self.backend.get_many([self._k(c) for c in cids], outcomes)
+
+    def get_many_raw(self, cids: Sequence[int],
+                     outcomes: Optional[List[IOOutcome]] = None
+                     ) -> List[Optional[Dict[str, np.ndarray]]]:
+        return self.backend.get_many_raw([self._k(c) for c in cids],
+                                         outcomes)
+
+    def delete(self, cid: int):
+        self.backend.delete(self._k(cid))
+
+    def __contains__(self, cid: int) -> bool:
+        return self._k(cid) in self.backend
+
+    def keys(self) -> List[int]:
+        return [k[1] for k in self.backend.keys()
+                if isinstance(k, tuple) and k[0] == self.tenant]
+
+    def clear(self):
+        """Drop THIS tenant's blobs only (its index rebuilds)."""
+        for cid in self.keys():
+            self.delete(cid)
+
+    def stored_bytes(self, cid: int) -> int:
+        try:
+            return self.backend.stored_bytes(self._k(cid))
+        except KeyError:
+            raise KeyError(cid)
+
+    def total_bytes(self) -> int:
+        return self.backend.tenant_bytes(self.tenant)
+
+    def decode(self, payload: Dict[str, np.ndarray]) -> np.ndarray:
+        return self.backend.decode(payload)
+
+    @staticmethod
+    def payload_rows(payload: Dict[str, np.ndarray]) -> int:
+        return StorageBackend.payload_rows(payload)

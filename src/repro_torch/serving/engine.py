@@ -5,7 +5,8 @@ generation on the generator's (the card unless ``device="cpu"``).  Decode
 goes through a :class:`~repro_torch.serving.batching.ContinuousBatcher`
 when ``answer_batch`` is given one (``batcher=``), else through
 :class:`GeneratorModel` one request at a time, as in the JAX engine.  The
-multi-tenant router (``tenants=``) comes with a later slice.
+engine may front a :class:`~repro_torch.core.tenant.TenantRouter`
+(``tenants=``): retrieval then fuses the mixed batch through the router.
 
 Ties the EdgeRAG index to the generation model.  TTFT = retrieval latency +
 prefill latency (paper §3.1); decode is measured but excluded from the
@@ -105,6 +106,8 @@ class BatchJob:
     decode_wall: float = 0.0
     retrieval_wall: float = 0.0
     maintenance_s: float = 0.0
+    tenants: Optional[List[str]] = None     # per-query tenant ids when the
+    #                                         engine fronts a TenantRouter
     queue_wait_s: float = 0.0               # set by a pipeline at S1 fire
     replans: int = 0                        # stale-plan S1 re-entries
     stage_edge_s: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -143,7 +146,8 @@ class RAGEngine:
                                                    List[str]]] = None,
                      *, batcher=None, prefetch: bool = False,
                      deadlines: Optional[Sequence[Optional[float]]] = None,
-                     policy: Optional[DegradationPolicy] = None
+                     policy: Optional[DegradationPolicy] = None,
+                     tenants: Optional[Sequence[str]] = None
                      ) -> List[RAGResponse]:
         """Batched serving path: one ``search_batch`` drives retrieval for
         the whole batch (cross-query cluster dedup + a single coalesced
@@ -168,12 +172,18 @@ class RAGEngine:
         ``search_batch``, which sheds work down the degradation ladder
         (core/faults.py) instead of blowing it.  Each response reports its
         ``outcome`` ("ok" / "degraded" / "missed") plus the shed counters.
+
+        ``tenants``: one tenant id per query (or a single id broadcast)
+        when ``index`` is a :class:`~repro_torch.core.tenant.TenantRouter`
+        — retrieval fuses the mixed batch through the router's shared slab
+        engine and ``get_chunks`` may be omitted (contexts route to each
+        query's own tenant corpus).
         """
         if not len(queries):
             return []
         job = self.make_job(queries, query_embs, get_chunks,
                             deadlines=deadlines, policy=policy,
-                            prefetch=prefetch)
+                            prefetch=prefetch, tenants=tenants)
         self.stage_plan(job)
         self.stage_fetch(job)
         self.stage_score(job)
@@ -196,19 +206,32 @@ class RAGEngine:
                                                List[str]]] = None,
                  *, deadlines: Optional[Sequence[Optional[float]]] = None,
                  policy: Optional[DegradationPolicy] = None,
-                 prefetch: bool = False) -> BatchJob:
+                 prefetch: bool = False,
+                 tenants: Optional[Sequence[str]] = None) -> BatchJob:
         """Wrap one batch as a :class:`BatchJob` for the staged path."""
         query_embs = np.atleast_2d(np.asarray(query_embs, np.float32))
         if deadlines is not None:
             assert len(deadlines) == len(queries), \
                 f"{len(deadlines)} deadlines for {len(queries)} queries"
             policy = policy or DegradationPolicy()
-        assert get_chunks is not None, "get_chunks is required"
+        if tenants is not None:
+            if isinstance(tenants, str):
+                tenants = [tenants] * len(queries)
+            tenants = [str(t) for t in tenants]
+            assert len(tenants) == len(queries), \
+                f"{len(tenants)} tenant ids for {len(queries)} queries"
+        else:
+            assert get_chunks is not None, \
+                "get_chunks is required without tenants"
         return BatchJob(queries=list(queries), query_embs=query_embs,
                         get_chunks=get_chunks,
                         deadlines=None if deadlines is None
                         else list(deadlines),
-                        policy=policy, prefetch=prefetch)
+                        policy=policy,
+                        prefetch=prefetch
+                        and (tenants is not None
+                             or hasattr(self.index, "plan_batch")),
+                        tenants=tenants)
 
     def stage_plan(self, job: BatchJob) -> BatchJob:
         """S1 — probe + plan: fused centroid top-k, tier planning, rung-1
@@ -225,19 +248,29 @@ class RAGEngine:
                 for d in job.deadlines]
             kw["deadlines"] = retrieval_deadlines
             kw["policy"] = job.policy
-        if job.prefetch:
-            kw["plan"] = self.index.plan_batch(
-                job.query_embs, self.nprobe, prefetch_storage=True,
-                deadlines=retrieval_deadlines, policy=job.policy,
-                query_chars=[len(q) for q in job.queries])
-            kw.pop("deadlines", None)    # the plan carries them already
-            kw.pop("policy", None)
-        job.state = self.index.search_begin(
-            job.query_embs, self.k, self.nprobe,
-            query_chars=[len(q) for q in job.queries], **kw)
+        if job.tenants is not None:
+            # TenantRouter path: the router plans per tenant (handling
+            # prefetch itself) and merges into one cross-tenant plan
+            job.state = self.index.search_begin(
+                job.query_embs, self.k, self.nprobe,
+                query_chars=[len(q) for q in job.queries],
+                tenants=job.tenants, deadlines=retrieval_deadlines,
+                policy=job.policy, prefetch=job.prefetch)
+        else:
+            if job.prefetch:
+                kw["plan"] = self.index.plan_batch(
+                    job.query_embs, self.nprobe, prefetch_storage=True,
+                    deadlines=retrieval_deadlines, policy=job.policy,
+                    query_chars=[len(q) for q in job.queries])
+                kw.pop("deadlines", None)    # the plan carries them already
+                kw.pop("policy", None)
+            job.state = self.index.search_begin(
+                job.query_embs, self.k, self.nprobe,
+                query_chars=[len(q) for q in job.queries], **kw)
         job.retrieval_wall += time.perf_counter() - t0
         lats = job.state.lats
-        # one fused centroid launch per batch
+        # one fused centroid launch per index in the batch: one for a
+        # standalone index, one PER TENANT through a router
         job.stage_edge_s["s1"] = (
             sum(lat.embed_query_s for lat in lats)
             + job.state.centroid_total_s)
@@ -269,7 +302,11 @@ class RAGEngine:
         nq = job.nq
         job.id_lists = [[int(i) for i in job.ids[qi] if i >= 0]
                         for qi in range(nq)]
-        job.contexts = [job.get_chunks(idl) for idl in job.id_lists]
+        if job.tenants is not None:
+            job.contexts = [self.index.get_chunks(t, idl)
+                            for t, idl in zip(job.tenants, job.id_lists)]
+        else:
+            job.contexts = [job.get_chunks(idl) for idl in job.id_lists]
         job.prompts = [" ".join(ctx + [q])
                        for ctx, q in zip(job.contexts, job.queries)]
         job.prefill_edge = [
@@ -362,7 +399,8 @@ class RAGEngine:
                                              List[str]]] = None,
                *, prefetch: bool = False,
                deadline_s: Optional[float] = None,
-               policy: Optional[DegradationPolicy] = None) -> RAGResponse:
+               policy: Optional[DegradationPolicy] = None,
+               tenant: Optional[str] = None) -> RAGResponse:
         """Single query — a batch of one through :meth:`answer_batch`
         (mirroring ``EdgeRAGIndex.search`` → ``search_batch``)."""
         query_embs = np.atleast_2d(np.asarray(query_emb, np.float32))
@@ -370,7 +408,8 @@ class RAGEngine:
         return self.answer_batch(
             [query], query_embs, get_chunks, prefetch=prefetch,
             deadlines=None if deadline_s is None else [deadline_s],
-            policy=policy)[0]
+            policy=policy,
+            tenants=None if tenant is None else [tenant])[0]
 
 
 class GeneratorModel:

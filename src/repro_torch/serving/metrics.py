@@ -1,9 +1,10 @@
 """Lightweight Prometheus-style serving metrics (no dependencies).
 
-Port of ``repro.serving.metrics``: the registry and the two collectors
-that read the scheduler and the staged pipeline.  The durability and
-tenant-router collectors (``collect_durability``, ``collect_router``) come
-with the port of those subsystems.
+Port of ``repro.serving.metrics``: the registry and the collectors that
+read the scheduler, the staged pipeline and the tenant router.
+``collect_durability`` comes with the port's durability slice, and
+``collect_router`` renders no durability samples until then (the port's
+indexes have no ``durability`` handle yet).
 
 The serving layer needs per-tenant observability — request outcomes, TTFT
 tails, queue waits, admission sheds, stage occupancy — in a form an
@@ -13,7 +14,8 @@ label sets, a :class:`MetricsRegistry` that renders the standard
 ``# HELP`` / ``# TYPE`` / sample-line format, and collectors that populate
 a registry from the serving objects the port produces
 (:class:`~repro_torch.serving.scheduler.RequestScheduler`,
-:class:`~repro_torch.serving.pipeline.PipelineTrace`).
+:class:`~repro_torch.serving.pipeline.PipelineTrace`,
+:class:`~repro_torch.core.tenant.TenantRouter`).
 
 Metric names follow Prometheus conventions (``_total`` counters, base-unit
 ``_seconds``); histograms expose cumulative ``_bucket`` samples with an
@@ -275,3 +277,42 @@ def collect_pipeline_trace(reg: MetricsRegistry, trace) -> MetricsRegistry:
               "Stale-plan S1 re-entries").set(trace.replans)
     return reg
 
+
+def collect_router(reg: MetricsRegistry, router) -> MetricsRegistry:
+    """Shared-substrate state from a :class:`TenantRouter`: per-tenant
+    cache hits/misses/bytes, storage bytes, maintenance backlog.  The
+    reference adds each tenant's durability samples here; the port's
+    indexes carry no durability handle until the durability slice, so
+    there are none to add."""
+    hits = reg.counter("edgerag_cache_hits_total",
+                       "Shared-cache hits by tenant")
+    misses = reg.counter("edgerag_cache_misses_total",
+                         "Shared-cache misses by tenant")
+    evics = reg.counter("edgerag_cache_evictions_total",
+                        "Shared-cache evictions by tenant")
+    cbytes = reg.gauge("edgerag_cache_bytes",
+                       "Resident shared-cache bytes by tenant")
+    sbytes = reg.gauge("edgerag_storage_bytes",
+                       "Stored bytes by tenant")
+    pend = reg.gauge("edgerag_maintenance_pending",
+                     "Deferred-maintenance ops queued by tenant")
+    medge = reg.gauge("edgerag_maintenance_edge_seconds_total",
+                      "Fair-share maintenance edge seconds by tenant")
+    for t, ix in router.tenants.items():
+        labels = {"tenant": t}
+        st = router.cache.per_tenant.get(t)
+        if st is not None:
+            hits.inc(st["hits"], labels=labels)
+            misses.inc(st["misses"], labels=labels)
+            evics.inc(st["evictions"], labels=labels)
+            cbytes.set(st["bytes"], labels=labels)
+        sbytes.set(router.storage.tenant_bytes(t), labels=labels)
+        pend.set(len(ix.maintenance), labels=labels)
+        medge.set(router.maintenance.per_tenant_edge_s.get(t, 0.0),
+                  labels=labels)
+    reg.gauge("edgerag_cache_capacity_bytes",
+              "Shared cache byte budget").set(router.cache.capacity_bytes)
+    reg.gauge("edgerag_memory_bytes",
+              "Device-resident index bytes (centroids + shared cache)"
+              ).set(router.memory_bytes())
+    return reg

@@ -2,9 +2,10 @@
 
 Port of ``repro.serving.pipeline``.  It touches no tensor: the engine's
 index and generator (or batcher) carry the device, so the stages' real
-work runs on the card unless they were made with ``device="cpu"``.  The
-per-query tenant route (``PipelineBatch.tenants``) comes with the
-multi-tenant router in a later slice.
+work runs on the card unless they were made with ``device="cpu"``.  A
+batch may carry one tenant id a query (``PipelineBatch.tenants``) when the
+engine fronts a :class:`~repro_torch.core.tenant.TenantRouter`: its S1
+probes each tenant present and its S3 scores them all in one launch.
 
 The sequential ``RAGEngine.answer_batch`` runs retrieve-then-decode strictly
 in order, so the accelerator sits idle during storage I/O and the storage
@@ -99,6 +100,8 @@ class PipelineBatch:
     slos: Optional[List[Optional[float]]] = None   # per-query TTFT SLOs
     policy: Optional[DegradationPolicy] = None
     requests: Optional[List[object]] = None        # scheduler Requests
+    tenants: Optional[List[str]] = None            # per-query tenant ids
+    #                                      (engine fronting a TenantRouter)
 
 
 @dataclasses.dataclass
@@ -271,7 +274,8 @@ class StagedPipeline:
             _InFlight(batch=b,
                       job=eng.make_job(b.queries, b.query_embs,
                                        self.get_chunks,
-                                       deadlines=b.slos, policy=b.policy),
+                                       deadlines=b.slos, policy=b.policy,
+                                       tenants=b.tenants),
                       ready_at=b.arrival_s)
             for b in batches]
         stage_free = {s: 0.0 for s in STAGES}

@@ -2,9 +2,9 @@
 
 Port of ``repro.serving.scheduler``.  It touches no tensor: ``serve_fn``
 (``run``) and the pipeline's engine (``run_pipelined``) carry the device.
-``run_pipelined`` refuses tenant-tagged requests: the per-query tenant
-route (``PipelineBatch.tenants``) comes with the port of the multi-tenant
-router (``core/tenant.py``).
+``run_pipelined`` hands each batch's tenant tags to the pipeline
+(``PipelineBatch.tenants``), so a tagged stream is served by a pipeline
+whose engine fronts a :class:`~repro_torch.core.tenant.TenantRouter`.
 
 EdgeRAG is a single-user edge system, so the paper's serving loop is one
 query at a time; the scheduler still models arrival queues and SLO misses so
@@ -249,20 +249,9 @@ class RequestScheduler:
         (decode-stage entry / first token out) and the run's
         :class:`~repro_torch.serving.pipeline.PipelineTrace` lands on
         ``self.pipeline_trace``.
-
-        Raises ``ValueError``, with the queue untouched, when a queued
-        request carries a tenant: the port's ``PipelineBatch`` has no
-        per-query tenant route yet, and dropping the tags would serve
-        every tenant from one index.
         """
         from repro_torch.serving.pipeline import PipelineBatch
 
-        tagged = sorted({r.tenant for r in self._queue if r.tenant})
-        if tagged:
-            raise ValueError(
-                f"run_pipelined: requests tagged with tenants {tagged}; "
-                f"the per-query tenant route comes with the port of the "
-                f"multi-tenant router (core/tenant.py)")
         reqs = []
         while self._queue:
             req = heapq.heappop(self._queue)
@@ -279,6 +268,7 @@ class RequestScheduler:
                     req.pre_degraded = True
             reqs.append(req)
         batches = []
+        any_tenant = any(r.tenant for r in reqs)
         for i in range(0, len(reqs), batch_size):
             group = reqs[i:i + batch_size]
             batches.append(PipelineBatch(
@@ -287,7 +277,8 @@ class RequestScheduler:
                 arrival_s=max(r.arrival_s for r in group),
                 slos=[r.slo_s for r in group],
                 policy=policy,
-                requests=group))
+                requests=group,
+                tenants=[r.tenant for r in group] if any_tenant else None))
         responses, trace = pipeline.run(batches)
         self.pipeline_trace = trace
         self.maintenance_s += (trace.maintenance_in_bubbles_s

@@ -38,6 +38,7 @@ def test_importing_every_module_loads_no_jax_or_repro():
                  "repro_torch.serving.scheduler",
                  "repro_torch.serving.metrics",
                  "repro_torch.core.flat_index", "repro_torch.core.ivf_index",
+                 "repro_torch.core.tenant",
                  "repro_torch.serving.simulator"):
         assert name in mods
     code = ("import importlib, sys\n"

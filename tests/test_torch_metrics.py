@@ -8,14 +8,24 @@ render byte-equal text, give the same ``value`` / ``count`` / ``sum`` /
 held on scheduler runs: ``collect_scheduler`` on the admission case of
 ``tests/test_metrics.py`` here, and ``collect_scheduler`` /
 ``collect_pipeline_trace`` on every run of ``tests/test_torch_scheduler.py``
-there.  The durability and tenant-router collectors are not ported yet.
+there.  ``collect_router`` renders byte-equal text from the JAX router
+and a port router on its clustering after the same traffic; the
+durability collector is not ported yet.
 """
 import pytest
 
 pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
+from repro.core import EdgeCostModel as JaxCost  # noqa: E402
+from repro.core import TenantRouter as JaxRouter  # noqa: E402
+from repro.data import generate_dataset as jax_dataset  # noqa: E402
 from repro.serving import metrics as jax_metrics  # noqa: E402
 from repro.serving import scheduler as jax_sched  # noqa: E402
+from repro_torch.convert import index_state_from_numpy  # noqa: E402
+from repro_torch.core import EdgeCostModel, TenantRouter  # noqa: E402
+from repro_torch.data import generate_dataset  # noqa: E402
 from repro_torch.serving import metrics  # noqa: E402
 from repro_torch.serving import scheduler  # noqa: E402
 
@@ -145,3 +155,38 @@ def test_collect_scheduler_counts_and_admission():
         assert served + counts["rejected"] == 10
         texts.append(reg.render())
     assert texts[0] == texts[1]
+
+
+def test_collect_router_renders_like_jax():
+    """Two tenants on a shared cache small enough to evict, a storage
+    budget that refuses puts, two rounds of traffic each and one online
+    insert left queued: the same router text from both packages."""
+    data = [dict(n_records=200, dim=16, n_topics=6, n_queries=6,
+                 seed=60 + t) for t in range(2)]
+    kw = dict(slo_s=0.002, cache_bytes=6_000, storage_budget_bytes=12_000)
+    jr = JaxRouter(16, JaxCost(), **kw)
+    pr = TenantRouter(16, EdgeCostModel(), device="cpu", **kw)
+    sides = []
+    for t, d in enumerate(data):
+        jds, ds = jax_dataset(**d), generate_dataset(**d)
+        jix = jr.create_tenant(f"t{t}", jds.embedder, jds.get_chunks)
+        assign = jix.build(jds.chunk_ids, jds.texts, nlist=8,
+                           embeddings=jds.embeddings, seed=1)
+        index_state_from_numpy(
+            pr.create_tenant(f"t{t}", ds.embedder, ds.get_chunks),
+            jix.centroids, assign, ds.chunk_ids, ds.texts, ds.embeddings)
+        sides.append((jds, ds))
+    texts = []
+    for router, side, m in ((jr, 0, jax_metrics), (pr, 1, metrics)):
+        for _ in range(2):
+            for t in range(2):
+                router.search_batch(sides[t][side].query_embs, 5, 3,
+                                    tenants=f"t{t}")
+        emb = np.ones(16, np.float32) / 4.0
+        sides[0][side].add_chunk(10_000, "doc-10000 " + "tok " * 40, emb)
+        router.tenant("t0").insert(10_000, "doc-10000 " + "tok " * 40)
+        texts.append(m.collect_router(m.MetricsRegistry(), router).render())
+    assert pr.storage.io_stats["put_rejected"] > 0
+    assert any(st["evictions"] for st in pr.cache.per_tenant.values())
+    assert "edgerag_storage_bytes{tenant=\"t1\"}" in texts[1]
+    assert texts[1] == texts[0]

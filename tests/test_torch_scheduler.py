@@ -18,7 +18,8 @@ The cases: the scheduler tests of the JAX suite
 ``test_maintenance.py::test_request_scheduler_maintenance_hook`` and the
 five admission tests of ``test_tenant.py``), a seeded fuzz over 200
 traces, and ``run_pipelined`` at ``tests/test_pipeline.py``'s sizes with
-and without admission.
+and without admission, and on tenant-tagged requests over a
+``TenantRouter``.
 """
 import dataclasses
 import importlib.util
@@ -35,6 +36,7 @@ import jax  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.core import EdgeCostModel as JaxCost  # noqa: E402
 from repro.core import EdgeRAGIndex as JaxIndex  # noqa: E402
+from repro.core import TenantRouter as JaxRouter  # noqa: E402
 from repro.data import generate_dataset as jax_dataset  # noqa: E402
 from repro.models import init_params as jax_init_params  # noqa: E402
 from repro.serving import metrics as jax_metrics  # noqa: E402
@@ -46,7 +48,8 @@ from repro.serving.pipeline import StagedPipeline as JaxPipeline  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import (index_state_from_numpy,  # noqa: E402
                                  params_from_jax)
-from repro_torch.core import EdgeCostModel, EdgeRAGIndex  # noqa: E402
+from repro_torch.core import (EdgeCostModel, EdgeRAGIndex,  # noqa: E402
+                              TenantRouter)
 from repro_torch.data import generate_dataset  # noqa: E402
 from repro_torch.serving import (ContinuousBatcher, RAGEngine,  # noqa: E402
                                  StagedPipeline)
@@ -453,24 +456,89 @@ def test_run_pipelined_matches_jax(admission, batcher_params):
 
 
 # ----------------------------------------------------------------------
-# tenant-tagged requests: refused, never dropped
+# tenant-tagged requests through a TenantRouter
 # ----------------------------------------------------------------------
-def test_run_pipelined_refuses_tenants():
-    ran = []
-    pipe = types.SimpleNamespace(run=lambda batches: ran.append(batches))
+def _router_pair():
+    """(JAX router, port router on the CPU) with tenants "a" and "b", two
+    corpora at ``DATA``'s sizes (seeds 5 and 6), each JAX tenant's
+    clustering loaded into the port's; and the datasets per package."""
+    routers, sets = {}, {}
+    for name in PACKAGES:
+        port = name == "port"
+        kw = dict(slo_s=SLO_S, cache_bytes=1 << 20)
+        routers[name] = (TenantRouter(DIM, EdgeCostModel(), device="cpu",
+                                      **kw) if port else
+                         JaxRouter(DIM, JaxCost(), **kw))
+        sets[name] = {t: (generate_dataset if port else jax_dataset)(
+            **{**DATA, "seed": seed}) for t, seed in (("a", 5), ("b", 6))}
+    for t in ("a", "b"):
+        jds, ds = sets["jax"][t], sets["port"][t]
+        jix = routers["jax"].create_tenant(t, jds.embedder, jds.get_chunks)
+        assign = jix.build(jds.chunk_ids, jds.texts, nlist=NLIST,
+                           embeddings=jds.embeddings, seed=1)
+        index_state_from_numpy(
+            routers["port"].create_tenant(t, ds.embedder, ds.get_chunks),
+            jix.centroids, assign, ds.chunk_ids, ds.texts, ds.embeddings)
+    return routers, sets
+
+
+def test_run_pipelined_serves_tenants_like_jax(batcher_params):
+    """Tenant-tagged requests (tenants a and b behind per-tenant token
+    buckets; a zero SLO is shed as already blown) through
+    ``run_pipelined`` on a pipeline over a
+    ``TenantRouter``: every request's fields, the trace, the responses and
+    the collectors' text equal the JAX scheduler's, scores within TOL; and
+    ``run`` serves tenant-tagged requests through admission too."""
+    (jcfg, jparams), (cfg, params) = batcher_params
+    routers, sets = _router_pair()
+    out = {}
+    for name, (mod, mod_metrics) in PACKAGES.items():
+        port = name == "port"
+        router = routers[name]
+        batcher = (ContinuousBatcher(cfg, params, num_slots=2, max_len=48,
+                                     device="cpu") if port else
+                   JaxBatcher(jcfg, jparams, num_slots=2, max_len=48))
+        engine = (RAGEngine if port else JaxEngine)(
+            router, None, k=K, nprobe=NPROBE, max_new_tokens=6,
+            maintenance_owner="external")
+        pipe = (StagedPipeline if port else JaxPipeline)(
+            engine, None, batcher=batcher)
+        sched = mod.RequestScheduler(admission=mod.TokenBucketAdmission(
+            rate_per_s={"a": 4.0, "b": 8.0}, burst=2.0, mode="reject"))
+        for i, t in enumerate("aabababbaa"):
+            sched.submit(0.02 * i, query=f"q{i}",
+                         query_emb=sets[name][t].query_embs[i % QUERIES],
+                         query_chars=3 + i,
+                         slo_s=(30.0, 2.0, 0.3, 0.0)[i % 4], tenant=t)
+        scores = _scores(router)
+        sched.run_pipelined(pipe, batch_size=3)
+        reg = mod_metrics.collect_pipeline_trace(
+            mod_metrics.MetricsRegistry(), sched.pipeline_trace)
+        out[name] = dict(
+            state=_state(sched, mod_metrics),
+            trace=sched.pipeline_trace.as_dict(),
+            responses=[(r.chunk_ids, r.output_tokens, r.ttft_edge_s,
+                        r.queue_wait_s, r.outcome, r.context)
+                       for r in sched.pipeline_responses],
+            trace_metrics=reg.render(), scores=scores)
+    port, ref = out["port"], out["jax"]
+    p_scores, r_scores = port.pop("scores"), ref.pop("scores")
+    assert len(p_scores) == len(r_scores) > 0
+    for p, r in zip(p_scores, r_scores):
+        np.testing.assert_allclose(p, r, rtol=0, atol=TOL)
+    assert port == ref
+    served = [r for r in port["state"]["completed"] if r[-1] != "rejected"]
+    assert 0 < len(served) < 10 and len(port["responses"]) == len(served)
+    tenants = [r[REQUEST_FIELDS.index("tenant")] for r in served]
+    assert set(tenants) == {"a", "b"}
+    for (_, _, _, _, _, ctx), t in zip(port["responses"], tenants):
+        assert all(c in sets["port"][t].texts for c in ctx)
+    # run() keeps serving tenant-tagged requests through admission
     sched = scheduler.RequestScheduler(
         admission=scheduler.TokenBucketAdmission(rate_per_s=1.0))
     for i, tenant in enumerate(["", "a", "", "b"]):
         sched.submit(0.1 * (3 - i), query=f"q{i}",
                      query_emb=np.zeros(4, np.float32), tenant=tenant)
-    queue = list(sched._queue)
-    with pytest.raises(ValueError, match=r"tenants \['a', 'b'\]"):
-        sched.run_pipelined(pipe, batch_size=2)
-    assert sched._queue == queue and all(
-        a is b for a, b in zip(sched._queue, queue))
-    assert ran == [] and sched.completed == []
-    assert sched.admission.stats() == {} and sched.pipeline_trace is None
-    # run() keeps serving tenant-tagged requests through admission
     done = sched.run(lambda req: 0.01)
     assert [r.tenant for r in done] == ["b", "", "a", ""]
 

@@ -8,6 +8,9 @@
 * A root written by one package reads back in the other, the PQ codebook
   file (``pq_codebook.npz``) and each blob's ``cbv`` stamp included.
 * A stale ``cbv`` is quarantined without retries.
+* ``(tenant, cid)`` keys in every mode, the shared byte budget and
+  ``TenantStorageView`` behave as the JAX package's, and a root holding
+  several tenants' blobs reads back in the other package.
 * Byte accounting equals the JAX package's for the same payloads, and the
   memmap mode keeps the reference's lifecycle contract (views, no leaked
   handles, nothing left behind).
@@ -25,7 +28,8 @@ from repro.models.quantization import dequantize_rows as jax_dequant  # noqa: E4
 from repro.models.quantization import quantize_rows as jax_quant  # noqa: E402
 from repro_torch.convert import pq_codebook_from_numpy  # noqa: E402
 from repro_torch.core.faults import IOOutcome  # noqa: E402
-from repro_torch.core.storage import StaleCodebookError, StorageBackend  # noqa: E402
+from repro_torch.core.storage import (StaleCodebookError,  # noqa: E402
+                                      StorageBackend, TenantStorageView)
 from repro_torch.models.quantization import dequantize_rows, quantize_rows  # noqa: E402
 
 CODECS = ["fp32", "fp16", "int8", "pq"]
@@ -213,3 +217,130 @@ def test_memmap_lifecycle(tmp_path, n, d):
 def test_unknown_codec_or_mode_raises(kw):
     with pytest.raises(ValueError):
         StorageBackend(**kw)
+
+
+# ----------------------------------------------------------------------
+# multi-tenancy: (tenant, cid) keys, the shared budget, tenant views
+# ----------------------------------------------------------------------
+def _both(mode, tmp_path, **kw):
+    """A port and a JAX backend of one mode, on separate roots."""
+    roots = ({side: str(tmp_path / side) for side in ("port", "jax")}
+             if mode != "memory" else {})
+    return (StorageBackend(mode, root=roots.get("port"), device="cpu", **kw),
+            JaxStorage(mode, root=roots.get("jax"), **kw))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_tuple_keys_namespace_tenants(mode, tmp_path):
+    """(tenant, cid) keys coexist with bare-int keys, as in the JAX
+    package: on disk they land in tenant_<name>/ subdirectories and
+    ``keys()`` lists both forms; the same cid of two tenants is two
+    blobs."""
+    a, b = _emb(6, 12, 1), _emb(7, 12, 2)
+    for s in _both(mode, tmp_path):
+        s.put(3, _emb(5, 12, 0))
+        s.put(("alice", 3), a)
+        s.put(("bob", 3), b)                 # same cid, different tenant
+        assert set(s.keys()) == {3, ("alice", 3), ("bob", 3)}
+        assert np.array_equal(s.get(("alice", 3)), a)
+        assert np.array_equal(s.get(("bob", 3)), b)
+        if mode != "memory":
+            assert os.path.exists(
+                os.path.join(s.root, "tenant_alice", "cluster_3.npz"))
+        s.delete(("alice", 3))
+        assert ("alice", 3) not in s and ("bob", 3) in s and 3 in s
+    port, ref = _both(mode, tmp_path / "bytes")
+    for s in (port, ref):
+        s.put(("alice", 1), a)
+        s.put(("bob", 1), b)
+    assert port.tenant_bytes("alice") == ref.tenant_bytes("alice") > 0
+    assert port.total_bytes() == ref.total_bytes()
+
+
+def test_shared_budget_refuses_put():
+    """``budget_bytes`` is one quota over every tenant's keys: an
+    over-budget put stores nothing, returns 0 and counts in
+    ``put_rejected``; re-putting a key charges only the difference."""
+    emb = _emb(10, 64, 3)                    # 2560 B fp32
+    out = []
+    for s in _both("memory", None, budget_bytes=3 * emb.nbytes):
+        got = [s.put(("a", 0), emb), s.put(("a", 1), emb),
+               s.put(("b", 0), emb), s.put(("b", 1), emb)]
+        assert got == [emb.nbytes] * 3 + [0]
+        assert ("b", 1) not in s and s.io_stats["put_rejected"] == 1
+        assert s.total_bytes() == 3 * emb.nbytes
+        assert s.put(("a", 0), emb) == emb.nbytes
+        assert s.total_bytes() == 3 * emb.nbytes
+        out.append((got, dict(s.io_stats), s.tenant_bytes("a")))
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_tenant_view_scopes_keys_and_clear(mode, tmp_path):
+    """A view rewrites ids to its tenant's keys and scopes ``keys`` /
+    ``clear`` / ``total_bytes`` to them; the backend's ``mode``, ``codec``,
+    ``root``, ``device``, ``io_stats`` and ``faults`` show through."""
+    shared = StorageBackend(mode, root=str(tmp_path) if mode != "memory"
+                            else None, device="cpu")
+    va, vb = TenantStorageView(shared, "a"), TenantStorageView(shared, "b")
+    ea, eb = _emb(4, 12, 1), _emb(9, 12, 2)
+    va.put(0, ea)
+    va.put(1, ea)
+    vb.put(0, eb)
+    assert sorted(va.keys()) == [0, 1] and vb.keys() == [0]
+    assert np.array_equal(vb.get(0), eb)          # no cross-tenant bleed
+    sa, sb = shared.stored_bytes(("a", 0)), shared.stored_bytes(("b", 0))
+    assert sa >= ea.nbytes and sb >= eb.nbytes
+    assert va.total_bytes() == 2 * sa and vb.total_bytes() == sb
+    assert va.stored_bytes(1) == sa
+    with pytest.raises(KeyError):
+        vb.get(1)                                 # a's cid 1 is invisible
+    out = vb.get_many([0, 1])
+    assert np.array_equal(out[0], eb) and out[1] is None
+    raw = vb.get_many_raw([0])[0]
+    assert vb.payload_rows(raw) == 9 and np.array_equal(vb.decode(raw), eb)
+    assert (va.mode, va.codec, va.root, va.device, va.io_stats) == \
+        (shared.mode, shared.codec, shared.root, shared.device,
+         shared.io_stats)
+    va.faults = "injector"
+    assert shared.faults == "injector"
+    shared.faults = None
+    va.clear()                                    # scoped: b untouched
+    assert va.keys() == [] and vb.keys() == [0]
+    assert shared.tenant_bytes("a") == 0 and shared.tenant_bytes("b") == sb
+
+
+@pytest.mark.parametrize("codec", ["fp32", "pq"])
+@pytest.mark.parametrize("writer", ["port", "jax"])
+@pytest.mark.parametrize("mode", ["disk", "memmap"])
+def test_tenant_root_written_by_one_package_reads_in_the_other(
+        codec, writer, mode, tmp_path):
+    """Two tenants' blobs (colliding cids) written under one root by one
+    package read back, key for key and byte for byte, in the other, whose
+    ``clear`` then sweeps the crashed puts' temp files in the tenant
+    directories."""
+    root = str(tmp_path / "root")
+    x = _emb(25, 12, 3)
+    if writer == "port":
+        w = StorageBackend(mode, root=root, codec=codec, pq_m=M,
+                           device="cpu")
+    else:
+        w = JaxStorage(mode, root=root, codec=codec, pq_m=M)
+    for i, key in enumerate((1, ("a", 1), ("a", 4), ("b", 1))):
+        w.put(key, x[i:])
+    expect = {key: w.get(key) for key in w.keys()}
+    per = {t: w.tenant_bytes(t) for t in ("a", "b")}
+    del w                                        # the writer's claim ends
+    if writer == "port":
+        r = JaxStorage(mode, root=root, codec=codec, pq_m=M)
+    else:
+        r = StorageBackend(mode, root=root, codec=codec, pq_m=M,
+                           device="cpu")
+    assert sorted(r.keys(), key=str) == sorted(expect, key=str)
+    assert {t: r.tenant_bytes(t) for t in ("a", "b")} == per
+    for key, want in expect.items():
+        assert np.array_equal(r.get(key), want)
+    stale = tmp_path / "root" / "tenant_b" / "cluster_9.npz.tmp"
+    stale.write_bytes(b"torn")
+    r.clear()
+    assert r.keys() == [] and not stale.exists()
