@@ -276,6 +276,56 @@ Phases, one JSON line each:
                    clusters, ids and tier decisions equal to a CPU int8
                    router's.  Prints the fused and silo walls a batch,
                    the launches and the stored bytes.
+  durability       crash-consistent durability (``core/durability.py``) on
+                   the main path's fiqa corpus and clustering: disk storage
+                   on a temporary root inside ``build/``, sync maintenance,
+                   regeneration through a ``TableEmbedder`` keyed by chunk
+                   id (the corpus rows and the inserted chunks'; so no
+                   text enters a heal), a ``Durability`` handle taking a
+                   snapshot every 16 WAL records.  A seeded stream of 48 public ops (24 inserts of
+                   new chunks drawn near existing rows, 12 removes, 12
+                   updates, one of them fat enough to split its cluster),
+                   with one stored blob deleted behind the index and a batch
+                   of 16 answered before op 20 (the resolver's self-heal):
+                   49 events, one WAL record each (checked), the op kinds
+                   logged printed.  (a) fp32, cut by
+                   ``CrashInjector("wal_torn_append", at=30)`` and, in a
+                   second run, ``("snap_pre_rename", at=2)`` (the first
+                   checkpoint after the baseline dies before its rename);
+                   the root released (``del``, ``gc.collect()``), then
+                   ``recover(..., device="cuda")``.  The recovered index
+                   lands on the crashed event's pre- or post-event prefix
+                   and equals a card twin that ran that prefix with no
+                   durability: membership, cluster fields, centroids, chunk
+                   maps and blob manifest bitwise (the storage-event stamps
+                   of a cluster recovery healed move by one), the Alg. 3
+                   threshold bitwise the twin's at the snapshot recovery
+                   started from (records carry no threshold); ids and
+                   scores on the main path's 4 batches of 16 bitwise, one
+                   K1 and one fp32 K2 a batch.  (b) int8, the same stream
+                   with no injector: the index answers one batch (one K3
+                   int8 launch), is dropped and recovered; the recovered
+                   index's answers to that batch are bitwise, one K3 int8
+                   launch; its state equals an int8 twin's that ran the
+                   stream without durability (threshold aside).  (c)
+                   ``tenancy``'s two tenants on one shared disk root, its
+                   deferred maintenance; ``enable_durability(
+                   checkpoint_every=8)``, 8 inserts a tenant, one
+                   fair-share drain (their restores and checkpoints), 4
+                   removes a tenant, then ``tenancy``'s 4 Zipf-mixed
+                   batches; the router is dropped and
+                   ``recover_router(..., router_kwargs={"device": "cuda"})``
+                   answers the same batches bitwise, one K1 a tenant and
+                   one fp32 K2 a batch.  (d) a copy of (a)'s first crashed
+                   root recovered with ``device="cpu"``: state bitwise the
+                   card's recovery, ids equal outside near-ties, scores
+                   within ``score_tol``'s bound.  Prints every
+                   ``RecoveryReport``, the WAL and snapshot bytes on disk,
+                   and the stream's host wall with durability against the
+                   twins' without, each line with the ``nvidia-smi`` name
+                   and power limit; the recovered indexes' first fp32 and
+                   int8 K2 calls are held against the plain version in
+                   ``kernels_checked``.
   codec_paths      the same corpus, clustering, queries and generator under
                    each quantized storage codec: ``EdgeRAGIndex(
                    storage_codec="fp16" | "int8" | "pq")`` (pq in the memmap
@@ -360,13 +410,15 @@ kernel in its mode or mask that each phase driving a path of the port
 counted in its checked window (``main_path``, ``baselines``' IVF searches
 at nprobe 8, ``continuous_batching``'s trace and engine batch, ``encode``,
 ``online_index``, ``staged_pipeline`` and its stale batch, ``scheduler``
-(a) and (b), ``tenancy`` (a), (d) and (e)), whatever their shapes; ``ivf_topk_flat`` is K1 at the flat
+(a) and (b), ``tenancy`` (a), (d) and (e), ``durability``), whatever
+their shapes; ``ivf_topk_flat`` is K1 at the flat
 scan's recorded call (16 x 25,000 x 768) and takes ``baselines``' flat
 launches, the recall sweep's launches go to no row;
 K6 launched by a batcher's ticks goes to ``decode_attention_batcher`` (K6
 at ``continuous_batching``'s recorded (16, 1, 32, 80) call and per-slot
 lengths), every other K6 launch to ``decode_attention``; the codec rows
-take ``codec_paths``' launches (int8 also ``tenancy`` (f)'s) and K7's row
+take ``codec_paths``' launches (int8 also ``tenancy`` (f)'s and
+``durability``'s) and K7's row
 ``kv_int8``'s.  Any failed
 check raises, so the script exits non-zero without that last line; it also
 does so when no CUDA device is present or the package is missing beside
@@ -432,6 +484,14 @@ PIPE_REQUESTS, PIPE_SPACING = 32, 0.05
 # main path's 200 chunks a cluster); the engine batch's new tokens
 TENANTS, SCI_RECORDS, SCI_NLIST = ("fiqa", "scidocs"), 3_600, 18
 TENANCY_NEW_TOKENS = 2
+# durability: the stream's op counts, the event before which the blob is
+# deleted and the self-heal batch answered, the snapshot cadence, (a)'s
+# crashes (point, occurrence), (c)'s per-tenant ops and cadence.  A smoke
+# setting from the issue's scenarios, no benchmark cell's
+DUR_INSERTS, DUR_REMOVES, DUR_UPDATES, DUR_HEAL_AT = 24, 12, 12, 20
+DUR_CHECKPOINT = 16
+DUR_CRASHES = (("wal_torn_append", 30), ("snap_pre_rename", 2))
+ROUTER_INSERTS, ROUTER_REMOVES, ROUTER_CHECKPOINT = 8, 4, 8
 # baselines: recall@K of the IVF index against the flat one at these nprobe
 RECALL_NPROBES = (1, 4, NPROBE, 16, NLIST)
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
@@ -2848,39 +2908,29 @@ def want_counts(ivf=0, fp32=0, causal=0, decode=0, **modes) -> dict:
             "decode_attention": decode}
 
 
-def tenancy(ctx) -> dict:
-    """``TenantRouter`` on the card: two tenants' retrieval fused into one
-    ``slab_topk`` launch a batch, through the engine, pipeline and
-    scheduler (module docstring, ``tenancy``)."""
-    import types
-
-    import torch
-    from repro_torch.convert import index_state_from_numpy
-    from repro_torch.core import EdgeRAGIndex, TenantRouter
-    from repro_torch.core import edgerag as edgerag_mod
+def tenant_data(ctx) -> tuple:
+    """``tenancy``'s tenants: {tenant: (dataset, centroids, assignment)},
+    fiqa on the main path's corpus and clustering beside scidocs at Table
+    2's record count, clustered once on the CPU; and that clustering's
+    seconds."""
     from repro_torch.core.kmeans import kmeans
     from repro_torch.data.synthetic import scaled_beir
-    from repro_torch.serving import (PipelineBatch, RAGEngine,
-                                     RequestScheduler, StagedPipeline,
-                                     zipf_over_tenants)
-    from repro_torch.serving.metrics import MetricsRegistry, collect_router
-
-    t_phase = time.perf_counter()
-    ds, cost, dev, gen = ctx["ds"], ctx["cost"], ctx["dev"], ctx["gen"]
-    gen_layers = gen.cfg.num_layers
     sci = scaled_beir("scidocs", n_records=SCI_RECORDS, dim=DIM,
                       n_queries=BATCHES * BATCH, seed=SEED)
     t0 = time.perf_counter()
     sci_centroids, sci_assign = kmeans(sci.embeddings, SCI_NLIST, iters=20,
                                        seed=SEED, device="cpu")
-    sci_cluster_s = time.perf_counter() - t0
-    data = {"fiqa": (ds, ctx["main_centroids"], ctx["main_assign"]),
-            "scidocs": (sci, sci_centroids, sci_assign)}
-    own = {t: set(d.texts) for t, (d, _, _) in data.items()}
+    return ({"fiqa": (ctx["ds"], ctx["main_centroids"], ctx["main_assign"]),
+             "scidocs": (sci, sci_centroids, sci_assign)},
+            time.perf_counter() - t0)
 
-    # requests: Zipf over the two tenants, each taking its tenant's next
-    # query row; (d)'s batch takes (a)'s first batch's tenants on the
-    # tenants' next rows
+
+def tenant_batches(data) -> tuple:
+    """``tenancy``'s requests: Zipf over the two tenants, each taking its
+    tenant's next query row, in batches of BATCH (BATCHES of them), and
+    (d)'s batch: (a)'s first batch's tenants on the tenants' next rows.
+    Returns (tenant names, rows, the batches as (names, rows), (d)'s)."""
+    from repro_torch.serving import zipf_over_tenants
     draw = zipf_over_tenants(len(TENANTS), BATCHES * BATCH, seed=SEED)
     names = [TENANTS[int(i)] for i in draw.tenant_ids] + \
         [TENANTS[int(i)] for i in draw.tenant_ids[:BATCH]]
@@ -2891,7 +2941,29 @@ def tenancy(ctx) -> dict:
         used[t] += 1
     batches = [(names[j:j + BATCH], np.stack(rows[j:j + BATCH]))
                for j in range(0, len(names), BATCH)]
-    batch_d = batches.pop()
+    return names, rows, batches[:-1], batches[-1]
+
+
+def tenancy(ctx) -> dict:
+    """``TenantRouter`` on the card: two tenants' retrieval fused into one
+    ``slab_topk`` launch a batch, through the engine, pipeline and
+    scheduler (module docstring, ``tenancy``)."""
+    import types
+
+    import torch
+    from repro_torch.convert import index_state_from_numpy
+    from repro_torch.core import EdgeRAGIndex, TenantRouter
+    from repro_torch.core import edgerag as edgerag_mod
+    from repro_torch.serving import (PipelineBatch, RAGEngine,
+                                     RequestScheduler, StagedPipeline)
+    from repro_torch.serving.metrics import MetricsRegistry, collect_router
+
+    t_phase = time.perf_counter()
+    ds, cost, dev, gen = ctx["ds"], ctx["cost"], ctx["dev"], ctx["gen"]
+    gen_layers = gen.cfg.num_layers
+    data, sci_cluster_s = tenant_data(ctx)
+    own = {t: set(d.texts) for t, (d, _, _) in data.items()}
+    names, rows, batches, batch_d = tenant_batches(data)
     for b, (tn, _) in enumerate(batches):
         check(set(tn) == set(TENANTS), f"tenancy: batch {b} holds only "
               f"{sorted(set(tn))}")
@@ -3157,6 +3229,522 @@ def tenancy(ctx) -> dict:
                                    launches_e),
             "record": rec.first[None],
             "phase_s": time.perf_counter() - t_phase}
+
+
+def threshold_of(ix) -> tuple:
+    """The Alg. 3 controller's state, as a snapshot holds it."""
+    thr = ix.threshold
+    return (thr.threshold, thr.step_s, thr.alpha, thr.moving_avg_latency,
+            thr._initialized)
+
+
+def index_state(ix) -> dict:
+    """Everything durable of ``ix``, exactly: cluster fields, centroids,
+    chunk maps, the Alg. 3 threshold and the blob manifest."""
+    return {
+        "clusters": [(np.asarray(c.ids, np.int64).tobytes(), c.char_count,
+                      c.gen_latency_est, c.stored, c.active, c.generation,
+                      c.content_generation, c.stored_generation)
+                     for c in ix.clusters],
+        "centroids": np.ascontiguousarray(ix.centroids, np.float32).tobytes(),
+        "chunk_cluster": sorted(ix._chunk_cluster.items()),
+        "chunk_chars": sorted(ix._chunk_chars.items()),
+        "threshold": threshold_of(ix),
+        "manifest": {cid: ix.storage.payload_crc(cid)
+                     for cid, c in enumerate(ix.clusters) if c.stored}}
+
+
+def states_agree(got: dict, want: dict, healed: int, where: str) -> int:
+    """``got`` (a recovered index's :func:`index_state`) against ``want``,
+    part by part, the threshold aside: bitwise, except that the
+    storage-event stamps of at most ``healed`` clusters move as a heal's
+    restore moves them (generation + 1, stored_generation = generation).
+    Returns how many moved."""
+    for part in want:
+        if part not in ("threshold", "clusters"):
+            check(got[part] == want[part], f"{where}: recovered {part} "
+                  f"differs from the twin's")
+    check(len(got["clusters"]) == len(want["clusters"]),
+          f"{where}: {len(got['clusters'])} clusters, the twin "
+          f"{len(want['clusters'])}")
+    content = (0, 1, 2, 3, 4, 6)
+    moved = 0
+    for cid, (a, b) in enumerate(zip(got["clusters"], want["clusters"])):
+        if a == b:
+            continue
+        check(all(a[i] == b[i] for i in content) and a[5] == b[5] + 1
+              and a[7] == a[5], f"{where}: cluster {cid} differs from the "
+              f"twin's")
+        moved += 1
+    check(moved <= healed, f"{where}: {moved} clusters' stamps moved, "
+          f"{healed} healed")
+    return moved
+
+
+def counts_since(before: dict) -> dict:
+    """:func:`launch_counts` less ``before``, key by key."""
+    def sub(a, b):
+        return {k: sub(v, b[k]) if isinstance(v, dict) else v - b[k]
+                for k, v in a.items()}
+    return sub(launch_counts(), before)
+
+
+class CallTimes:
+    """Host seconds and calls of the named functions while installed:
+    ``targets`` lists (owner, attribute) pairs, a class's methods and
+    static methods or a module's functions, each wrapped in place and
+    restored on exit.  Nested calls count in both."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.stats = {}
+
+    def __enter__(self):
+        self.saved = []
+        for owner, name in self.targets:
+            orig = owner.__dict__[name]
+            static = isinstance(orig, staticmethod)
+            fn = orig.__func__ if static else orig
+            self.stats[name] = [0, 0.0]
+
+            def timed(*args, _fn=fn, _st=self.stats[name], **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    _st[0] += 1
+                    _st[1] += time.perf_counter() - t0
+            setattr(owner, name, staticmethod(timed) if static else timed)
+            self.saved.append((owner, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in self.saved:
+            setattr(owner, name, orig)
+
+
+def dur_events(ds, assign, split_max_chars: int) -> tuple:
+    """The durability stream (module docstring, ``durability``): DUR_INSERTS
+    inserts of new chunks (a corpus row plus the generator's noise,
+    renormalised, under a new id, with a text of the generator's length),
+    DUR_REMOVES removes and DUR_UPDATES updates of distinct corpus chunks
+    in a seeded order, and ``("heal", -1)`` before event DUR_HEAL_AT.  The
+    first update's text is long enough to push its cluster past
+    ``split_max_chars``.  Returns (events, new rows {id: row}, texts
+    {id: the event's text})."""
+    rng = np.random.default_rng(SEED + 30)
+    n = ds.n
+    events, rows, texts = [], {}, {}
+    for j in range(DUR_INSERTS):
+        nid = n + j
+        v = ds.embeddings[int(rng.integers(n))] + 0.35 * \
+            rng.standard_normal(DIM)
+        rows[nid] = (v / np.linalg.norm(v)).astype(np.float32)
+        chars = max(40, int(rng.normal(300, 90)))
+        texts[nid] = (f"doc-{nid} " + "tok " * chars)[:chars]
+        events.append(("ins", nid))
+    picked = [int(i) for i in rng.choice(n, DUR_REMOVES + DUR_UPDATES,
+                                         replace=False)]
+    events += [("rm", cid) for cid in picked[:DUR_REMOVES]]
+    sizes = np.bincount(assign, weights=[len(t) for t in ds.texts])
+    for j, cid in enumerate(picked[DUR_REMOVES:]):
+        chars = int(rng.integers(100, 3000))
+        if j == 0:
+            chars = int(split_max_chars - sizes[assign[cid]]
+                        + len(ds.texts[cid]) + 10_000)
+        texts[cid] = (f"doc-{cid} " + "rev " * chars)[:chars]
+        events.append(("up", cid))
+    events = [events[i] for i in rng.permutation(len(events))]
+    events.insert(DUR_HEAL_AT, ("heal", -1))
+    return events, rows, texts
+
+
+def durability(ctx) -> tuple:
+    """Crash-consistent durability on the card: the fiqa index's WAL,
+    snapshots, ``recover`` and ``recover_router`` (module docstring,
+    ``durability``).  Returns (the phase's line, its scenario lines, the
+    recovered indexes' first fp32 and int8 ``slab_topk`` calls)."""
+    import collections
+    import gc
+    import itertools
+
+    import torch
+    from repro_torch.convert import index_state_from_numpy
+    from repro_torch.core import (CrashInjector, Durability, EdgeRAGIndex,
+                                  IndexSnapshot, SimulatedCrash,
+                                  TenantRouter, recover, recover_router)
+    from repro_torch.core import durability as durability_mod
+    from repro_torch.core import edgerag as edgerag_mod
+    from repro_torch.core.durability import WriteAheadLog
+    from repro_torch.core.storage import StorageBackend
+    from repro_torch.data import TableEmbedder
+    from repro_torch.kernels.slab_topk import slab_mode, slab_topk
+
+    t_phase = time.perf_counter()
+    ds, cost, dev, smi = ctx["ds"], ctx["cost"], ctx["dev"], ctx["smi"]
+    centroids, assign = ctx["main_centroids"], ctx["main_assign"]
+    slo = ds.spec.slo_s
+    scratch = Path(tempfile.mkdtemp(prefix="durability_",
+                                    dir=ROOT / "build"))
+    roots = (str(scratch / f"root{i}") for i in itertools.count())
+    heal_q = ds.query_embs[BATCHES * BATCH:(BATCHES + 1) * BATCH]
+    q_batches = [ds.query_embs[b * BATCH:(b + 1) * BATCH]
+                 for b in range(BATCHES)]
+    corpus = dict(zip(ds.chunk_ids.tolist(), ds.texts))
+    events, new_rows, texts = dur_events(ds, assign, 200_000)
+    embed = TableEmbedder({**ds.embedder.table, **new_rows}, DIM)
+    # the largest |q . e| sum of the phase's queries over unit rows bounds
+    # two fp32 summation orders' difference (score_tol's rule)
+    score_tol_ = float(2 * DIM * 2.0 ** -24
+                       * np.abs(ds.query_embs).sum(axis=1).max())
+    zero_launches()
+
+    def chunks(store):
+        return lambda ids: [store[int(i)] for i in ids]
+
+    def fiqa(codec, root, store):
+        """The main path's index on a disk root of its own."""
+        ix = EdgeRAGIndex(DIM, embed, chunks(store), cost, slo_s=slo,
+                          storage_mode="disk", storage_root=root,
+                          storage_codec=codec, device=dev)
+        check(ix.split_max_chars == 200_000 and ix.maintenance_mode
+              == "sync", "durability: the index's defaults moved")
+        index_state_from_numpy(ix, centroids, assign, ds.chunk_ids,
+                               ds.texts, ds.embeddings)
+        return ix
+
+    def event(ix, ev, store):
+        kind, cid = ev
+        if kind == "heal":
+            probed = set().union(*ix._probe(heal_q, NPROBE))
+            victim = min(c for c in probed if ix.clusters[c].stored)
+            Path(ix.storage._path(victim)).unlink()     # behind the index
+            ix.search_batch(heal_q, K, NPROBE)
+            check(victim in ix.storage, "durability: the resolver did not "
+                  "re-persist the deleted blob")
+            return
+        if kind != "rm":
+            store[cid] = texts[cid]
+        got = {"ins": lambda: ix.insert(cid, texts[cid]),
+               "rm": lambda: ix.remove(cid),
+               "up": lambda: ix.update(cid, texts[cid])}[kind]()
+        check(got is not None, f"durability: {kind} {cid} found no chunk")
+
+    def stream(ix, store):
+        """Runs the events; returns each one's host wall."""
+        walls = []
+        for ev in events:
+            t0 = time.perf_counter()
+            event(ix, ev, store)
+            walls.append(time.perf_counter() - t0)
+        return walls
+
+    def logged(dur):
+        """Keeps each WAL record's (op, clusters) as it is appended."""
+        log, inner = [], dur.log_mutation
+
+        def log_mutation(index, op, cids, gone):
+            out = inner(index, op, cids, gone)
+            log.append((op, len(cids)))
+            return out
+        dur.log_mutation = log_mutation
+        return log
+
+    def on_disk(dur) -> dict:
+        snaps = [IndexSnapshot.path(dur.dir, lsn)
+                 for lsn in IndexSnapshot.lsns(dur.dir)]
+        return {"wal_bytes": dur.wal.nbytes(),
+                "snapshot_bytes": sum(Path(p).stat().st_size for p in snaps),
+                "snapshots": len(snaps)}
+
+    def answers(ix, batches, want):
+        """ids and scores of each batch, each batch's launches checked."""
+        out = []
+        for b, embs in enumerate(batches):
+            before = launch_counts()
+            ids, vals, _ = ix.search_batch(embs, K, NPROBE)
+            got = counts_since(before)
+            check(got == want, f"durability: batch {b} launched {got}; "
+                  f"want {want}")
+            out.append((np.asarray(ids), np.asarray(vals)))
+        return out
+
+    def bitwise(a, b, where):
+        check(len(a) == len(b) and all(
+            np.array_equal(x[0], y[0]) and np.array_equal(x[1], y[1])
+            for x, y in zip(a, b)), f"{where}: ids or scores not bitwise")
+
+    def timed_recover(root, store, device):
+        """``recover`` with its wall and where it went: the snapshot
+        search and apply, the WAL read and replay, the blob CRC reads, the
+        heals and the closing checkpoint (host seconds and calls)."""
+        with CallTimes([
+                (WriteAheadLog, "truncate_torn_tail"),
+                (WriteAheadLog, "records"),
+                (IndexSnapshot, "newest_valid"), (IndexSnapshot, "apply"),
+                (durability_mod, "_replay_record"),
+                (StorageBackend, "payload_crc"),
+                (EdgeRAGIndex, "_restore_cluster"),
+                (Durability, "checkpoint")]) as ct:
+            t0 = time.perf_counter()
+            out = recover(root, embed, chunks(store), cost,
+                          checkpoint_every=DUR_CHECKPOINT, slo_s=slo,
+                          device=device)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return out + ({"wall_s": wall, **ct.stats},)
+
+    # a dropped index is del-ed and collected before its root is recovered:
+    # the index <-> scheduler cycle pins the root's writer claim till then
+    one_k2 = want_counts(ivf=1, fp32=1)
+    # the kernel itself for the phase (the main path's recorder keeps the
+    # calls of its own phases); the recovered indexes' calls recorded
+    saved, edgerag_mod.slab_topk = edgerag_mod.slab_topk, slab_topk
+    rec_slab = Recorder(slab_topk,
+                        lambda e, q, v, k, **kw: slab_mode(e, q, v, **kw))
+    lines, copy_root, card_rec = [], None, None
+
+    # ---- (a) fp32, crashed inside the stream, recovered on the card -----
+    for point, at in DUR_CRASHES:
+        root, store = next(roots), dict(corpus)
+        ix = fiqa("fp32", root, store)
+        dur = Durability(root, cost_model=cost,
+                         checkpoint_every=DUR_CHECKPOINT,
+                         crash=CrashInjector(point, at=at, seed=SEED))
+        ix.attach_durability(dur)
+        log = logged(dur)
+        walls, crashed = [], None
+        for j, ev in enumerate(events):
+            t0 = time.perf_counter()
+            try:
+                event(ix, ev, store)
+            except SimulatedCrash:
+                crashed = j
+                break
+            walls.append(time.perf_counter() - t0)
+        check(crashed is not None, f"durability (a): {point} at {at} never "
+              f"fired")
+        check(len(log) == crashed, f"durability (a): {len(log)} records "
+              f"for {crashed} events before the crash")
+        disk = on_disk(dur)
+        del ix, dur
+        gc.collect()
+        if copy_root is None:
+            copy_root, copy_store = str(scratch / "copy"), store
+            shutil.copytree(root, copy_root)
+        rec, rep, recover_t = timed_recover(root, store, dev)
+        landed = rep.snapshot_lsn + rep.replayed_records
+        check(landed in (crashed, crashed + 1), f"durability (a) {point}: "
+              f"recovered to event {landed}, the crash was in event "
+              f"{crashed}")
+        # the twin: the landed prefix with no durability, thresholds kept
+        t_store = dict(corpus)
+        twin = fiqa("fp32", next(roots), t_store)
+        thr = [threshold_of(twin)]
+        twin_walls = []
+        for ev in events[:landed]:
+            t0 = time.perf_counter()
+            event(twin, ev, t_store)
+            twin_walls.append(time.perf_counter() - t0)
+            thr.append(threshold_of(twin))
+        got, want = index_state(rec), index_state(twin)
+        moved = states_agree(got, want, rep.healed, f"durability (a) {point}")
+        check(got["threshold"] == thr[rep.snapshot_lsn], f"durability (a) "
+              f"{point}: threshold not the twin's at the snapshot")
+        edgerag_mod.slab_topk = rec_slab
+        rec_out = answers(rec, q_batches, one_k2)
+        edgerag_mod.slab_topk = slab_topk
+        bitwise(rec_out, answers(twin, q_batches, one_k2),
+                f"durability (a) {point}: the recovered index against the "
+                f"twin")
+        if card_rec is None:
+            card_rec = (got, rec_out)
+        n = min(len(walls), len(twin_walls))
+        lines.append({
+            "phase": "durability", "scenario": f"a_{point}",
+            "nvidia_smi": smi, "crash": {"point": point, "at": at},
+            "crashed_in_event": crashed, "landed_event": landed,
+            "records_logged": collections.Counter(op for op, _ in log),
+            "multi_cluster_records": sum(c > 1 for _, c in log),
+            "on_disk_at_crash": disk, "report": rep.as_dict(),
+            "recover": recover_t,
+            "on_disk_after_recovery": on_disk(rec.durability),
+            "stamps_moved_by_heals": moved,
+            "stream_host_s": {"events": n, "durable": sum(walls[:n]),
+                              "twin": sum(twin_walls[:n])},
+            "stream_host_s_per_event": {"durable": walls[:n],
+                                        "twin": twin_walls[:n]},
+            "nlist": len(rec.clusters), "bitwise_batches": len(rec_out)})
+        del rec, twin
+        gc.collect()
+        shutil.rmtree(root)
+
+    # ---- (b) int8: dropped after the whole stream, recovered -----------
+    root, store = next(roots), dict(corpus)
+    ix = fiqa("int8", root, store)
+    dur = ix.attach_durability(Durability(root, cost_model=cost,
+                                          checkpoint_every=DUR_CHECKPOINT))
+    log = logged(dur)
+    walls = stream(ix, store)
+    check(len(log) == len(events), f"durability (b): {len(log)} records "
+          f"for {len(events)} events")
+    before = launch_counts()
+    ids8, vals8, _ = ix.search_batch(q_batches[0], K, NPROBE)
+    dropped_counts = counts_since(before)
+    check(dropped_counts["slab_topk"]["int8"] == 1
+          and dropped_counts == want_counts(
+              ivf=1, fp32=dropped_counts["slab_topk"]["fp32"], int8=1),
+          f"durability (b): the dropped index launched {dropped_counts}")
+    disk = on_disk(dur)
+    del ix, dur
+    gc.collect()
+    rec, rep, recover_t = timed_recover(root, store, dev)
+    check(rec.storage.codec == "int8", "durability (b): recovered codec")
+    edgerag_mod.slab_topk = rec_slab
+    rec_out = answers(rec, q_batches[:1], dropped_counts)
+    edgerag_mod.slab_topk = slab_topk
+    bitwise(rec_out, [(np.asarray(ids8), np.asarray(vals8))],
+            "durability (b): the recovered int8 index against the dropped "
+            "one")
+    t_store = dict(corpus)
+    twin = fiqa("int8", next(roots), t_store)
+    twin_walls = stream(twin, t_store)
+    moved = states_agree(index_state(rec), index_state(twin), rep.healed,
+                         "durability (b)")
+    lines.append({
+        "phase": "durability", "scenario": "b_int8", "nvidia_smi": smi,
+        "events": len(events),
+        "records_logged": collections.Counter(op for op, _ in log),
+        "multi_cluster_records": sum(c > 1 for _, c in log),
+        "on_disk_at_drop": disk, "report": rep.as_dict(),
+        "recover": recover_t,
+        "on_disk_after_recovery": on_disk(rec.durability),
+        "stamps_moved_by_heals": moved, "launches_a_batch": dropped_counts,
+        "stream_host_s": {"events": len(events), "durable": sum(walls),
+                          "twin": sum(twin_walls)},
+        "stream_host_s_per_event": {"durable": walls, "twin": twin_walls}})
+    del rec, twin
+    gc.collect()
+    shutil.rmtree(root)
+
+    # ---- (c) the router: every tenant recovered from one shared root ----
+    data, _ = tenant_data(ctx)
+    _, _, batches, _ = tenant_batches(data)
+    rng = np.random.default_rng(SEED + 31)
+    root = next(roots)
+    specs, stores = {}, {}
+    router = TenantRouter(DIM, cost, storage_mode="disk", storage_root=root,
+                          device=dev)
+    for t, (d, cents, asg) in data.items():
+        stores[t] = dict(zip(d.chunk_ids.tolist(), d.texts))
+        rows_t = {}
+        for j in range(ROUTER_INSERTS):
+            nid = d.n + j
+            v = d.embeddings[int(rng.integers(d.n))] + 0.35 * \
+                rng.standard_normal(DIM)
+            rows_t[nid] = (v / np.linalg.norm(v)).astype(np.float32)
+        specs[t] = (TableEmbedder({**d.embedder.table, **rows_t}, DIM),
+                    chunks(stores[t]))
+        index_state_from_numpy(
+            router.create_tenant(t, *specs[t], slo_s=d.spec.slo_s),
+            cents, asg, d.chunk_ids, d.texts, d.embeddings)
+    check(len({d.spec.slo_s for d, _, _ in data.values()}) == 1,
+          "durability (c): the tenants' SLOs differ")
+    handles = router.enable_durability(checkpoint_every=ROUTER_CHECKPOINT)
+    logs = {t: logged(h) for t, h in handles.items()}
+    # the inserts, an idle gap's drain (their restores and the
+    # checkpoints they queued), the removes: the batches then heal what the
+    # removes left stale, so recovery replays records past a snapshot
+    t0 = time.perf_counter()
+    for t, (d, _, _) in data.items():
+        for j in range(ROUTER_INSERTS):
+            nid = d.n + j
+            stores[t][nid] = (f"doc-{nid} " + "tok " * 80)[:300]
+            router.tenant(t).insert(nid, stores[t][nid])
+    drained = router.maintenance.drain(None)
+    for t, (d, _, _) in data.items():
+        for cid in rng.choice(d.n, ROUTER_REMOVES, replace=False):
+            check(router.tenant(t).remove(int(cid)) is not None,
+                  f"durability (c): remove {cid}")
+    ops_s = time.perf_counter() - t0
+    pre = []
+    for b, (tn, embs) in enumerate(batches):
+        before = launch_counts()
+        ids, vals, _ = router.search_batch(embs, K, NPROBE, tenants=tn)
+        got = counts_since(before)
+        check(got == want_counts(ivf=len(set(tn)), fp32=1), f"durability "
+              f"(c): batch {b} launched {got}")
+        pre.append((np.asarray(ids), np.asarray(vals)))
+    check(any(op == "checkpoint" for op, _ in drained.executed),
+          "durability (c): no checkpoint ran in the drain")
+    disk = {t: on_disk(h) for t, h in handles.items()}
+    del router, handles
+    gc.collect()
+    t0 = time.perf_counter()
+    router, reps = recover_router(
+        root, specs, cost, checkpoint_every=ROUTER_CHECKPOINT,
+        router_kwargs={"device": dev},
+        tenant_kwargs={"slo_s": data["fiqa"][0].spec.slo_s})
+    torch.cuda.synchronize()
+    recover_wall = time.perf_counter() - t0
+    check(sorted(reps) == sorted(TENANTS), f"durability (c): recovered "
+          f"{sorted(reps)}")
+    post = []
+    for b, (tn, embs) in enumerate(batches):
+        before = launch_counts()
+        ids, vals, _ = router.search_batch(embs, K, NPROBE, tenants=tn)
+        got = counts_since(before)
+        check(got == want_counts(ivf=len(set(tn)), fp32=1), f"durability "
+              f"(c): recovered batch {b} launched {got}")
+        post.append((np.asarray(ids), np.asarray(vals)))
+    bitwise(post, pre, "durability (c): the recovered router")
+    lines.append({
+        "phase": "durability", "scenario": "c_router", "nvidia_smi": smi,
+        "records_logged": {t: collections.Counter(op for op, _ in lg)
+                           for t, lg in logs.items()},
+        "ops_and_drain_host_s": ops_s,
+        "drained": collections.Counter(k for k, _ in drained.executed),
+        "on_disk_at_drop": disk,
+        "reports": {t: r.as_dict() for t, r in reps.items()},
+        "recover_wall_s": recover_wall, "bitwise_batches": len(post)})
+    check(all(r.replayed_records > 0 for r in reps.values()),
+          f"durability (c): a tenant replayed nothing: {reps}")
+    del router
+    gc.collect()
+    shutil.rmtree(root)
+
+    # ---- (d) (a)'s first crashed root recovered on the CPU ---------------
+    cpu, rep, recover_t = timed_recover(copy_root, copy_store, "cpu")
+    card_state, card_out = card_rec
+    check(index_state(cpu) == card_state, "durability (d): the CPU "
+          "recovery's state differs from the card's")
+    swaps = worst = 0
+    for b, embs in enumerate(q_batches):
+        ids, vals, _ = cpu.search_batch(embs, K, NPROBE)
+        s_, m_ = near_tie_mismatches(card_out[b][0], ids, vals)
+        check(m_ == 0, f"durability (d): {m_} ids differ from the card's "
+              f"outside near-ties in batch {b}")
+        swaps += s_
+        same = card_out[b][0] == np.asarray(ids)
+        worst = max(worst, float(np.abs(card_out[b][1] - vals)[same].max(
+            initial=0.0)))
+    check(worst <= score_tol_, f"durability (d): scores {worst} apart, "
+          f"over {score_tol_}")
+    lines.append({
+        "phase": "durability", "scenario": "d_cpu_replay", "nvidia_smi": smi,
+        "report": rep.as_dict(), "recover": recover_t,
+        "state": "bitwise the card's", "near_tie_swaps": swaps,
+        "max_score_diff": worst, "score_tol": score_tol_})
+    del cpu
+    gc.collect()
+    shutil.rmtree(scratch)
+    edgerag_mod.slab_topk = saved
+    launches = launch_counts()
+    return ({"phase": "durability", "nvidia_smi": smi,
+             "events": [list(ev) for ev in events], "launches": launches,
+             "phase_s": time.perf_counter() - t_phase},
+            lines, {m: rec_slab.first[m] for m in ("fp32", "int8")})
 
 
 def set_mismatches(ids, vals, ref_ids, ref_vals) -> tuple:
@@ -3984,6 +4572,12 @@ def main() -> int:
                    "main_centroids": index.centroids, "main_assign": assign})
     ten_call = ten.pop("record")
     emit(ten)
+    dur, dur_lines, dur_calls = durability({
+        "ds": ds, "cost": cost, "dev": dev, "smi": smi,
+        "main_centroids": index.centroids, "main_assign": assign})
+    for line in dur_lines:
+        emit(line)
+    emit(dur)
     by_row = launch_rows([
         ("main_path", {**launches, "slab_topk": main_by_mode,
                        "flash_attention": main_by_mask}, False),
@@ -3998,6 +4592,7 @@ def main() -> int:
         ("scheduler_run_pipelined", sched["run_pipelined"]["launches"],
          True),
         ("tenancy", ten["launches"], False),
+        ("durability", dur["launches"], False),
         ("baselines", {"ivf_topk": base["ivf"]["launches"],
                        "ivf_topk_flat": base["flat"]["launches"]}, False)])
 
@@ -4090,6 +4685,13 @@ def main() -> int:
     (et, qt, vt, kt), _ = ten_call
     report["slab_topk_tenancy"] = check_slab_fp32(et, qt, vt, kt,
                                                   "slab_topk (tenancy)")
+    # the recovered indexes' first calls (durability (a) and (b))
+    (ed, qd, vd, kd), _ = dur_calls["fp32"]
+    report["slab_topk_durability"] = check_slab_fp32(
+        ed, qd, vd, kd, "slab_topk (durability)")
+    (ed, qd, vd, kd), kwd = dur_calls["int8"]
+    report["slab_topk_int8_durability"] = check_quantized(
+        "int8", ed, qd, vd, kd, kwd, rint)
     for mode in CODECS:
         (e, q, v, k), kw = rec_slab.first[mode]
         report[f"slab_topk_{mode}"] = check_quantized(mode, e, q, v, k, kw,
@@ -4162,6 +4764,8 @@ def main() -> int:
             if mode == "int8":
                 by_row[name]["tenancy"] = ten["int8"]["launches"][
                     "slab_topk"]["int8"]
+                by_row[name]["durability"] = dur["launches"]["slab_topk"][
+                    "int8"]
         n_launch = n_path(name)
         kernels.append(slab_row(mode, e, q, v, k, kw, n_launch,
                                 report[name]["max_abs_err"], calls[name],

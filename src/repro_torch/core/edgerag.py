@@ -7,8 +7,9 @@ k-means and the slab scoring (``slab_topk``) run on the index's ``device``
 codec (``storage_codec=`` fp32 / fp16 / int8 / pq, ``storage_mode=`` memory /
 disk / memmap), or a storage backend and cache handed in (``storage=``,
 ``cache=``: a :class:`~repro_torch.core.tenant.TenantRouter`'s tenant
-views); the sharded ``mesh=`` route and durability come with later
-slices.
+views).  A :class:`~repro_torch.core.durability.Durability` handle attached
+with ``attach_durability`` logs one WAL record per public mutation; the
+sharded ``mesh=`` route comes with a later slice.
 
 Improves the two-level IVF index for memory-constrained serving:
 
@@ -323,6 +324,52 @@ class EdgeRAGIndex:
             self, budget_s_per_step=maintenance_budget_s)
         self._chunk_chars: Dict[int, int] = {}
         self._chunk_cluster: Dict[int, int] = {}   # chunk id -> cluster id
+        # durability (core/durability.py): attached handle + the dirty set
+        # the next _wal_commit() turns into ONE WAL record.  Mutation
+        # helpers mark the clusters they touch; the PUBLIC op (insert /
+        # update / remove / retrain_pq / a drained maintenance op / a
+        # resolver self-heal) commits, so one op = one record whatever
+        # cascade it triggered.
+        self.durability = None
+        self._dirty: set = set()
+        self._gone: set = set()     # chunk ids deleted since last commit
+
+    # ------------------------------------------------------------------
+    # durability (core/durability.py)
+    # ------------------------------------------------------------------
+    def attach_durability(self, durability, *, checkpoint: bool = True):
+        """Attach a :class:`~repro_torch.core.durability.Durability` handle:
+        every finished mutation now emits one WAL record, and snapshots ride
+        the maintenance queue as ``OP_CHECKPOINT`` ops.  ``checkpoint=True``
+        takes the baseline snapshot now (recovery needs one to exist)."""
+        self.durability = durability
+        self._dirty.clear()
+        self._gone.clear()
+        durability.manifest = {
+            cid: self.storage.payload_crc(cid)
+            for cid, cl in enumerate(self.clusters)
+            if cl.stored and cid in self.storage}
+        if checkpoint:
+            durability.checkpoint(self)
+        return durability
+
+    def _wal_commit(self, op: str) -> float:
+        """Commit the accumulated dirty set as ONE WAL record carrying the
+        absolute post-op state of every touched cluster; returns modeled
+        fsync edge seconds (0 with no handle attached).  Blobs are always
+        written BEFORE this runs, so a crash between blob and record
+        orphans the blob (recovery GCs it back to pre-op) rather than ever
+        leaving a hybrid."""
+        dirty, gone = self._dirty, self._gone
+        if self.durability is None or not (dirty or gone):
+            dirty.clear()
+            gone.clear()
+            return 0.0
+        cids = sorted(c for c in dirty if c < len(self.clusters))
+        removed = sorted(gone)
+        dirty.clear()
+        gone.clear()
+        return self.durability.log_mutation(self, op, cids, removed)
 
     # ------------------------------------------------------------------
     # indexing (Fig. 8 + Alg. 1)
@@ -397,6 +444,10 @@ class EdgeRAGIndex:
                 cl.stored_generation = cl.generation
             self.clusters.append(cl)
         # second-level embeddings are now PRUNED (not retained in memory)
+        if self.durability is not None:
+            # a rebuild obsoletes every prior record: re-baseline with a
+            # fresh manifest + snapshot (compaction drops the old WAL)
+            self.attach_durability(self.durability, checkpoint=True)
 
     # ------------------------------------------------------------------
     # memory accounting
@@ -707,7 +758,9 @@ class EdgeRAGIndex:
             ops = [(OP_RESTORE, cid)]                   # regenerate + persist
         else:
             ops = []
+        self._dirty.add(cid)
         self._dispatch_maintenance(ops)
+        self._wal_commit("insert")
         # a synchronous split may have moved the chunk to the appended slot
         return self._chunk_cluster[int(chunk_id)]
 
@@ -737,7 +790,9 @@ class EdgeRAGIndex:
             ops = [(OP_DROP_STORE, cid)]                # became cheap
         else:
             ops = []
+        self._dirty.add(cid)
         self._dispatch_maintenance(ops)
+        self._wal_commit("update")
         return cid
 
     def remove(self, chunk_id: int) -> Optional[int]:
@@ -774,7 +829,10 @@ class EdgeRAGIndex:
                 ops.append((OP_RESTORE, cid))
         if 0 < cl.size < self.merge_min_size:
             ops.append((OP_MERGE, cid))
+        self._dirty.add(cid)
+        self._gone.add(int(chunk_id))
         self._dispatch_maintenance(ops)
+        self._wal_commit("remove")
         return cid
 
     # ---- maintenance helpers (shared by sync mode and the scheduler) ----
@@ -805,6 +863,7 @@ class EdgeRAGIndex:
         else:                           # shared storage budget refused
             cl.stored = False
             cl.stored_generation = -1
+        self._dirty.add(cid)
 
     def _drop_stored(self, cid: int):
         """The inverse of a restore: the cluster became cheap to regenerate,
@@ -814,6 +873,7 @@ class EdgeRAGIndex:
         self.storage.delete(cid)
         cl.stored = False
         cl.stored_generation = -1
+        self._dirty.add(cid)
 
     def retrain_pq(self, embeddings: np.ndarray, *, seed: int = 0):
         """Drift retrain of the PQ codebook (train at build, RETRAIN ON
@@ -832,10 +892,12 @@ class EdgeRAGIndex:
                 continue
             cl.generation += 1
             cl.stored_generation = -1       # stale under the new codebook
+            self._dirty.add(cid)
             if self.maintenance_mode == "sync":
                 self._restore_cluster(cid)
             else:
                 self.maintenance.enqueue(OP_RESTORE, cid)
+        self._wal_commit("retrain_pq")
 
     def _reconcile_storage(self, cid: int):
         """Make the Alg. 1 invariant true for one cluster: (re)store it if
@@ -892,6 +954,8 @@ class EdgeRAGIndex:
         # replace cid with part 0; append part 1
         self.storage.delete(cid)
         self.cache.invalidate(cid)
+        self._dirty.add(cid)
+        self._dirty.add(len(self.clusters))     # the appended part's slot
         slots = []
         next_gen = cl.generation + 1    # both parts outlive any plan of cid
         for slot, (ids, chars, sub) in zip(
@@ -940,6 +1004,8 @@ class EdgeRAGIndex:
         if tgt is None or cl.size == 0:
             return
         other = self.clusters[tgt]
+        self._dirty.add(cid)
+        self._dirty.add(tgt)
         other.ids = np.concatenate([other.ids, cl.ids])
         other.char_count += cl.char_count
         other.generation += 1

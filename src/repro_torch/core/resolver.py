@@ -581,6 +581,11 @@ class ClusterResolver:
                     else:
                         cl.stored = False
                         cl.stored_generation = -1
+                    # the heal changed durable-relevant state: commit it as
+                    # one WAL record, fsync charged to the owning query
+                    ix._dirty.add(cid)
+                    lats[plan.owner[cid]].wal_fsync_s += \
+                        ix._wal_commit("self_heal")
                 gen_s = ix.cost.embed_latency(chars)
                 qi = plan.owner[cid]
                 lats[qi].l2_generate_s += gen_s

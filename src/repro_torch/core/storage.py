@@ -1,7 +1,6 @@
 """Second-level embedding storage backend with quantized codecs.
 
-Port of ``repro.core.storage``, without ``payload_crc`` and its per-key
-cache (the durability slice brings them).  Models the paper's split between DRAM
+Port of ``repro.core.storage``.  Models the paper's split between DRAM
 (first-level centroids, cache) and SD-card storage (precomputed
 heavy-cluster embeddings).  The ``disk`` mode writes .npz files so
 persistence is real; the ``memory`` mode keeps payloads in a dict.  Either
@@ -51,7 +50,9 @@ backoff (modeled edge seconds, no sleep), recorded in the caller's
 :class:`~repro_torch.core.faults.IOOutcome` list.  A read that exhausts its
 retries degrades to a missing key, and a checksum failure that survives
 every retry quarantine-drops the blob so the resolver regenerates and
-re-persists it.  ``self.faults`` takes a
+re-persists it.  ``payload_crc`` reads back only that member (cached per
+key from ``put``), which crash recovery (core/durability.py) compares
+against its manifest.  ``self.faults`` takes a
 :class:`~repro_torch.core.faults.FaultInjector`.  On-disk ``put`` writes a
 temp file and ``os.replace``s it, so a crash never tears a blob.  The first
 on-disk write claims its ``(root, namespace)`` slot; a second live writer on
@@ -149,6 +150,7 @@ class StorageBackend:
         self.device = device            # where train_pq runs its Lloyd steps
         self._mem: Dict[StorageKey, Dict[str, np.ndarray]] = {}
         self._nbytes: Dict[StorageKey, int] = {}    # stored payload bytes
+        self._crcs: Dict[StorageKey, int] = {}      # payload CRC at put time
         self.root: Optional[str] = None
         self._base: Optional[str] = None            # root[/namespace]
         if mode != "memory":
@@ -405,9 +407,9 @@ class StorageBackend:
             if used + nbytes > self.budget_bytes:
                 self.io_stats["put_rejected"] += 1
                 return 0
+        crc = payload_checksum(payload)
         stored = dict(payload)
-        stored[_CHECKSUM_KEY] = np.array([payload_checksum(payload)],
-                                         np.uint32)
+        stored[_CHECKSUM_KEY] = np.array([crc], np.uint32)
         if self.mode == "memory":
             self._mem[key] = stored
         else:
@@ -417,6 +419,7 @@ class StorageBackend:
             self._atomic_savez(path, stored)
             nbytes = os.stat(path).st_size
         self._nbytes[key] = nbytes
+        self._crcs[key] = crc
         return nbytes
 
     def get(self, key: StorageKey) -> np.ndarray:
@@ -446,8 +449,32 @@ class StorageBackend:
                 outcomes.append(o)
         return out
 
+    def payload_crc(self, key: StorageKey) -> int:
+        """CRC-32 of the stored payload, read from its ``"crc"`` member and
+        not from the payload data: cached per key from ``put``, or read
+        lazily from the container on a reopened root.  Raises ``KeyError``
+        for an absent or unreadable blob.  Crash recovery
+        (core/durability.py) compares it against the manifest's checksum to
+        find a blob replaced mid-op before its WAL record landed."""
+        if key in self._crcs:
+            return self._crcs[key]
+        if self.mode == "memory":
+            if key not in self._mem:
+                raise KeyError(key)
+            crc = int(np.asarray(
+                self._mem[key][_CHECKSUM_KEY]).reshape(-1)[0])
+        else:
+            try:
+                with np.load(self._path(key)) as z:
+                    crc = int(np.asarray(z[_CHECKSUM_KEY]).reshape(-1)[0])
+            except Exception:
+                raise KeyError(key)
+        self._crcs[key] = crc
+        return crc
+
     def delete(self, key: StorageKey):
         self._nbytes.pop(key, None)
+        self._crcs.pop(key, None)
         if self.mode == "memory":
             self._mem.pop(key, None)
             return
@@ -464,6 +491,7 @@ class StorageBackend:
         for key in self.keys():
             self.delete(key)
         self._nbytes.clear()
+        self._crcs.clear()
         if self.mode != "memory":
             cb_path = os.path.join(self._base, _CODEBOOK_FILE)
             if os.path.exists(cb_path):
@@ -621,6 +649,12 @@ class TenantStorageView:
     def stored_bytes(self, cid: int) -> int:
         try:
             return self.backend.stored_bytes(self._k(cid))
+        except KeyError:
+            raise KeyError(cid)
+
+    def payload_crc(self, cid: int) -> int:
+        try:
+            return self.backend.payload_crc(self._k(cid))
         except KeyError:
             raise KeyError(cid)
 

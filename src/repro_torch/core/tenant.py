@@ -6,8 +6,10 @@ cache and one maintenance multiplexer for every tenant, on one ``device``
 :class:`~repro_torch.core.edgerag.EdgeRAGIndex` probes its own centroids
 with ``ivf_topk`` on that device, and a mixed batch scores every tenant's
 resolved clusters in ONE ``slab_topk`` launch per storage representation.
-Durability (``enable_durability``) and the sharded ``mesh=`` route come
-with later slices and raise :class:`NotImplementedError` here.
+``enable_durability`` gives every tenant its own WAL and snapshots under
+the shared root (``recover_router`` restores them all); the sharded
+``mesh=`` route comes with a later slice and raises
+:class:`NotImplementedError` here.
 
 EdgeRAG's premise is many indexes sharing one memory-constrained device
 (arXiv 2412.21023), and on a single device the win comes from multiplexing
@@ -63,6 +65,7 @@ import numpy as np
 
 from repro_torch.core.cache_policy import CostAwareLFUCache, TenantCacheView
 from repro_torch.core.costs import EdgeCostModel, LatencyBreakdown, WallTimer
+from repro_torch.core.durability import Durability
 from repro_torch.core.edgerag import (BatchSearchState, EdgeRAGIndex,
                                       slab_score_topk)
 from repro_torch.core.faults import DegradationPolicy
@@ -171,6 +174,7 @@ class TenantRouter:
         # pack_slab / stale_cids run against the router as if it were an
         # index: they only touch .dim / .cost / .clusters[key]
         self.resolver = ClusterResolver(self)
+        self._durability_cfg: Optional[Dict] = None
 
     # ------------------------------------------------------------------
     # tenant lifecycle
@@ -207,14 +211,47 @@ class TenantRouter:
             cache=TenantCacheView(self.cache, tenant_id))
         self.maintenance.register(tenant_id, ix.maintenance)
         self.tenants[tenant_id] = ix
+        if self._durability_cfg is not None:
+            self._attach_tenant_durability(tenant_id, checkpoint=False)
         return ix
 
-    def enable_durability(self, *args, **kw):
-        """Crash-consistent tenant state (per-tenant WAL + snapshots under
-        the shared root) comes with the port's durability slice."""
-        raise NotImplementedError(
-            "TenantRouter.enable_durability comes with the durability slice "
-            "of the port (core/durability.py)")
+    # ------------------------------------------------------------------
+    # durability (core/durability.py)
+    # ------------------------------------------------------------------
+    def enable_durability(self, root: Optional[str] = None, *,
+                          checkpoint_every: int = 64,
+                          keep_snapshots: int = 2, checkpoint: bool = True):
+        """Make every tenant's index state crash-consistent: one
+        per-tenant WAL + snapshot directory
+        (``<root>/durability/tenant_<t>/``) under the SHARED storage root,
+        so one ``recover_router`` call restores the whole deployment.
+        Applies to existing tenants now and attaches to tenants created
+        later.  ``root`` defaults to the shared backend's disk root
+        (required for memory-mode storage).  Returns the per-tenant
+        :class:`~repro_torch.core.durability.Durability` handles."""
+        root = root or self.storage.root
+        if root is None:
+            raise ValueError("durability needs a filesystem root: "
+                             "disk-backed storage or root=")
+        self._durability_cfg = {"root": root,
+                                "checkpoint_every": checkpoint_every,
+                                "keep_snapshots": keep_snapshots}
+        return {t: self._attach_tenant_durability(
+                    t, checkpoint=checkpoint
+                    and self.tenants[t].centroids is not None)
+                for t in self.tenants}
+
+    def _attach_tenant_durability(self, tenant_id: str, *,
+                                  checkpoint: bool):
+        cfg = self._durability_cfg
+        dur = Durability(cfg["root"], tenant=tenant_id,
+                         cost_model=self.cost,
+                         checkpoint_every=cfg["checkpoint_every"],
+                         keep_snapshots=cfg["keep_snapshots"])
+        # an unbuilt tenant checkpoints at build() time instead
+        self.tenants[tenant_id].attach_durability(dur,
+                                                  checkpoint=checkpoint)
+        return dur
 
     def tenant(self, tenant_id: str) -> EdgeRAGIndex:
         return self.tenants[tenant_id]

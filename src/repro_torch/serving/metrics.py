@@ -1,10 +1,8 @@
 """Lightweight Prometheus-style serving metrics (no dependencies).
 
 Port of ``repro.serving.metrics``: the registry and the collectors that
-read the scheduler, the staged pipeline and the tenant router.
-``collect_durability`` comes with the port's durability slice, and
-``collect_router`` renders no durability samples until then (the port's
-indexes have no ``durability`` handle yet).
+read the scheduler, the staged pipeline, the durability handles and the
+tenant router.
 
 The serving layer needs per-tenant observability — request outcomes, TTFT
 tails, queue waits, admission sheds, stage occupancy — in a form an
@@ -15,6 +13,7 @@ label sets, a :class:`MetricsRegistry` that renders the standard
 a registry from the serving objects the port produces
 (:class:`~repro_torch.serving.scheduler.RequestScheduler`,
 :class:`~repro_torch.serving.pipeline.PipelineTrace`,
+:class:`~repro_torch.core.durability.Durability`,
 :class:`~repro_torch.core.tenant.TenantRouter`).
 
 Metric names follow Prometheus conventions (``_total`` counters, base-unit
@@ -278,12 +277,40 @@ def collect_pipeline_trace(reg: MetricsRegistry, trace) -> MetricsRegistry:
     return reg
 
 
+def collect_durability(reg: MetricsRegistry, durability,
+                       labels: Optional[Dict[str, str]] = None
+                       ) -> MetricsRegistry:
+    """Durability-subsystem state from one
+    :class:`~repro_torch.core.durability.Durability` handle: WAL
+    record/byte counters, snapshot + compaction counters, and the last
+    recovery's wall seconds (0 until a recovery ran)."""
+    labels = labels or {}
+    st = durability.stats()
+    reg.counter("edgerag_wal_records_total",
+                "WAL records appended").inc(st["wal_records_total"],
+                                            labels=labels)
+    reg.gauge("edgerag_wal_bytes",
+              "Current WAL file bytes (post-compaction)"
+              ).set(st["wal_bytes"], labels=labels)
+    reg.counter("edgerag_snapshots_total",
+                "Index snapshots taken").inc(st["snapshots_total"],
+                                             labels=labels)
+    reg.counter("edgerag_wal_compactions_total",
+                "WAL compactions after snapshots"
+                ).inc(st["wal_compactions_total"], labels=labels)
+    reg.gauge("edgerag_wal_fsync_edge_seconds_total",
+              "Modeled edge seconds charged to WAL fsyncs + snapshots"
+              ).set(st["fsync_edge_s_total"], labels=labels)
+    reg.gauge("edgerag_recovery_seconds",
+              "Wall seconds of the last recovery (0 = none ran)"
+              ).set(st["last_recovery_s"] or 0.0, labels=labels)
+    return reg
+
+
 def collect_router(reg: MetricsRegistry, router) -> MetricsRegistry:
     """Shared-substrate state from a :class:`TenantRouter`: per-tenant
-    cache hits/misses/bytes, storage bytes, maintenance backlog.  The
-    reference adds each tenant's durability samples here; the port's
-    indexes carry no durability handle until the durability slice, so
-    there are none to add."""
+    cache hits/misses/bytes, storage bytes, maintenance backlog, and each
+    tenant's durability samples once durability is enabled."""
     hits = reg.counter("edgerag_cache_hits_total",
                        "Shared-cache hits by tenant")
     misses = reg.counter("edgerag_cache_misses_total",
@@ -310,6 +337,8 @@ def collect_router(reg: MetricsRegistry, router) -> MetricsRegistry:
         pend.set(len(ix.maintenance), labels=labels)
         medge.set(router.maintenance.per_tenant_edge_s.get(t, 0.0),
                   labels=labels)
+        if ix.durability is not None:
+            collect_durability(reg, ix.durability, labels=labels)
     reg.gauge("edgerag_cache_capacity_bytes",
               "Shared cache byte budget").set(router.cache.capacity_bytes)
     reg.gauge("edgerag_memory_bytes",

@@ -39,6 +39,7 @@ def test_importing_every_module_loads_no_jax_or_repro():
                  "repro_torch.serving.metrics",
                  "repro_torch.core.flat_index", "repro_torch.core.ivf_index",
                  "repro_torch.core.tenant",
+                 "repro_torch.core.durability",
                  "repro_torch.serving.simulator"):
         assert name in mods
     code = ("import importlib, sys\n"
@@ -75,6 +76,24 @@ def test_ast_scan_finds_no_jax_or_repro_import():
         for name in _imported_names(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_durability_loads_no_jax():
+    """``repro_torch.core.durability`` alone, in a fresh interpreter,
+    loads neither ``jax`` nor the JAX package, and names no torch
+    itself: durable state is host numpy."""
+    code = ("import sys\n"
+            "import repro_torch.core.durability as d\n"
+            "assert d.recover and d.recover_router and d.WriteAheadLog\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'repro')\n"
+            "             or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    path = PKG / "core" / "durability.py"
+    assert all(n.split(".")[0] != "torch" for n in _imported_names(path))
 
 
 @pytest.mark.parametrize("name", ["scheduler", "metrics", "simulator"])

@@ -9,8 +9,9 @@ held on scheduler runs: ``collect_scheduler`` on the admission case of
 ``tests/test_metrics.py`` here, and ``collect_scheduler`` /
 ``collect_pipeline_trace`` on every run of ``tests/test_torch_scheduler.py``
 there.  ``collect_router`` renders byte-equal text from the JAX router
-and a port router on its clustering after the same traffic; the
-durability collector is not ported yet.
+and a port router on its clustering after the same traffic, without and
+with durability enabled, and ``collect_durability`` byte-equal text from
+a JAX and a port index with a durability handle after the same inserts.
 """
 import pytest
 
@@ -18,13 +19,16 @@ pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
+from repro.core import Durability as JaxDurability  # noqa: E402
 from repro.core import EdgeCostModel as JaxCost  # noqa: E402
+from repro.core import EdgeRAGIndex as JaxIndex  # noqa: E402
 from repro.core import TenantRouter as JaxRouter  # noqa: E402
 from repro.data import generate_dataset as jax_dataset  # noqa: E402
 from repro.serving import metrics as jax_metrics  # noqa: E402
 from repro.serving import scheduler as jax_sched  # noqa: E402
 from repro_torch.convert import index_state_from_numpy  # noqa: E402
-from repro_torch.core import EdgeCostModel, TenantRouter  # noqa: E402
+from repro_torch.core import (Durability, EdgeCostModel,  # noqa: E402
+                              EdgeRAGIndex, TenantRouter)
 from repro_torch.data import generate_dataset  # noqa: E402
 from repro_torch.serving import metrics  # noqa: E402
 from repro_torch.serving import scheduler  # noqa: E402
@@ -157,10 +161,11 @@ def test_collect_scheduler_counts_and_admission():
     assert texts[0] == texts[1]
 
 
-def test_collect_router_renders_like_jax():
+def _router_texts(root=None):
     """Two tenants on a shared cache small enough to evict, a storage
     budget that refuses puts, two rounds of traffic each and one online
-    insert left queued: the same router text from both packages."""
+    insert left queued, in each package (durability enabled under
+    ``root`` when one is given): the port router and both texts."""
     data = [dict(n_records=200, dim=16, n_topics=6, n_queries=6,
                  seed=60 + t) for t in range(2)]
     kw = dict(slo_s=0.002, cache_bytes=6_000, storage_budget_bytes=12_000)
@@ -176,6 +181,9 @@ def test_collect_router_renders_like_jax():
             pr.create_tenant(f"t{t}", ds.embedder, ds.get_chunks),
             jix.centroids, assign, ds.chunk_ids, ds.texts, ds.embeddings)
         sides.append((jds, ds))
+    if root is not None:
+        jr.enable_durability(str(root / "jax"), checkpoint_every=2)
+        pr.enable_durability(str(root / "port"), checkpoint_every=2)
     texts = []
     for router, side, m in ((jr, 0, jax_metrics), (pr, 1, metrics)):
         for _ in range(2):
@@ -186,7 +194,58 @@ def test_collect_router_renders_like_jax():
         sides[0][side].add_chunk(10_000, "doc-10000 " + "tok " * 40, emb)
         router.tenant("t0").insert(10_000, "doc-10000 " + "tok " * 40)
         texts.append(m.collect_router(m.MetricsRegistry(), router).render())
+    return pr, texts
+
+
+def test_collect_router_renders_like_jax():
+    """The same router text from both packages (``_router_texts``)."""
+    pr, texts = _router_texts()
     assert pr.storage.io_stats["put_rejected"] > 0
     assert any(st["evictions"] for st in pr.cache.per_tenant.values())
     assert "edgerag_storage_bytes{tenant=\"t1\"}" in texts[1]
+    assert "edgerag_wal_records_total" not in texts[1]
+    assert texts[1] == texts[0]
+
+
+def test_collect_router_with_durability_renders_like_jax(tmp_path):
+    """The same, durability enabled (per-tenant WALs under a root of each
+    package's own): every tenant's durability samples too."""
+    _, texts = _router_texts(tmp_path)
+    assert "edgerag_wal_records_total{tenant=\"t0\"} 1" in texts[1]
+    assert "edgerag_snapshots_total{tenant=\"t1\"} 1" in texts[1]
+    assert texts[1] == texts[0]
+
+
+def test_collect_durability_renders_like_jax(tmp_path):
+    """An index of each package on the same clustering and a durability
+    handle each, five inserts (one checkpoint every three records): the
+    same WAL bytes and the same ``collect_durability`` text."""
+    d = dict(n_records=80, dim=16, n_topics=4, n_queries=2, seed=31)
+    jds, ds = jax_dataset(**d), generate_dataset(**d)
+    kw = dict(slo_s=0.004, storage_mode="disk", maintenance="sync")
+    jix = JaxIndex(16, jds.embedder, jds.get_chunks,
+                   storage_root=str(tmp_path / "jax"), **kw)
+    assign = jix.build(jds.chunk_ids, jds.texts, nlist=4,
+                       embeddings=jds.embeddings)
+    pix = EdgeRAGIndex(16, ds.embedder, ds.get_chunks, device="cpu",
+                       storage_root=str(tmp_path / "port"), **kw)
+    index_state_from_numpy(pix, jix.centroids, assign, ds.chunk_ids,
+                           ds.texts, ds.embeddings)
+    durs = [jix.attach_durability(JaxDurability(str(tmp_path / "jax"),
+                                                checkpoint_every=3)),
+            pix.attach_durability(Durability(str(tmp_path / "port"),
+                                             checkpoint_every=3))]
+    for side, ix in ((jds, jix), (ds, pix)):
+        for j in range(5):
+            side.add_chunk(9_000 + j, f"fresh chunk {j} " * 20)
+            ix.insert(9_000 + j, f"fresh chunk {j} " * 20)
+    assert durs[0].stats() == durs[1].stats()
+    assert durs[1].stats()["wal_records_total"] == 5
+    assert durs[1].stats()["snapshots_total"] == 2
+    assert (tmp_path / "jax" / "durability" / "wal.log").read_bytes() \
+        == (tmp_path / "port" / "durability" / "wal.log").read_bytes()
+    texts = [m.collect_durability(m.MetricsRegistry(), dur,
+                                  labels={"tenant": "x"}).render()
+             for m, dur in ((jax_metrics, durs[0]), (metrics, durs[1]))]
+    assert "edgerag_recovery_seconds{tenant=\"x\"} 0" in texts[1]
     assert texts[1] == texts[0]

@@ -327,7 +327,7 @@ def test_shared_cache_per_tenant_accounting(corpora):
     assert pt == jr.cache.per_tenant
 
 
-def test_bad_tenant_ids_and_unported_routes(corpora):
+def test_bad_tenant_ids_and_unported_routes(corpora, tmp_path):
     _, ds = corpora[0]
     router = TenantRouter(DIM, EdgeCostModel(), device="cpu")
     router.create_tenant("a", ds.embedder, ds.get_chunks)
@@ -340,8 +340,18 @@ def test_bad_tenant_ids_and_unported_routes(corpora):
     with pytest.raises(NotImplementedError):
         router.search_begin(ds.query_embs[:1], K, NPROBE, tenants="a",
                             mesh=object())
-    with pytest.raises(NotImplementedError, match="durability"):
+    # durability needs a filesystem root: the memory-mode router has none
+    # of its own, and takes one given; a tenant created later attaches too
+    with pytest.raises(ValueError, match="filesystem root"):
         router.enable_durability()
+    handles = router.enable_durability(str(tmp_path), checkpoint_every=4)
+    assert list(handles) == ["a"]
+    assert router.tenant("a").durability is handles["a"]
+    assert handles["a"].dir == str(tmp_path / "durability" / "tenant_a")
+    assert handles["a"].checkpoint_every == 4
+    assert handles["a"].snapshots_total == 0        # "a" is not built yet
+    b = router.create_tenant("b", ds.embedder, ds.get_chunks)
+    assert b.durability is not None and b.durability.tenant == "b"
 
 
 def test_storage_on_another_device_is_refused(corpora):
