@@ -32,6 +32,36 @@ Phases, one JSON line each:
                    every decode step the decode kernel (``decode_attention``);
                    their launches must be exactly layers x requests and
                    layers x new tokens x requests.
+  dense_archs      the assigned dense configs (``configs.ASSIGNED_ARCHS``).
+                   (a) yi-9b at full width (48 layers, d_model 4096, 32
+                   heads over 4 kv heads of 128, d_ff 11008, vocab 64,000,
+                   untied head, fp32: 8,829,407,232 parameters, 35.32 GB,
+                   random weights drawn on the card from the seed, the draw
+                   timed) as ``RAGEngine``'s generator over the main path's
+                   index, beside the main generator: the main path's first
+                   2 batches of 16 through ``answer_batch`` (prompts of 128
+                   tokens, 16 greedy tokens).  Counts zeroed before, read
+                   after.  Checks: K5 causal exactly 48 x 32 = 1,536, none
+                   non-causal, K6 exactly 48 x 16 x 32 = 24,576, no K7; the
+                   ids equal the main path's for the same queries outside
+                   near-ties; every token in range.  Prints each batch's
+                   retrieval, prefill and decode wall, the weights' bytes
+                   and ``torch.cuda.max_memory_allocated()``.  (b) each of
+                   the five configs at full width cut to 2 layers, one set
+                   of weights drawn on the CPU from the seed and copied to
+                   the card: prefill of 128 positions, then 8 decode steps,
+                   the same inputs into both (musicgen-large prefills from
+                   (1, 128, 2048) frame embeds, decodes codec ids and takes
+                   its last step by an embed; qwen2-vl-2b's prompt opens on
+                   32 ``vision_embeds`` rows on an 8-wide patch grid, with
+                   (3, 1, 128) M-RoPE positions whose streams differ over
+                   the image).  Logits of every step within ``GEN_TOL`` of
+                   the CPU's, greedy tokens equal wherever the top-2 margin
+                   exceeds 2 x ``GEN_TOL``, K5 2 and K6 16 launches, and
+                   each config's first K5 and K6 call within
+                   :func:`attn_tol` of the plain versions on the card
+                   (starcoder2-7b's K6: the first full-width launch of a
+                   9-head group, two passes of the kernel's 8 heads).
   baselines        the paper's Table 4 rows 1-2 on the main path's corpus
                    and 64 queries (k 10).  ``FlatIndex`` on the card holds
                    all 25,000 rows (76,800,000 bytes) and takes each batch
@@ -357,7 +387,8 @@ Phases, one JSON line each:
                    recorded prefill, encode and decode inputs and at extra
                    shapes (GQA, windows, ragged and unequal lengths, D = 128,
                    bf16, mixed per-slot lengths, a length >= Smax, decode
-                   at D = 32), within
+                   at D = 32; ``dense_archs`` (a)'s first K5 and K6
+                   calls, yi-9b's head dim 128 and group of 8), within
                    :func:`attn_tol` (bf16: + one ulp), which K and V
                    rounded to bf16 must miss at the recorded inputs, and
                    which q, K and V rounded to TF32 (what a 1xTF32
@@ -379,12 +410,14 @@ Phases, one JSON line each:
                    other top-k event); K7 against K6 on its dequantized cache
                    and against its library composite at K7's ``kernels``
                    shape; K6 against ``scaled_dot_product_attention`` at
-                   the recorded decode input and, in ``decode_long``, at a
+                   the recorded decode input, at ``dense_archs`` (a)'s
+                   first decode call (yi-9b) and, in ``decode_long``, at a
                    4,096-row f32 cache (every row valid), with its error
                    and bound there; each K6 and K7 call one device event;
                    K5 against
-                   ``scaled_dot_product_attention`` at the recorded prefill
-                   and encode inputs; and each top-k kernel (K1 at the
+                   ``scaled_dot_product_attention`` (``enable_gqa`` where
+                   the heads differ) at the recorded prefill and encode
+                   inputs and at yi-9b's first prefill call; and each top-k kernel (K1 at the
                    probe's and the flat scan's inputs) against its
                    library call at its ``kernels`` inputs: 100 calls each,
                    device ms per call beside wall ms per call; and the fp32
@@ -410,8 +443,13 @@ kernel in its mode or mask that each phase driving a path of the port
 counted in its checked window (``main_path``, ``baselines``' IVF searches
 at nprobe 8, ``continuous_batching``'s trace and engine batch, ``encode``,
 ``online_index``, ``staged_pipeline`` and its stale batch, ``scheduler``
-(a) and (b), ``tenancy`` (a), (d) and (e), ``durability``), whatever
-their shapes; ``ivf_topk_flat`` is K1 at the flat
+(a) and (b), ``tenancy`` (a), (d) and (e), ``durability``,
+``dense_archs`` (a)), whatever their shapes; ``flash_attention_yi_9b``
+and ``decode_attention_yi_9b`` are K5 and K6 at ``dense_archs`` (a)'s
+first calls (q (1, 128, 32, 128) against (1, 128, 4, 128) causal; (1, 1,
+32, 128) against a (1, 144, 4, 128) cache, 129 rows valid) and take that
+part's K5 and K6 launches (its K1 and K2 go to their rows);
+``ivf_topk_flat`` is K1 at the flat
 scan's recorded call (16 x 25,000 x 768) and takes ``baselines``' flat
 launches, the recall sweep's launches go to no row;
 K6 launched by a batcher's ticks goes to ``decode_attention_batcher`` (K6
@@ -494,6 +532,13 @@ DUR_CRASHES = (("wal_torn_append", 30), ("snap_pre_rename", 2))
 ROUTER_INSERTS, ROUTER_REMOVES, ROUTER_CHECKPOINT = 8, 4, 8
 # baselines: recall@K of the IVF index against the flat one at these nprobe
 RECALL_NPROBES = (1, 4, NPROBE, 16, NLIST)
+# dense_archs: (a) DENSE_GEN at full width behind the main index, the main
+# path's first DENSE_BATCHES batches; (b) each assigned dense config at
+# PARITY_LAYERS layers, MAX_PROMPT positions of prefill and DENSE_STEPS
+# decode steps, qwen2-vl's prompt opening on VISION_ROWS patch embeds laid
+# on a grid VISION_GRID_W patches wide
+DENSE_GEN, DENSE_BATCHES, DENSE_STEPS = "yi-9b", 2, 8
+VISION_ROWS, VISION_GRID_W = 32, 8
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
 # one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
@@ -1380,6 +1425,236 @@ def record_prompt(caches) -> dict:
     (cloned: decode writes the cache in place)."""
     return {"prompt": [(c.k[:, :MAX_PROMPT].clone(),
                         c.v[:, :MAX_PROMPT].clone()) for c in caches]}
+
+
+def mrope_positions(s: int, prefix: int, grid_w: int):
+    """(3, 1, s) M-RoPE positions of a ``prefix``-patch image on a grid
+    ``grid_w`` patches wide, then text: the image's temporal stream 0, its
+    height and width streams the patch's row and column; the text from
+    one past the largest image position on all three streams (qwen2-vl's
+    rule, arXiv:2409.12191)."""
+    import torch
+    pos = torch.empty((3, 1, s), dtype=torch.long)
+    i = torch.arange(prefix)
+    pos[0, 0, :prefix] = 0
+    pos[1, 0, :prefix] = i // grid_w
+    pos[2, 0, :prefix] = i % grid_w
+    start = int(pos[:, 0, :prefix].max()) + 1
+    pos[:, 0, prefix:] = start + torch.arange(s - prefix)
+    return pos
+
+
+def dense_yi(ctx) -> tuple:
+    """(a) of ``dense_archs``: full-width yi-9b as the main index's
+    generator (module docstring).  Returns the part's line and its first
+    K5 and K6 calls (the ``kernels`` line's ``*_yi_9b`` rows)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_q8
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import param_count
+    from repro_torch.serving import GeneratorModel, RAGEngine
+
+    dev, ds = ctx["dev"], ctx["ds"]
+    cfg = get_config(DENSE_GEN)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = GeneratorModel(cfg, seed=SEED, max_prompt=MAX_PROMPT, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    weight_bytes = param_count(gen.params) * 4
+    check(weight_bytes == cfg.param_count() * 4,
+          f"{DENSE_GEN}: {weight_bytes} weight bytes, want "
+          f"{cfg.param_count() * 4}")
+    engine = RAGEngine(ctx["index"], gen, cost_model=ctx["cost"], k=K,
+                       nprobe=NPROBE, max_new_tokens=NEW_TOKENS)
+    rec_flash = Recorder(model_mod.flash_attention)
+    rec_dec = Recorder(model_mod.decode_attention)
+    saved = model_mod.flash_attention, model_mod.decode_attention
+    model_mod.flash_attention, model_mod.decode_attention = rec_flash, rec_dec
+    q8_before = decode_attention_q8.launches
+    per_batch, responses = [], []
+    zero_launches()
+    try:
+        for b in range(DENSE_BATCHES):
+            lo, hi = b * BATCH, (b + 1) * BATCH
+            p0, d0 = gen.prefill_wall_s, gen.decode_wall_s
+            t0 = time.perf_counter()
+            resp = engine.answer_batch(
+                [f"query-{i}" for i in range(lo, hi)], ds.query_embs[lo:hi],
+                ds.get_chunks)
+            wall = time.perf_counter() - t0
+            responses.append(resp)
+            per_batch.append({
+                "wall_s": wall,
+                "retrieval_s": sum(r.ttft_wall_s for r in resp),
+                "prefill_s": gen.prefill_wall_s - p0,
+                "decode_s": gen.decode_wall_s - d0})
+        counts = launch_counts()
+    finally:
+        model_mod.flash_attention, model_mod.decode_attention = saved
+    q8 = decode_attention_q8.launches - q8_before
+    peak = torch.cuda.max_memory_allocated()
+    n_req = DENSE_BATCHES * BATCH
+    layers = cfg.num_layers
+    want = ({"causal": layers * n_req, "non_causal": 0},
+            layers * NEW_TOKENS * n_req)
+    check((counts["flash_attention"], counts["decode_attention"]) == want
+          and q8 == 0, f"dense_archs (a): attention launches "
+          f"{counts['flash_attention']}, K6 {counts['decode_attention']}, "
+          f"K7 {q8}; want {want[0]}, K6 {want[1]}, K7 0")
+    flat = [r for resp in responses for r in resp]
+    check(all(len(r.output_tokens) == NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in r.output_tokens)
+              for r in flat), f"{DENSE_GEN}: generated tokens out of range")
+    swaps, mismatches = near_tie_mismatches(
+        [r.chunk_ids for r in flat], ctx["main_ids"][:n_req],
+        ctx["main_vals"][:n_req])
+    check(mismatches == 0, f"dense_archs (a): {mismatches} ids differ from "
+          f"the main path's outside near-ties")
+    line = {"generator": cfg.name, "layers": layers,
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "weight_bytes": weight_bytes, "draw_s": draw_s,
+            "max_memory_allocated": peak, "batches": DENSE_BATCHES,
+            "batch": BATCH, "prompt": MAX_PROMPT, "new_tokens": NEW_TOKENS,
+            "per_batch": per_batch, "launches": counts,
+            "decode_attention_q8_launches": q8,
+            "ids_equal_main_path": True, "near_tie_swaps": swaps,
+            "gen_tokens": [r.output_tokens for r in flat[:3]]}
+    record = {"flash": rec_flash.first[None], "decode": rec_dec.first[None]}
+    del engine, gen, rec_flash, rec_dec, responses, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line, record
+
+
+def dense_arch_parity(name: str, dev) -> dict:
+    """(b) of ``dense_archs`` for one config: 2 layers at full width on the
+    card and on the CPU (module docstring)."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    param_count, prefill)
+    from repro_torch.models import model as model_mod
+
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(get_config(name), num_layers=PARITY_LAYERS)
+    t0 = time.perf_counter()
+    m_cpu = init_params(cfg, seed=SEED, device="cpu")
+    m_card = copy.deepcopy(m_cpu).to(dev)
+    init_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(9)
+    if cfg.embedding_inputs:                 # the stubbed codec's frames
+        batch = {"embeds": torch.randn((1, MAX_PROMPT, cfg.d_model),
+                                       generator=g)}
+    else:
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, MAX_PROMPT),
+                                         generator=g)}
+    if cfg.use_mrope:                        # the stubbed ViT's patches
+        batch["vision_embeds"] = torch.randn((1, VISION_ROWS, cfg.d_model),
+                                             generator=g)
+        batch["positions"] = mrope_positions(MAX_PROMPT, VISION_ROWS,
+                                             VISION_GRID_W)
+    smax = MAX_PROMPT + DENSE_STEPS
+    c_cpu = init_cache(cfg, 1, smax, device=cpu)
+    c_card = init_cache(cfg, 1, smax, device=dev)
+    rec_flash = Recorder(model_mod.flash_attention)
+    rec_dec = Recorder(model_mod.decode_attention)
+    saved = model_mod.flash_attention, model_mod.decode_attention
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    errs, tokens_checked, near_ties, fed = [], 0, 0, []
+    t0 = time.perf_counter()
+    try:
+        model_mod.flash_attention = rec_flash
+        model_mod.decode_attention = rec_dec
+        l_cpu, _ = prefill(m_cpu, batch, c_cpu)
+        l_card, _ = prefill(m_card, {n: t.to(dev) for n, t in batch.items()},
+                            c_card)
+        for step in range(DENSE_STEPS + 1):
+            lc, lk = l_cpu[0], l_card[0].cpu()
+            errs.append(float((lk - lc).abs().max()))
+            top2 = torch.topk(lc, 2).values
+            if float(top2[0] - top2[1]) > 2 * GEN_TOL:
+                check(int(lk.argmax()) == int(lc.argmax()),
+                      f"{name}: greedy token differs at step {step}")
+                tokens_checked += 1
+            else:
+                near_ties += 1
+            if step == DENSE_STEPS:
+                break
+            if cfg.embedding_inputs and step == DENSE_STEPS - 1:
+                nxt = torch.randn((1, 1, cfg.d_model), generator=g)
+                fed.append("embeds")
+            else:                            # the same token into both
+                nxt = lc.argmax().reshape(1, 1)
+                fed.append("ids" if cfg.embedding_inputs else "tokens")
+            l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, MAX_PROMPT + step)
+            l_card, _ = decode_step(m_card, nxt.to(dev), c_card,
+                                    MAX_PROMPT + step)
+    finally:
+        model_mod.flash_attention, model_mod.decode_attention = saved
+    run_s = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches - f0,
+                "decode_attention": decode_attention.launches - d0}
+    check(launches == {"flash_attention": PARITY_LAYERS,
+                       "decode_attention": PARITY_LAYERS * DENSE_STEPS},
+          f"{name}: attention launches {launches}")
+    check(max(errs) <= GEN_TOL, f"{name}: logits differ by {max(errs)} > "
+          f"{GEN_TOL}")
+
+    def held(got, ref) -> dict:
+        err, ratio = attn_err(got, ref)
+        check(ratio <= 1, f"{name}: first call's error {err} is {ratio} x "
+              f"its allowance")
+        return {"max_abs_err": err, "tol": attn_tol(got.shape[-1]),
+                "err_over_allowance": ratio}
+
+    (q, k, v), kw = rec_flash.first[None]
+    k5 = {"shape": list(q.shape), "kv": list(k.shape),
+          **held(flash_attention(q, k, v, **kw),
+                 flash_plain(q, k, v, kw.get("causal", True)))}
+    (q, kc, vc, lens), _ = rec_dec.first[None]
+    group = cfg.num_heads // cfg.num_kv_heads
+    k6 = {"shape": list(q.shape), "cache": list(kc.shape), "length": lens,
+          "group": group, "group_passes": -(-group // 8),
+          **held(decode_attention(q, kc, vc, lens),
+                 decode_plain(q, kc, vc, lens))}
+    if group > 8:
+        k6["note"] = (f"the first full-width launch of a {group}-head group "
+                      f"(8 query heads a pass: a second pass of "
+                      f"{group - 8})")
+    return {"name": name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings,
+            "params": param_count(m_card), "inputs": sorted(batch),
+            "decode_fed": fed, "init_s": init_s, "run_s": run_s,
+            "tol": GEN_TOL, "max_abs_err_per_step": errs,
+            "tokens_checked": tokens_checked, "near_ties": near_ties,
+            "launches": launches, "k5_first": k5, "k6_first": k6}
+
+
+def dense_archs(ctx) -> tuple:
+    """The ``dense_archs`` phase (module docstring): (a) then (b) for each
+    of ``configs.ASSIGNED_ARCHS``.  Returns its line and (a)'s first K5
+    and K6 calls."""
+    import gc
+    from repro_torch.configs import ASSIGNED_ARCHS
+    t_phase = time.perf_counter()
+    line, record = dense_yi(ctx)
+    archs = []
+    for name in ASSIGNED_ARCHS:
+        archs.append(dense_arch_parity(name, ctx["dev"]))
+        gc.collect()
+    return {"phase": "dense_archs", "nvidia_smi": ctx["smi"], "yi_9b": line,
+            "archs": archs, "phase_s": time.perf_counter() - t_phase}, record
 
 
 def int8_bound(q, k, v) -> float:
@@ -3892,9 +4167,10 @@ def baselines(ctx) -> tuple:
     return out, (e_dev, torch.from_numpy(queries[:BATCH]).to(dev))
 
 
-def check_attention(rec_flash, rec_dec, dev) -> dict:
+def check_attention(rec_flash, rec_dec, dense_calls, dev) -> dict:
     """The attention kernels against their plain versions on the card
-    (module docstring, ``kernels_checked``)."""
+    (module docstring, ``kernels_checked``); ``dense_calls``: the first K5
+    and K6 calls of ``dense_archs`` (a)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -3977,6 +4253,11 @@ def check_attention(rec_flash, rec_dec, dev) -> dict:
     (qd, kd, vd, lens), kw = rec_dec.first[None]
     decode_case("decode", qd, kd, vd, lens, **kw)
     control("decode_attention_decode", decode_plain, qd, kd, vd, lens)
+    # yi-9b's (head dim 128, 32 heads over 4)
+    (q, k, v), kw = dense_calls["flash"]
+    flash_case("yi_9b", q, k, v, **kw)
+    (q, k, v, lens), kw = dense_calls["decode"]
+    decode_case("yi_9b", q, k, v, lens, **kw)
     # GQA with a window; ragged, unequal lengths; D = 128; bf16
     flash_case("gqa4_window", rand(2, 256, 32, 80), rand(2, 256, 8, 80),
                rand(2, 256, 8, 80), True, 100)
@@ -4138,9 +4419,6 @@ def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev,
     ``scaled_dot_product_attention`` with the same mask.  The rows add
     ``k5_dev``'s and ``k6_dev``'s device ms per call of the kernel and of
     that library call."""
-    import torch
-    from repro_torch.kernels.flash_attention import flash_attention
-
     rows = []
     for name, shape, causal, n_launch in (
             ("flash_attention", "prefill", True,
@@ -4148,33 +4426,39 @@ def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev,
             ("flash_attention_encode", "encode", False,
              launches["flash_attention_encode"])):
         (q, k, v), _ = rec_flash.first[causal]
-        (b, sq, h, d), skv = q.shape, k.shape[1]
-        pairs = sq * skv
-        if causal:
-            pairs = int(torch.tril(torch.ones(sq, skv)).sum())
-        lim = bound((2 * q.numel() + k.numel() + v.numel())
-                    * q.element_size(), 4 * b * h * d * pairs,
-                    F32_TC_FLOPS_PER_S)
-        err = checked[f"flash_attention_{shape}"]["max_abs_err"]
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
-            "launches": n_launch, "max_abs_err": err,
-            "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
-                          200),
-            "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal), 10),
-            "bound_ms": lim[0], "bound_by": lim[1],
-            "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=causal),
-                                  200),
-            "device_ms": k5_dev[shape]["flash_attention"]["device_ms_per_call"],
-            "library_device_ms": k5_dev[shape]["sdpa"]["device_ms_per_call"]})
+        rows.append(k5_row(name, q, k, v, causal, n_launch,
+                           checked[f"flash_attention_{shape}"]["max_abs_err"],
+                           k5_dev[shape]))
     (q, kc, vc, lens), _ = rec_dec.first[None]
     rows.append(k6_row("decode_attention", q, kc, vc, lens,
                        launches["decode_attention"],
                        checked["decode_attention_decode"]["max_abs_err"],
                        k6_dev))
     return rows
+
+
+def k5_row(name, q, k, v, causal, launches, err, k5_dev) -> dict:
+    """A ``kernels`` line row of K5 at one input; bound and library as in
+    :func:`attention_rows`; ``k5_dev``: :func:`k5_device_ms_at` at it."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    (b, sq, h, d), skv = q.shape, k.shape[1]
+    pairs = sq * skv
+    if causal:
+        pairs = int(torch.tril(torch.ones(sq, skv)).sum())
+    lim = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                4 * b * h * d * pairs, F32_TC_FLOPS_PER_S)
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+        "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal), 200),
+        "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal), 10),
+        "bound_ms": lim[0], "bound_by": lim[1],
+        "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=causal), 200),
+        "device_ms": k5_dev["flash_attention"]["device_ms_per_call"],
+        "library_device_ms": k5_dev["sdpa"]["device_ms_per_call"]}
 
 
 def k6_row(name, q, kc, vc, lens, launches, err, k6_dev) -> dict:
@@ -4275,15 +4559,20 @@ def k5_device_ms(rec_flash, calls: int = 100) -> dict:
     """Device ms per call of K5 and of ``scaled_dot_product_attention``
     with the same mask at the recorded prefill and encode inputs, each over
     ``calls`` calls under ``torch.profiler``."""
-    from repro_torch.kernels.flash_attention import flash_attention
     out = {}
     for shape, causal in (("prefill", True), ("encode", False)):
         (q, k, v), _ = rec_flash.first[causal]
-        out[shape] = device_ms(
-            {"flash_attention": lambda: flash_attention(q, k, v,
-                                                        causal=causal),
-             "sdpa": lambda: sdpa(q, k, v, is_causal=causal)}, calls)
+        out[shape] = k5_device_ms_at(q, k, v, causal, calls)
     return out
+
+
+def k5_device_ms_at(q, k, v, causal, calls: int = 100) -> dict:
+    """Device ms per call of K5 and of ``scaled_dot_product_attention``
+    (GQA through ``enable_gqa``) with the same mask at one input."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    return device_ms(
+        {"flash_attention": lambda: flash_attention(q, k, v, causal=causal),
+         "sdpa": lambda: sdpa(q, k, v, is_causal=causal)}, calls)
 
 
 def device_ms(runs: dict, calls: int) -> dict:
@@ -4536,6 +4825,12 @@ def main() -> int:
           "cpu_match": True, "near_tie_swaps": swaps,
           "reduced_model_card_vs_cpu_max_err": small_err})
 
+    # ---- the assigned dense configs: yi-9b behind the main index --------
+    dense, dense_calls = dense_archs({
+        "ds": ds, "cost": cost, "dev": dev, "smi": smi, "index": index,
+        "main_ids": main_ids, "main_vals": main_vals})
+    emit(dense)
+
     # ---- the Table 4 baselines on the main path's corpus ----------------
     base, flat_call = baselines({"ds": ds, "cost": cost, "dev": dev,
                                  "main_ids": main_ids, "main_vals": main_vals,
@@ -4593,6 +4888,8 @@ def main() -> int:
          True),
         ("tenancy", ten["launches"], False),
         ("durability", dur["launches"], False),
+        ("dense_archs", {n: dense["yi_9b"]["launches"][n]
+                         for n in ("ivf_topk", "slab_topk")}, False),
         ("baselines", {"ivf_topk": base["ivf"]["launches"],
                        "ivf_topk_flat": base["flat"]["launches"]}, False)])
 
@@ -4697,7 +4994,7 @@ def main() -> int:
         report[f"slab_topk_{mode}"] = check_quantized(mode, e, q, v, k, kw,
                                                       rint)
     report["slab_topk_wide_rows"] = check_wide_rows(dev, rint)
-    report.update(check_attention(rec_flash, rec_dec, dev))
+    report.update(check_attention(rec_flash, rec_dec, dense_calls, dev))
     emit({"phase": "kernels_checked",
           "ivf_topk_shape": [*e1.shape, q1.shape[0], k1],
           "ivf_topk_flat_shape": [*fe.shape, fq.shape[0], K],
@@ -4779,6 +5076,23 @@ def main() -> int:
          "flash_attention_encode": n_path("flash_attention_encode"),
          "decode_attention": n_path("decode_attention")},
         report, k5_dev, k6_dev)
+    (q, k, v), kw = dense_calls["flash"]
+    k5y_dev = k5_device_ms_at(q, k, v, kw["causal"])
+    dense_n = dense["yi_9b"]["launches"]
+    by_row["flash_attention_yi_9b"] = {
+        "dense_archs": dense_n["flash_attention"]["causal"]}
+    kernels.append(k5_row("flash_attention_yi_9b", q, k, v, kw["causal"],
+                          n_path("flash_attention_yi_9b"),
+                          report["flash_attention_yi_9b"]["max_abs_err"],
+                          k5y_dev))
+    (q, kc, vc, lens), _ = dense_calls["decode"]
+    k6y_dev = decode_device_ms(q, kc, vc, lens)
+    by_row["decode_attention_yi_9b"] = {
+        "dense_archs": dense_n["decode_attention"]}
+    kernels.append(k6_row("decode_attention_yi_9b", q, kc, vc, lens,
+                          n_path("decode_attention_yi_9b"),
+                          report["decode_attention_yi_9b"]["max_abs_err"],
+                          k6y_dev))
     kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"],
                           q8_dev))
     by_row["decode_attention_q8"] = {"kv_int8": kv8["launches"]}
@@ -4816,6 +5130,8 @@ def main() -> int:
           "k7_vs_k6_device": q8_dev, "k6_vs_sdpa_device": k6_dev,
           "decode_long": decode_long(dev),
           "k5_vs_sdpa_device": k5_dev, "topk_vs_library_device": topk_dev,
+          "k5_yi_9b_vs_sdpa_device": k5y_dev,
+          "k6_yi_9b_vs_sdpa_device": k6y_dev,
           "k2_cold_vs_warm_l2": cold_l2_device_ms(
               calls["slab_topk"][0], TILED_EVENTS["slab_topk_fp32"])})
     t_first = LEAD_IN_LOST[0][0]

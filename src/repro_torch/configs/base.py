@@ -8,8 +8,8 @@ that a reduced config means the same shapes in both packages.
 The ``block_pattern`` field drives the block stack in
 ``repro_torch.models.model``: the stack is ``depth_repeat`` repetitions of
 the pattern, and each entry is the *kind* of block ("attn", "swa"
-sliding-window attention, "moe", "mamba2", "rwkv6", "shared_attn").  This
-slice of the port runs dense ``"attn"`` blocks only.
+sliding-window attention, "moe", "mamba2", "rwkv6", "shared_attn").  The
+port runs dense ``"attn"`` blocks so far.
 """
 from __future__ import annotations
 
@@ -197,12 +197,12 @@ def register(name: str):
 
 
 def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import paper_models  # noqa: F401  (registers)
+    import repro_torch.configs  # noqa: F401  (registers every config)
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
 
 
 def list_configs():
-    from repro_torch.configs import paper_models  # noqa: F401  (registers)
+    import repro_torch.configs  # noqa: F401  (registers every config)
     return sorted(_REGISTRY)

@@ -7,6 +7,7 @@ storage, caching), retrieves and generates, reporting per-query TTFT
 CPU instead.
 
   python -m repro_torch.launch.serve --dataset fiqa --queries 40
+  python -m repro_torch.launch.serve --arch yi-9b --device cpu
 """
 from __future__ import annotations
 
@@ -27,7 +28,9 @@ def main(argv=None):
                     choices=["scidocs", "fiqa", "quora", "nq", "hotpotqa",
                              "fever"])
     ap.add_argument("--arch", default="sheared-llama-2.7b",
-                    help="generator architecture (a registered config id)")
+                    help="generator architecture: a registered config id "
+                         "(the paper's models or configs.ASSIGNED_ARCHS), "
+                         "served .reduced()")
     ap.add_argument("--records", type=int, default=2000)
     ap.add_argument("--queries", type=int, default=40)
     ap.add_argument("--k", type=int, default=10)

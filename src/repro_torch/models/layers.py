@@ -1,6 +1,7 @@
-"""Shared layers: RMSNorm, SwiGLU MLP, RoPE, as plain functions on tensors.
+"""Shared layers: RMSNorm, SwiGLU MLP, RoPE (standard and qwen2-vl's
+M-RoPE), as plain functions on tensors.
 
-Port of ``repro.models.layers`` (M-RoPE comes with the qwen2-vl slice).
+Port of ``repro.models.layers``.
 Weights keep the JAX package's (in, out) layout, so a projection is
 ``x @ w``.  Init mirrors llama-family conventions (truncated-normal
 projections scaled by fan-in, zeros for the ``1 + w`` norms), drawn from an
@@ -51,6 +52,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     (D // 2,) :func:`rope_frequencies` already on x's device (a host copy
     per call would stall the host on the device every layer)."""
     angles = positions[..., None].to(torch.float32) * inv_freq  # (B,S,D/2)
+    return _rotate(x, angles)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                inv_freq: torch.Tensor, sections):
+    """Multimodal RoPE (qwen2-vl, arXiv:2409.12191).
+
+    positions: (3, B, S) integer, the temporal / height / width streams;
+    ``sections`` partitions the D // 2 frequency bands among the three
+    streams, in order, and each band rotates by its stream's position.
+    The reference picks a band's stream by a one-hot contraction; here
+    each stream's slice of ``inv_freq`` multiplies that stream's
+    positions, the same products, so equal streams give
+    :func:`apply_rope`'s result bitwise."""
+    if sum(sections) != inv_freq.shape[0]:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {inv_freq.shape[0]}")
+    pos = positions.to(torch.float32)
+    angles = torch.cat([pos[i][..., None] * f for i, f in
+                        enumerate(torch.split(inv_freq, list(sections)))],
+                       dim=-1)                              # (B, S, D/2)
+    return _rotate(x, angles)
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Rotates x (B, S, H, D) by ``angles`` (B, S, D // 2)."""
     sin = torch.sin(angles)[:, :, None, :]
     cos = torch.cos(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

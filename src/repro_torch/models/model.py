@@ -1,22 +1,33 @@
 """Decoder / encoder model of dense ``"attn"`` blocks, in PyTorch.
 
-Port of ``repro.models.model`` for dense attention blocks (the paper's
-generator and embedder); MoE, Mamba2, RWKV6, sliding-window and shared
-blocks come with later slices and raise here.  A :class:`Model` is an
-``nn.Module`` whose parameters keep the JAX package's names and (in, out)
-matrix layout, one :class:`AttnBlock` per layer (the JAX pytree stacks them
-over depth; ``repro_torch.convert`` unstacks).
+Port of ``repro.models.model`` for dense attention blocks: the paper's
+generator and embedder and the assigned dense architectures
+(``configs.ASSIGNED_ARCHS``: yi-9b, starcoder2-7b, stablelm-1.6b, and
+musicgen-large and qwen2-vl-2b with their stubbed frontends' embedding
+inputs, qwen2-vl with M-RoPE).  MoE, Mamba2, RWKV6, sliding-window and
+shared blocks come with later slices and raise here.  A :class:`Model` is
+an ``nn.Module`` whose parameters keep the JAX package's names and (in,
+out) matrix layout, one :class:`AttnBlock` per layer (the JAX pytree stacks
+them over depth; ``repro_torch.convert`` unstacks).
 
 Public entry points, as in the JAX package:
   init_params                          (random weights from a seed)
   prefill / decode_step                (serving)
   encode                               (mean-pooled sentence embedding)
 
+Inputs, as the reference's ``_embed_inputs`` and ``_default_positions``
+take them: ``batch["tokens"]`` (B, S), or ``batch["embeds"]`` (B, S, d) in
+their place; ``batch["vision_embeds"]`` (B, P, d) written over the first P
+positions; ``batch["positions"]`` (B, S), or (3, B, S) under M-RoPE, else
+0..S-1 (offset by ``cache_len`` in decode, per slot included) on every
+stream.
+
 Semantics kept from the reference: ``rms_norm`` scales by ``1 + w``; RoPE
-rotates the two halves of the head dim; SwiGLU MLP; an untied ``lm_head``
-when the config says so; prefill attends causally with NO padding mask;
-decode inserts k / v at ``cache_len`` (an int, or (B,) per-slot lengths)
-and attends over ``cache_len + 1`` tokens.
+rotates the two halves of the head dim (M-RoPE each band by its stream's
+position); SwiGLU MLP; an untied ``lm_head`` when the config says so;
+prefill attends causally with NO padding mask; decode inserts k / v at
+``cache_len`` (an int, or (B,) per-slot lengths) and attends over
+``cache_len + 1`` tokens.
 
 Attention on the card is the hand-written kernels, whatever ``attn_impl``
 says (``"reference"`` and ``"chunked"`` are two plain formulations of the
@@ -41,8 +52,8 @@ from repro_torch.kernels.decode_attention import (DecodeLengths,
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.cache import KVCache
-from repro_torch.models.layers import (apply_rope, dense_init, mlp,
-                                       rms_norm, rope_frequencies)
+from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
+                                       mlp, rms_norm, rope_frequencies)
 
 # sequences at least this long use the online-softmax chunked attention
 CHUNKED_ATTN_MIN_SEQ = 2048
@@ -83,8 +94,12 @@ class AttnBlock(nn.Module):
         q = (h @ self.wq).view(b, s, cfg.num_heads, cfg.head_dim)
         k = (h @ self.wk).view(b, s, cfg.num_kv_heads, cfg.head_dim)
         v = (h @ self.wv).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-        q = apply_rope(q, positions, inv_freq)
-        k = apply_rope(k, positions, inv_freq)
+        if cfg.use_mrope:
+            q = apply_mrope(q, positions, inv_freq, cfg.mrope_sections)
+            k = apply_mrope(k, positions, inv_freq, cfg.mrope_sections)
+        else:
+            q = apply_rope(q, positions, inv_freq)
+            k = apply_rope(k, positions, inv_freq)
         cap = cfg.attn_logit_softcap
         card = q.is_cuda
         if card and cap:
@@ -146,21 +161,52 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def run(self, tokens: torch.Tensor, *, causal: bool, mode: str,
-            caches: Optional[List[KVCache]],
-            cache_len: Union[int, torch.Tensor],
-            attn_impl: str) -> torch.Tensor:
-        """Embed ``tokens`` (B, S) and apply every block; returns the
-        residual stream (B, S, d) before the final norm.  In decode the
-        positions start at ``cache_len``: one offset, or (B,) per slot; the
-        lengths the layers attend over are checked once here, not once per
-        layer."""
-        x = self.embed[tokens]
-        b, s = tokens.shape
-        offset = cache_len if mode == "decode" else 0
+    def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """(B, S, d) f32: ``batch["embeds"]`` if given, else the embedding
+        of ``batch["tokens"]``; ``batch["vision_embeds"]`` (B, P, d), if
+        given, replaces the first P positions (an image prefix)."""
+        embeds = batch.get("embeds")
+        if embeds is not None:
+            x = embeds.to(torch.float32)
+        else:
+            x = self.embed[batch["tokens"]]
+        ve = batch.get("vision_embeds")
+        if ve is not None:
+            if ve.shape[0] != x.shape[0] or ve.shape[1] > x.shape[1] or \
+                    ve.shape[2] != x.shape[2]:
+                raise ValueError(f"vision_embeds {tuple(ve.shape)} do not "
+                                 f"fit the inputs {tuple(x.shape)}")
+            x = torch.cat([ve.to(torch.float32), x[:, ve.shape[1]:]], dim=1)
+        return x
+
+    def positions(self, b: int, s: int,
+                  offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
+        """The reference's ``_default_positions``: 0..s-1 plus ``offset``
+        (one, or (B,) per slot), (B, S), broadcast to (3, B, S) under
+        M-RoPE (text positions: the three streams equal)."""
         if isinstance(offset, torch.Tensor):
             offset = offset.reshape(-1, 1)              # per-slot (B, 1)
-        positions = (torch.arange(s, device=x.device) + offset).expand(b, s)
+        pos = (torch.arange(s, device=self.device) + offset).expand(b, s)
+        return pos.expand(3, b, s) if self.cfg.use_mrope else pos
+
+    def run(self, x: torch.Tensor, positions: Optional[torch.Tensor], *,
+            causal: bool, mode: str, caches: Optional[List[KVCache]],
+            cache_len: Union[int, torch.Tensor],
+            attn_impl: str) -> torch.Tensor:
+        """Apply every block to the embedded inputs ``x`` (B, S, d);
+        returns the residual stream (B, S, d) before the final norm.
+        ``positions`` None means :meth:`positions`, starting at
+        ``cache_len`` in decode; the lengths the layers attend over are
+        checked once here, not once per layer."""
+        b, s, _ = x.shape
+        if positions is None:
+            positions = self.positions(
+                b, s, cache_len if mode == "decode" else 0)
+        elif tuple(positions.shape) != ((3, b, s) if self.cfg.use_mrope
+                                        else (b, s)):
+            raise ValueError(f"{self.cfg.name}: positions "
+                             f"{tuple(positions.shape)} for inputs "
+                             f"{tuple(x.shape)}")
         lengths = cache_len + 1
         if mode == "decode" and x.is_cuda:
             lengths = decode_lengths(lengths, b, x.device)
@@ -194,23 +240,29 @@ def param_count(model: Model) -> int:
 def prefill(model: Model, batch: Dict[str, torch.Tensor],
             caches: List[KVCache], *, attn_impl: str = "auto"
             ) -> Tuple[torch.Tensor, List[KVCache]]:
-    """Run the full prompt ``batch["tokens"]`` (B, S), filling ``caches``
-    in place.  Returns (last-position logits (B, vocab), caches)."""
-    x = model.run(batch["tokens"], causal=True, mode="prefill",
-                  caches=caches, cache_len=0, attn_impl=attn_impl)
+    """Run the full prompt (``batch`` as the module docstring says),
+    filling ``caches`` in place.  Returns (last-position logits (B, vocab),
+    caches)."""
+    x = model.run(model.embed_inputs(batch), batch.get("positions"),
+                  causal=True, mode="prefill", caches=caches, cache_len=0,
+                  attn_impl=attn_impl)
     return model.logits(x[:, -1]), caches
 
 
 @torch.no_grad()
-def decode_step(model: Model, tokens: torch.Tensor, caches: List[KVCache],
-                cache_len: Union[int, torch.Tensor]
+def decode_step(model: Model, tokens_or_embeds: torch.Tensor,
+                caches: List[KVCache], cache_len: Union[int, torch.Tensor]
                 ) -> Tuple[torch.Tensor, List[KVCache]]:
-    """One-token serve step: tokens (B, 1) at position ``cache_len``, one
-    for every slot or a (B,) integer tensor of per-slot positions.
-    Returns (logits (B, vocab), caches updated in place)."""
+    """One-token serve step: tokens (B, 1) (the audio model decodes codec
+    ids) or embeds (B, 1, d), at position ``cache_len``, one for every
+    slot or a (B,) integer tensor of per-slot positions (every M-RoPE
+    stream at it).  Returns (logits (B, vocab), caches updated in
+    place)."""
     if isinstance(cache_len, torch.Tensor):
         cache_len = cache_len.to(device=model.device, dtype=torch.long)
-    x = model.run(tokens, causal=True, mode="decode", caches=caches,
+    key = "tokens" if tokens_or_embeds.dim() == 2 else "embeds"
+    x = model.run(model.embed_inputs({key: tokens_or_embeds}), None,
+                  causal=True, mode="decode", caches=caches,
                   cache_len=cache_len, attn_impl="auto")
     return model.logits(x[:, 0]), caches
 
@@ -221,8 +273,9 @@ def encode(model: Model, batch: Dict[str, torch.Tensor], *,
     """Bidirectional mean-pooled, unit-norm sentence embedding.  Padded
     tokens are attended; ``batch["attn_mask"]`` only selects what is
     pooled."""
-    x = model.run(batch["tokens"], causal=False, mode="train", caches=None,
-                  cache_len=0, attn_impl=attn_impl)
+    x = model.run(model.embed_inputs(batch), batch.get("positions"),
+                  causal=False, mode="train", caches=None, cache_len=0,
+                  attn_impl=attn_impl)
     x = rms_norm(x, model.final_norm, model.cfg.norm_eps)
     mask = batch.get("attn_mask")
     if mask is None:

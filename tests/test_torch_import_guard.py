@@ -14,6 +14,9 @@ pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
+# the assigned architectures' config modules the port registers
+ARCH_MODULES = ("stablelm_1p6b", "starcoder2_7b", "yi_9b", "musicgen_large",
+                "qwen2_vl_2b")
 
 
 def _modules():
@@ -40,7 +43,8 @@ def test_importing_every_module_loads_no_jax_or_repro():
                  "repro_torch.core.flat_index", "repro_torch.core.ivf_index",
                  "repro_torch.core.tenant",
                  "repro_torch.core.durability",
-                 "repro_torch.serving.simulator"):
+                 "repro_torch.serving.simulator",
+                 *(f"repro_torch.configs.{m}" for m in ARCH_MODULES)):
         assert name in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -72,6 +76,7 @@ def _imported_names(path: Path):
 
 def test_ast_scan_finds_no_jax_or_repro_import():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert all(PKG / "configs" / f"{m}.py" in files for m in ARCH_MODULES)
     for path in files:
         for name in _imported_names(path):
             top = name.split(".")[0]
