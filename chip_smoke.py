@@ -10,14 +10,15 @@ Phases, one JSON line each:
                    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at
                    once, into the git-ignored ``build/kernels/``), with
                    ``ptxas``'s registers and spills per kernel entry; every
-                   ``flash_attention`` entry (head dims 64, 80, 128, f32 and
-                   bf16, both layouts), every entry of the one-launch
+                   ``flash_attention`` entry (head dims 64, 80, 128, 256,
+                   f32 and bf16, both layouts: 16), every entry of the
+                   one-launch
                    top-k kernel (``topk_tiled_ptxas``: ivf_topk, and
                    slab_topk in fp32, fp16, int8 and pq, at 16- and 64-row
                    tiles: 10 entries) and every
                    ``decode_fwd`` entry (``decode_attention_ptxas``: K6 and
-                   K7, f32 and bf16, head dims 32, 64, 80, 128) must spill
-                   nothing.
+                   K7, f32 and bf16, head dims 32, 64, 80, 128, 256: 20)
+                   must spill nothing.
   main_path        the port's request path at full size: a fiqa-sized corpus
                    (25,000 chunks, dim 768) indexed by ``EdgeRAGIndex.build``
                    (nlist 125), then batches of 16 requests through
@@ -62,6 +63,41 @@ Phases, one JSON line each:
                    :func:`attn_tol` of the plain versions on the card
                    (starcoder2-7b's K6: the first full-width launch of a
                    9-head group, two passes of the kernel's 8 heads).
+                   gemma3-12b is ``swa_gemma3``'s.
+  swa_gemma3       gemma3-12b's sliding-window layers over ring caches.
+                   (a) gemma3-12b at full width (48 layers of the pattern
+                   5 x "swa" (window 1,024) then 1 x "attn", d_model 3840,
+                   16 heads over 8 kv heads of 256, d_ff 15360, vocab
+                   262,144, tied head, fp32: 11,765,395,200 parameters,
+                   47.06 GB, random weights drawn on the card from the
+                   seed, the draw timed; yi-9b freed before) as
+                   ``RAGEngine``'s generator over the main path's index,
+                   beside the main generator: the main path's first batch
+                   of 16, prompts left-padded to 2,048 positions (the pad
+                   attended, as in the JAX engine), 16 greedy tokens.
+                   Counts zeroed before, read after.  Checks: K5 causal
+                   exactly 48 x 16 = 768, 640 of them with the window (the
+                   40 "swa" layers), none non-causal; K6 exactly 48 x 16 x
+                   16 = 12,288 (10,240 over 1,024-row rings, 2,048 over
+                   2,064-row caches, counted by the cache each call got);
+                   no K7; one request's caches (``init_cache`` as
+                   ``generate`` makes them) of 8 x 2 x 2,064 x 8 x 256 x 4
+                   + 40 x 2 x 1,024 x 8 x 256 x 4 bytes; the ids equal the
+                   main path's outside near-ties; every token in range.
+                   Prints the batch's retrieval, prefill and decode wall,
+                   the draw's seconds, ``max_memory_allocated``, the
+                   prompts' token counts and the launches.  (b) the first
+                   pattern (6 layers: 5 "swa", 1 "attn") at full width,
+                   one set of weights drawn on the CPU from the seed and
+                   copied to the card: a prompt of 1,040 positions (past
+                   the window: the rings wrap) and 8 decode steps, the same
+                   tokens into both; logits of every step within
+                   ``GEN_TOL`` of the CPU's, greedy tokens equal wherever
+                   the top-2 margin exceeds 2 x ``GEN_TOL``, K5 6 (5
+                   windowed) and K6 48 launches, the first K5 call of each
+                   kind and K6 call of each cache within :func:`attn_tol`
+                   of the plain versions; the CPU's and the card's seconds
+                   printed.
   baselines        the paper's Table 4 rows 1-2 on the main path's corpus
                    and 64 queries (k 10).  ``FlatIndex`` on the card holds
                    all 25,000 rows (76,800,000 bytes) and takes each batch
@@ -388,7 +424,14 @@ Phases, one JSON line each:
                    shapes (GQA, windows, ragged and unequal lengths, D = 128,
                    bf16, mixed per-slot lengths, a length >= Smax, decode
                    at D = 32; ``dense_archs`` (a)'s first K5 and K6
-                   calls, yi-9b's head dim 128 and group of 8), within
+                   calls, yi-9b's head dim 128 and group of 8;
+                   ``swa_gemma3`` (a)'s first K5 calls with and without
+                   the window and K6 calls over a ring and the global
+                   cache; head dim 256: K5 at (1, 2048, 16, 256) against
+                   8 kv heads with the 1,024 window in f32 and bf16, causal
+                   without it, ragged non-causal, K6 over a 1,024-row ring,
+                   a 2,064-row cache, per-slot lengths, a window and bf16,
+                   K7 there (K6's bits on the dequantized cache)), within
                    :func:`attn_tol` (bf16: + one ulp), which K and V
                    rounded to bf16 must miss at the recorded inputs, and
                    which q, K and V rounded to TF32 (what a 1xTF32
@@ -444,11 +487,19 @@ counted in its checked window (``main_path``, ``baselines``' IVF searches
 at nprobe 8, ``continuous_batching``'s trace and engine batch, ``encode``,
 ``online_index``, ``staged_pipeline`` and its stale batch, ``scheduler``
 (a) and (b), ``tenancy`` (a), (d) and (e), ``durability``,
-``dense_archs`` (a)), whatever their shapes; ``flash_attention_yi_9b``
+``dense_archs`` (a), ``swa_gemma3`` (a)), whatever their shapes; ``flash_attention_yi_9b``
 and ``decode_attention_yi_9b`` are K5 and K6 at ``dense_archs`` (a)'s
 first calls (q (1, 128, 32, 128) against (1, 128, 4, 128) causal; (1, 1,
 32, 128) against a (1, 144, 4, 128) cache, 129 rows valid) and take that
 part's K5 and K6 launches (its K1 and K2 go to their rows);
+``flash_attention_gemma3_12b_swa`` / ``_global`` and
+``decode_attention_gemma3_12b_ring`` / ``_global`` are K5 and K6 at
+``swa_gemma3`` (a)'s first calls (q (1, 2048, 16, 256) against (1, 2048,
+8, 256), causal with the 1,024 window and without; (1, 1, 16, 256)
+against a 1,024-row ring, every row valid, and a (1, 2064, 8, 256) cache,
+2,049 rows valid; library: SDPA with ``enable_gqa``, a boolean mask for
+the window) and take that part's K5 launches by window and K6 launches by
+cache;
 ``ivf_topk_flat`` is K1 at the flat
 scan's recorded call (16 x 25,000 x 768) and takes ``baselines``' flat
 launches, the recall sweep's launches go to no row;
@@ -539,6 +590,13 @@ RECALL_NPROBES = (1, 4, NPROBE, 16, NLIST)
 # on a grid VISION_GRID_W patches wide
 DENSE_GEN, DENSE_BATCHES, DENSE_STEPS = "yi-9b", 2, 8
 VISION_ROWS, VISION_GRID_W = 32, 8
+# swa_gemma3: (a) SWA_GEN at full width behind the main index, prompts
+# left-padded to SWA_PROMPT positions (past its 1,024-key window), the main
+# path's first batch; (b) its first pattern (5 "swa" layers and 1 "attn")
+# at full width on the card and the CPU, a prompt of SWA_PARITY_PROMPT
+# positions (past the window, so the rings wrap in prefill) and
+# DENSE_STEPS decode steps
+SWA_GEN, SWA_PROMPT, SWA_PARITY_PROMPT = "gemma3-12b", 2048, 1040
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
 # one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
@@ -604,7 +662,7 @@ def flash_ptxas(lines) -> object:
         dtype = "f32" if kind[1] == "f" else "bf16"
         out[f"{dtype} D={kind[2]} x{kind[3]}"] = [int(regs[1]),
                                                   int(spill[1])]
-    check(len(out) == 12, f"flash_attention: {len(out)} entries, not 12")
+    check(len(out) == 16, f"flash_attention: {len(out)} entries, not 16")
     spilled = {k: v for k, v in out.items() if v[1]}
     check(not spilled, f"flash_attention spills: {spilled}")
     return {"registers_and_spill_bytes": out}
@@ -639,7 +697,7 @@ def tiled_ptxas(report) -> object:
 def decode_ptxas(lines) -> object:
     """``ptxas``'s registers and spill stores per ``decode_fwd`` entry (K6
     over an f32 or bf16 cache, K7 over an int8 cache with an f32 or bf16 q;
-    head dims 32, 64, 80, 128), checking that none spills; "not rebuilt"
+    head dims 32, 64, 80, 128, 256), checking that none spills; "not rebuilt"
     when the library was built before this run."""
     import re
     if not lines:
@@ -655,7 +713,7 @@ def decode_ptxas(lines) -> object:
             "decode_attention_q8"
         dtype = "f32" if kind[1] == "f" else "bf16"
         out[f"{name} {dtype} D={kind[2]}"] = [int(regs[1]), int(spill[1])]
-    check(len(out) == 16, f"decode_attention: {len(out)} entries, not 16")
+    check(len(out) == 20, f"decode_attention: {len(out)} entries, not 20")
     spilled = {k: v for k, v in out.items() if v[1]}
     check(not spilled, f"decode_attention spills: {spilled}")
     return {"registers_and_spill_bytes": out}
@@ -796,7 +854,8 @@ def profiled(fn, count=(), events=False) -> dict:
 
 def zero_launches() -> None:
     """Sets the launch counts of ``ivf_topk``, ``slab_topk`` (by mode),
-    ``flash_attention`` (by mask) and ``decode_attention`` to 0."""
+    ``flash_attention`` (by mask, and those with a window) and
+    ``decode_attention`` to 0."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ivf_topk import topk_ip
@@ -806,6 +865,7 @@ def zero_launches() -> None:
     flash_attention.launches = decode_attention.launches = 0
     flash_attention.launches_by_mask = dict.fromkeys(
         flash_attention.launches_by_mask, 0)
+    flash_attention.launches_windowed = 0
 
 
 def launch_counts() -> dict:
@@ -846,15 +906,18 @@ def launch_rows(phases) -> dict:
 class Recorder:
     """Passes every call through to a kernel wrapper and keeps a copy of
     the first call's arguments for each ``key(*args, **kw)`` (the main
-    path's real kernel inputs, per slab mode for ``slab_topk``)."""
+    path's real kernel inputs, per slab mode for ``slab_topk``), and the
+    calls of each key."""
 
     def __init__(self, fn, key=lambda *args, **kw: None):
         self.fn = fn
         self.key = key
         self.first = {}
+        self.calls = {}
 
     def __call__(self, *args, **kw):
         key = self.key(*args, **kw)
+        self.calls[key] = self.calls.get(key, 0) + 1
         if key not in self.first:
             clone = lambda a: a.clone() if hasattr(a, "clone") else a
             self.first[key] = ([clone(a) for a in args],
@@ -1444,40 +1507,47 @@ def mrope_positions(s: int, prefix: int, grid_w: int):
     return pos
 
 
-def dense_yi(ctx) -> tuple:
-    """(a) of ``dense_archs``: full-width yi-9b as the main index's
-    generator (module docstring).  Returns the part's line and its first
-    K5 and K6 calls (the ``kernels`` line's ``*_yi_9b`` rows)."""
+def behind_index(ctx, cfg, max_prompt: int, batches: int,
+                 flash_key=lambda *args, **kw: None,
+                 dec_key=lambda *args, **kw: None) -> tuple:
+    """``cfg`` at full width (random weights drawn on the card from the
+    seed, the draw timed) as ``RAGEngine``'s generator over the main path's
+    index, beside the main generator: the main path's first ``batches``
+    batches of 16, prompts left-padded to ``max_prompt`` positions,
+    ``NEW_TOKENS`` greedy tokens, counts zeroed before and read after.
+    Checks the weight bytes, every token in range and the ids against the
+    main path's outside near-ties; the caller checks the launches.  Returns
+    the part's line and its K5 / K6 recorders (first calls and calls by
+    ``flash_key`` / ``dec_key``); the generator is freed first."""
     import gc
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention_q8
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import model as model_mod
     from repro_torch.models import param_count
     from repro_torch.serving import GeneratorModel, RAGEngine
 
     dev, ds = ctx["dev"], ctx["ds"]
-    cfg = get_config(DENSE_GEN)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    gen = GeneratorModel(cfg, seed=SEED, max_prompt=MAX_PROMPT, device=dev)
+    gen = GeneratorModel(cfg, seed=SEED, max_prompt=max_prompt, device=dev)
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     weight_bytes = param_count(gen.params) * 4
     check(weight_bytes == cfg.param_count() * 4,
-          f"{DENSE_GEN}: {weight_bytes} weight bytes, want "
+          f"{cfg.name}: {weight_bytes} weight bytes, want "
           f"{cfg.param_count() * 4}")
     engine = RAGEngine(ctx["index"], gen, cost_model=ctx["cost"], k=K,
                        nprobe=NPROBE, max_new_tokens=NEW_TOKENS)
-    rec_flash = Recorder(model_mod.flash_attention)
-    rec_dec = Recorder(model_mod.decode_attention)
+    rec_flash = Recorder(model_mod.flash_attention, flash_key)
+    rec_dec = Recorder(model_mod.decode_attention, dec_key)
     saved = model_mod.flash_attention, model_mod.decode_attention
     model_mod.flash_attention, model_mod.decode_attention = rec_flash, rec_dec
     q8_before = decode_attention_q8.launches
-    per_batch, responses = [], []
+    per_batch, flat = [], []
     zero_launches()
     try:
-        for b in range(DENSE_BATCHES):
+        for b in range(batches):
             lo, hi = b * BATCH, (b + 1) * BATCH
             p0, d0 = gen.prefill_wall_s, gen.decode_wall_s
             t0 = time.perf_counter()
@@ -1485,100 +1555,132 @@ def dense_yi(ctx) -> tuple:
                 [f"query-{i}" for i in range(lo, hi)], ds.query_embs[lo:hi],
                 ds.get_chunks)
             wall = time.perf_counter() - t0
-            responses.append(resp)
+            flat += resp
             per_batch.append({
                 "wall_s": wall,
                 "retrieval_s": sum(r.ttft_wall_s for r in resp),
                 "prefill_s": gen.prefill_wall_s - p0,
                 "decode_s": gen.decode_wall_s - d0})
         counts = launch_counts()
+        windowed = flash_attention.launches_windowed
     finally:
         model_mod.flash_attention, model_mod.decode_attention = saved
     q8 = decode_attention_q8.launches - q8_before
     peak = torch.cuda.max_memory_allocated()
-    n_req = DENSE_BATCHES * BATCH
-    layers = cfg.num_layers
-    want = ({"causal": layers * n_req, "non_causal": 0},
-            layers * NEW_TOKENS * n_req)
-    check((counts["flash_attention"], counts["decode_attention"]) == want
-          and q8 == 0, f"dense_archs (a): attention launches "
-          f"{counts['flash_attention']}, K6 {counts['decode_attention']}, "
-          f"K7 {q8}; want {want[0]}, K6 {want[1]}, K7 0")
-    flat = [r for resp in responses for r in resp]
+    n_req = batches * BATCH
     check(all(len(r.output_tokens) == NEW_TOKENS
               and all(0 <= t < cfg.vocab_size for t in r.output_tokens)
-              for r in flat), f"{DENSE_GEN}: generated tokens out of range")
+              for r in flat), f"{cfg.name}: generated tokens out of range")
     swaps, mismatches = near_tie_mismatches(
         [r.chunk_ids for r in flat], ctx["main_ids"][:n_req],
         ctx["main_vals"][:n_req])
-    check(mismatches == 0, f"dense_archs (a): {mismatches} ids differ from "
-          f"the main path's outside near-ties")
-    line = {"generator": cfg.name, "layers": layers,
-            "d_model": cfg.d_model, "heads": cfg.num_heads,
-            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
-            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
-            "weight_bytes": weight_bytes, "draw_s": draw_s,
-            "max_memory_allocated": peak, "batches": DENSE_BATCHES,
-            "batch": BATCH, "prompt": MAX_PROMPT, "new_tokens": NEW_TOKENS,
-            "per_batch": per_batch, "launches": counts,
+    check(mismatches == 0, f"{cfg.name}: {mismatches} ids differ from the "
+          f"main path's outside near-ties")
+    prompt_tokens = [len(gen.tokenizer.encode(" ".join(r.context + [r.query]),
+                                              max_prompt)) for r in flat]
+    line = {"generator": cfg.name, "layers": cfg.num_layers,
+            "pattern": list(cfg.block_pattern),
+            "window": cfg.sliding_window, "d_model": cfg.d_model,
+            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "weight_bytes": weight_bytes,
+            "draw_s": draw_s, "max_memory_allocated": peak,
+            "batches": batches, "batch": BATCH, "prompt": max_prompt,
+            "prompt_tokens_min_max": [min(prompt_tokens),
+                                      max(prompt_tokens)],
+            "new_tokens": NEW_TOKENS, "per_batch": per_batch,
+            "launches": counts, "k5_windowed_launches": windowed,
             "decode_attention_q8_launches": q8,
             "ids_equal_main_path": True, "near_tie_swaps": swaps,
             "gen_tokens": [r.output_tokens for r in flat[:3]]}
-    record = {"flash": rec_flash.first[None], "decode": rec_dec.first[None]}
-    del engine, gen, rec_flash, rec_dec, responses, flat
+    del engine, gen, flat
     gc.collect()
     torch.cuda.empty_cache()
-    return line, record
+    return line, rec_flash, rec_dec
 
 
-def dense_arch_parity(name: str, dev) -> dict:
-    """(b) of ``dense_archs`` for one config: 2 layers at full width on the
-    card and on the CPU (module docstring)."""
-    import copy
-    import dataclasses
-    import torch
+def dense_yi(ctx) -> tuple:
+    """(a) of ``dense_archs``: full-width yi-9b as the main index's
+    generator (module docstring).  Returns the part's line and its first
+    K5 and K6 calls (the ``kernels`` line's ``*_yi_9b`` rows)."""
     from repro_torch.configs import get_config
+
+    cfg = get_config(DENSE_GEN)
+    line, rec_flash, rec_dec = behind_index(ctx, cfg, MAX_PROMPT,
+                                            DENSE_BATCHES)
+    n_req, layers = DENSE_BATCHES * BATCH, cfg.num_layers
+    want = ({"causal": layers * n_req, "non_causal": 0},
+            layers * NEW_TOKENS * n_req)
+    got = (line["launches"]["flash_attention"],
+           line["launches"]["decode_attention"])
+    q8 = line["decode_attention_q8_launches"]
+    check(got == want and q8 == 0, f"dense_archs (a): attention launches "
+          f"{got[0]}, K6 {got[1]}, K7 {q8}; want {want[0]}, K6 {want[1]}, "
+          f"K7 0")
+    return line, {"flash": rec_flash.first[None],
+                  "decode": rec_dec.first[None]}
+
+
+def arch_parity(cfg, dev, prompt: int,
+                flash_key=lambda *args, **kw: None,
+                dec_key=lambda *args, **kw: None) -> dict:
+    """``cfg`` (cut in depth) at full width on the card and on the CPU,
+    one set of weights drawn on the CPU from the seed and copied to the
+    card: prefill of ``prompt`` positions, then ``DENSE_STEPS`` decode
+    steps, the same inputs into both (module docstring, ``dense_archs``
+    (b) and ``swa_gemma3`` (b)).  Checks every step's logits within
+    ``GEN_TOL``, greedy tokens outside near-ties, exact K5 (windowed: the
+    ``"swa"`` layers) and K6 launches, and the first K5 / K6 call of each
+    ``flash_key`` / ``dec_key`` within :func:`attn_tol` of the plain
+    versions."""
+    import copy
+    import gc
+    import torch
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     param_count, prefill)
     from repro_torch.models import model as model_mod
 
-    cpu = torch.device("cpu")
-    cfg = dataclasses.replace(get_config(name), num_layers=PARITY_LAYERS)
+    name, cpu = cfg.name, torch.device("cpu")
     t0 = time.perf_counter()
     m_cpu = init_params(cfg, seed=SEED, device="cpu")
     m_card = copy.deepcopy(m_cpu).to(dev)
     init_s = time.perf_counter() - t0
     g = torch.Generator().manual_seed(9)
     if cfg.embedding_inputs:                 # the stubbed codec's frames
-        batch = {"embeds": torch.randn((1, MAX_PROMPT, cfg.d_model),
+        batch = {"embeds": torch.randn((1, prompt, cfg.d_model),
                                        generator=g)}
     else:
-        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, MAX_PROMPT),
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, prompt),
                                          generator=g)}
     if cfg.use_mrope:                        # the stubbed ViT's patches
         batch["vision_embeds"] = torch.randn((1, VISION_ROWS, cfg.d_model),
                                              generator=g)
-        batch["positions"] = mrope_positions(MAX_PROMPT, VISION_ROWS,
+        batch["positions"] = mrope_positions(prompt, VISION_ROWS,
                                              VISION_GRID_W)
-    smax = MAX_PROMPT + DENSE_STEPS
+    smax = prompt + DENSE_STEPS
     c_cpu = init_cache(cfg, 1, smax, device=cpu)
     c_card = init_cache(cfg, 1, smax, device=dev)
-    rec_flash = Recorder(model_mod.flash_attention)
-    rec_dec = Recorder(model_mod.decode_attention)
+    rec_flash = Recorder(model_mod.flash_attention, flash_key)
+    rec_dec = Recorder(model_mod.decode_attention, dec_key)
     saved = model_mod.flash_attention, model_mod.decode_attention
-    f0, d0 = flash_attention.launches, decode_attention.launches
+    f0, w0 = flash_attention.launches, flash_attention.launches_windowed
+    d0 = decode_attention.launches
     errs, tokens_checked, near_ties, fed = [], 0, 0, []
-    t0 = time.perf_counter()
+    cpu_s = card_s = 0.0
     try:
         model_mod.flash_attention = rec_flash
         model_mod.decode_attention = rec_dec
+        t0 = time.perf_counter()
         l_cpu, _ = prefill(m_cpu, batch, c_cpu)
+        t1 = time.perf_counter()
         l_card, _ = prefill(m_card, {n: t.to(dev) for n, t in batch.items()},
                             c_card)
+        lk = l_card[0].cpu()
+        cpu_s, card_s = t1 - t0, time.perf_counter() - t1
         for step in range(DENSE_STEPS + 1):
-            lc, lk = l_cpu[0], l_card[0].cpu()
+            lc = l_cpu[0]
             errs.append(float((lk - lc).abs().max()))
             top2 = torch.topk(lc, 2).values
             if float(top2[0] - top2[1]) > 2 * GEN_TOL:
@@ -1595,16 +1697,23 @@ def dense_arch_parity(name: str, dev) -> dict:
             else:                            # the same token into both
                 nxt = lc.argmax().reshape(1, 1)
                 fed.append("ids" if cfg.embedding_inputs else "tokens")
-            l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, MAX_PROMPT + step)
+            t0 = time.perf_counter()
+            l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, prompt + step)
+            t1 = time.perf_counter()
             l_card, _ = decode_step(m_card, nxt.to(dev), c_card,
-                                    MAX_PROMPT + step)
+                                    prompt + step)
+            lk = l_card[0].cpu()
+            cpu_s, card_s = cpu_s + t1 - t0, card_s + time.perf_counter() - t1
     finally:
         model_mod.flash_attention, model_mod.decode_attention = saved
-    run_s = time.perf_counter() - t0
+    windowed = sum(b.window > 0 for b in m_card.blocks)
     launches = {"flash_attention": flash_attention.launches - f0,
+                "flash_attention_windowed":
+                flash_attention.launches_windowed - w0,
                 "decode_attention": decode_attention.launches - d0}
-    check(launches == {"flash_attention": PARITY_LAYERS,
-                       "decode_attention": PARITY_LAYERS * DENSE_STEPS},
+    check(launches == {"flash_attention": cfg.num_layers,
+                       "flash_attention_windowed": windowed,
+                       "decode_attention": cfg.num_layers * DENSE_STEPS},
           f"{name}: attention launches {launches}")
     check(max(errs) <= GEN_TOL, f"{name}: logits differ by {max(errs)} > "
           f"{GEN_TOL}")
@@ -1616,45 +1725,122 @@ def dense_arch_parity(name: str, dev) -> dict:
         return {"max_abs_err": err, "tol": attn_tol(got.shape[-1]),
                 "err_over_allowance": ratio}
 
-    (q, k, v), kw = rec_flash.first[None]
-    k5 = {"shape": list(q.shape), "kv": list(k.shape),
-          **held(flash_attention(q, k, v, **kw),
-                 flash_plain(q, k, v, kw.get("causal", True)))}
-    (q, kc, vc, lens), _ = rec_dec.first[None]
+    first = {}
+    for key, ((q, k, v), kw) in rec_flash.first.items():
+        first["k5_first" if key is None else f"k5_{key}"] = {
+            "shape": list(q.shape), "kv": list(k.shape), **kw,
+            **held(flash_attention(q, k, v, **kw),
+                   flash_plain(q, k, v, kw["causal"], kw["window"]))}
     group = cfg.num_heads // cfg.num_kv_heads
-    k6 = {"shape": list(q.shape), "cache": list(kc.shape), "length": lens,
-          "group": group, "group_passes": -(-group // 8),
-          **held(decode_attention(q, kc, vc, lens),
-                 decode_plain(q, kc, vc, lens))}
-    if group > 8:
-        k6["note"] = (f"the first full-width launch of a {group}-head group "
-                      f"(8 query heads a pass: a second pass of "
-                      f"{group - 8})")
-    return {"name": name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-            "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
-            "head_dim": cfg.head_dim, "d_ff": cfg.d_ff,
-            "vocab": cfg.vocab_size, "tied": cfg.tie_embeddings,
-            "params": param_count(m_card), "inputs": sorted(batch),
-            "decode_fed": fed, "init_s": init_s, "run_s": run_s,
-            "tol": GEN_TOL, "max_abs_err_per_step": errs,
-            "tokens_checked": tokens_checked, "near_ties": near_ties,
-            "launches": launches, "k5_first": k5, "k6_first": k6}
+    for key, ((q, kc, vc, lens), kw) in rec_dec.first.items():
+        k6 = {"shape": list(q.shape), "cache": list(kc.shape),
+              "length": lens, "group": group,
+              "group_passes": -(-group // 8),
+              **held(decode_attention(q, kc, vc, lens, **kw),
+                     decode_plain(q, kc, vc, lens, kw["window"]))}
+        if group > 8:
+            k6["note"] = (f"the first full-width launch of a {group}-head "
+                          f"group (8 query heads a pass: a second pass of "
+                          f"{group - 8})")
+        first["k6_first" if key is None else f"k6_{key}"] = k6
+    line = {"name": name, "layers": cfg.num_layers,
+            "pattern": list(cfg.block_pattern), "window": cfg.sliding_window,
+            "d_model": cfg.d_model, "heads": cfg.num_heads,
+            "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "tied": cfg.tie_embeddings, "params": param_count(m_card),
+            "inputs": sorted(batch), "prompt": prompt, "decode_fed": fed,
+            "cache_rows": [c.k.shape[1] for c in c_card], "init_s": init_s,
+            "cpu_s": cpu_s, "card_s": card_s, "tol": GEN_TOL,
+            "max_abs_err_per_step": errs, "tokens_checked": tokens_checked,
+            "near_ties": near_ties, "launches": launches,
+            "k6_calls": rec_dec.calls, **first}
+    del m_cpu, m_card, c_cpu, c_card, rec_flash, rec_dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
 
 
 def dense_archs(ctx) -> tuple:
     """The ``dense_archs`` phase (module docstring): (a) then (b) for each
-    of ``configs.ASSIGNED_ARCHS``.  Returns its line and (a)'s first K5
-    and K6 calls."""
-    import gc
-    from repro_torch.configs import ASSIGNED_ARCHS
+    config of ``configs.ASSIGNED_ARCHS`` made of ``"attn"`` blocks alone.
+    Returns its line and (a)'s first K5 and K6 calls."""
+    import dataclasses
+    from repro_torch.configs import ASSIGNED_ARCHS, get_config
     t_phase = time.perf_counter()
     line, record = dense_yi(ctx)
     archs = []
     for name in ASSIGNED_ARCHS:
-        archs.append(dense_arch_parity(name, ctx["dev"]))
-        gc.collect()
+        cfg = get_config(name)
+        if set(cfg.block_pattern) != {"attn"}:
+            continue                         # gemma3-12b: swa_gemma3's
+        archs.append(arch_parity(dataclasses.replace(
+            cfg, num_layers=PARITY_LAYERS), ctx["dev"], MAX_PROMPT))
     return {"phase": "dense_archs", "nvidia_smi": ctx["smi"], "yi_9b": line,
             "archs": archs, "phase_s": time.perf_counter() - t_phase}, record
+
+
+def swa_gemma3(ctx) -> tuple:
+    """The ``swa_gemma3`` phase (module docstring): (a) full-width
+    gemma3-12b as the main index's generator, then (b) its first pattern
+    on the card against the CPU.  Returns its line and (a)'s first K5
+    calls by window ("swa", "global") and K6 calls by cache ("ring",
+    "global")."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache_bytes, init_cache
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SWA_GEN)
+    ring = cfg.sliding_window
+    by_window = lambda q, k, v, causal=True, window=0: (
+        "swa" if window else "global")
+    by_cache = lambda q, k, v, lengths, window=0: (
+        "ring" if k.shape[1] == ring else "global")
+    line, rec_flash, rec_dec = behind_index(ctx, cfg, SWA_PROMPT, 1,
+                                            by_window, by_cache)
+    layers = cfg.num_layers
+    n_swa = cfg.block_pattern.count("swa") * cfg.depth_repeat
+    want = ({"causal": layers * BATCH, "non_causal": 0}, n_swa * BATCH,
+            layers * NEW_TOKENS * BATCH)
+    got = (line["launches"]["flash_attention"], line["k5_windowed_launches"],
+           line["launches"]["decode_attention"])
+    q8 = line["decode_attention_q8_launches"]
+    check(got == want and q8 == 0, f"swa_gemma3 (a): K5 {got[0]}, windowed "
+          f"{got[1]}, K6 {got[2]}, K7 {q8}; want {want[0]}, {want[1]}, "
+          f"{want[2]}, K7 0")
+    k6_by_cache = {"ring": n_swa * NEW_TOKENS * BATCH,
+                   "global": (layers - n_swa) * NEW_TOKENS * BATCH}
+    check(rec_dec.calls == k6_by_cache, f"swa_gemma3 (a): K6 calls by cache "
+          f"{rec_dec.calls}, want {k6_by_cache}")
+    # one request's caches, as ``generate`` makes them: rings of the
+    # window's rows in the "swa" layers, prompt + new tokens in the others
+    rows = SWA_PROMPT + NEW_TOKENS
+    caches = init_cache(cfg, 1, rows, device=ctx["dev"])
+    per_row = 2 * cfg.num_kv_heads * cfg.head_dim * 4
+    want_bytes = (layers - n_swa) * rows * per_row + n_swa * ring * per_row
+    got_bytes = cache_bytes(caches)
+    del caches
+    seen_rows = {kind: int(call[0][1].shape[1])
+                 for kind, call in rec_dec.first.items()}
+    check(got_bytes == want_bytes and seen_rows == {"ring": ring,
+                                                    "global": rows},
+          f"swa_gemma3 (a): cache bytes {got_bytes} (want {want_bytes}), "
+          f"K6 cache rows {seen_rows}")
+    line.update(k5_launches={"swa": got[1], "global": got[0]["causal"]
+                             - got[1]},
+                k6_launches=rec_dec.calls, cache_bytes_one_request=got_bytes,
+                cache_rows=seen_rows)
+    parity = arch_parity(dataclasses.replace(
+        cfg, num_layers=len(cfg.block_pattern)), ctx["dev"],
+        SWA_PARITY_PROMPT, by_window, by_cache)
+    check(parity["k6_calls"] == {"ring": n_swa // cfg.depth_repeat
+                                 * DENSE_STEPS, "global": DENSE_STEPS},
+          f"swa_gemma3 (b): K6 calls by cache {parity['k6_calls']}")
+    return {"phase": "swa_gemma3", "nvidia_smi": ctx["smi"],
+            "gemma3_12b": line, "parity": parity,
+            "phase_s": time.perf_counter() - t_phase}, {
+                "flash": rec_flash.first, "decode": rec_dec.first}
 
 
 def int8_bound(q, k, v) -> float:
@@ -4167,16 +4353,20 @@ def baselines(ctx) -> tuple:
     return out, (e_dev, torch.from_numpy(queries[:BATCH]).to(dev))
 
 
-def check_attention(rec_flash, rec_dec, dense_calls, dev) -> dict:
+def check_attention(rec_flash, rec_dec, dense_calls, swa_calls,
+                    dev) -> dict:
     """The attention kernels against their plain versions on the card
     (module docstring, ``kernels_checked``); ``dense_calls``: the first K5
-    and K6 calls of ``dense_archs`` (a)."""
+    and K6 calls of ``dense_archs`` (a); ``swa_calls``: those of
+    ``swa_gemma3`` (a), by window and by cache."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_q8, decode_attention_q8_ref)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.models.quantization import dequantize_kv, quantize_kv
 
     out = {}
 
@@ -4258,6 +4448,51 @@ def check_attention(rec_flash, rec_dec, dense_calls, dev) -> dict:
     flash_case("yi_9b", q, k, v, **kw)
     (q, k, v, lens), kw = dense_calls["decode"]
     decode_case("yi_9b", q, k, v, lens, **kw)
+    # gemma3-12b's (head dim 256, 16 heads over 8): K5 with its window and
+    # causal-global, K6 over a 1,024-row ring and the 2,064-row cache
+    for kind in ("swa", "global"):
+        (q, k, v), kw = swa_calls["flash"][kind]
+        flash_case(f"gemma3_12b_{kind}", q, k, v, **kw)
+    for kind in ("ring", "global"):
+        (q, k, v, lens), kw = swa_calls["decode"][kind]
+        decode_case(f"gemma3_12b_{kind}", q, k, v, lens, **kw)
+    # head dim 256 at gemma3's prefill shape with its window, f32 and bf16;
+    # causal without a window; ragged non-causal
+    q256, k256, v256 = (rand(1, 2048, n, 256) for n in (16, 8, 8))
+    flash_case("d256_window", q256, k256, v256, True, 1024)
+    flash_case("d256_window_bf16", q256.bfloat16(), k256.bfloat16(),
+               v256.bfloat16(), True, 1024)
+    flash_case("d256_causal", q256[:, :300], k256[:, :300], v256[:, :300],
+               True)
+    qr, kr, vr = rand(3, 150, 16, 256), rand(3, 77, 8, 256), \
+        rand(3, 77, 8, 256)
+    ragged256 = flash_case("d256_ragged", qr, kr, vr, False)
+    # K6 at head dim 256: a 1,024-row ring (every row valid), a 2,064-row
+    # cache at the engine's first length, per-slot lengths, a window, bf16
+    qd, rk, rv = rand(4, 1, 16, 256), rand(4, 1024, 8, 256), \
+        rand(4, 1024, 8, 256)
+    decode_case("d256_ring", qd, rk, rv, 2064)
+    decode_case("d256_global", qd[:1], rand(1, 2064, 8, 256),
+                rand(1, 2064, 8, 256), 2049)
+    mixed256 = torch.tensor([2064, 1, 700, 1024], dtype=torch.int32,
+                            device=dev)
+    dec256 = decode_case("d256_mixed", qd, rk, rv, mixed256)
+    decode_case("d256_window", qd, rk, rv, mixed256, 300)
+    decode_case("d256_bf16", qd.bfloat16(), rk.bfloat16(), rv.bfloat16(),
+                mixed256)
+    # K7 at head dim 256: within the bound of its plain version, and K6's
+    # bits on the dequantized cache
+    ck, cv = quantize_kv(rk), quantize_kv(rv)
+    got = decode_attention_q8(qd, ck.q, ck.scale, cv.q, cv.scale, mixed256)
+    held("decode_attention_q8_d256", got, decode_attention_q8_ref(
+        qd[:, 0], ck.q, ck.scale, cv.q, cv.scale, mixed256)[:, None],
+        {"shape": list(qd.shape), "cache": list(ck.q.shape),
+         "lengths": mixed256.tolist(), "window": 0})
+    check(torch.equal(got, decode_attention(qd, dequantize_kv(ck),
+                                            dequantize_kv(cv), mixed256)),
+          "decode_attention_q8 at D = 256: not K6's bits on the dequantized "
+          "cache")
+    out["decode_attention_q8_d256"]["k6_bits_on_dequantized"] = True
     # GQA with a window; ragged, unequal lengths; D = 128; bf16
     flash_case("gqa4_window", rand(2, 256, 32, 80), rand(2, 256, 8, 80),
                rand(2, 256, 8, 80), True, 100)
@@ -4304,6 +4539,16 @@ def check_attention(rec_flash, rec_dec, dense_calls, dev) -> dict:
                                mixed[i:i + 1])
         check(torch.equal(one[0], dec[i]),
               f"decode_attention batch != sequential at slot {i}")
+    for i in range(3):
+        one = flash_attention(qr[i:i + 1], kr[i:i + 1], vr[i:i + 1],
+                              causal=False)
+        check(torch.equal(one[0], ragged256[i]),
+              f"flash_attention at D = 256: batch != sequential at row {i}")
+    for i in range(4):
+        one = decode_attention(qd[i:i + 1], rk[i:i + 1], rv[i:i + 1],
+                               mixed256[i:i + 1])
+        check(torch.equal(one[0], dec256[i]),
+              f"decode_attention at D = 256: batch != sequential at slot {i}")
 
     # refusals raise, and the next launch runs
     refused = []
@@ -4437,15 +4682,37 @@ def attention_rows(rec_flash, rec_dec, launches, checked, k5_dev,
     return rows
 
 
-def k5_row(name, q, k, v, causal, launches, err, k5_dev) -> dict:
-    """A ``kernels`` line row of K5 at one input; bound and library as in
-    :func:`attention_rows`; ``k5_dev``: :func:`k5_device_ms_at` at it."""
+def flash_mask(sq: int, skv: int, causal: bool, window: int, device):
+    """The (Sq, Skv) boolean mask of the pairs K5 attends, positions from 0
+    for q and for k."""
     import torch
+    qp = torch.arange(sq, device=device)[:, None]
+    kp = torch.arange(skv, device=device)[None, :]
+    ok = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        ok &= kp <= qp
+    if window:
+        ok &= kp > qp - window
+    return ok
+
+
+def flash_library(q, k, v, causal, window):
+    """K5's yardstick: ``scaled_dot_product_attention`` with the same
+    mask (``is_causal``, or a boolean mask under a window)."""
+    if not window:
+        return lambda: sdpa(q, k, v, is_causal=causal)
+    mask = flash_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    return lambda: sdpa(q, k, v, attn_mask=mask)
+
+
+def k5_row(name, q, k, v, causal, launches, err, k5_dev,
+           window: int = 0) -> dict:
+    """A ``kernels`` line row of K5 at one input; bound and library as in
+    :func:`attention_rows` (the pairs under the window, if any, and SDPA
+    with its mask); ``k5_dev``: :func:`k5_device_ms_at` at it."""
     from repro_torch.kernels.flash_attention import flash_attention
     (b, sq, h, d), skv = q.shape, k.shape[1]
-    pairs = sq * skv
-    if causal:
-        pairs = int(torch.tril(torch.ones(sq, skv)).sum())
+    pairs = int(flash_mask(sq, skv, causal, window, "cpu").sum())
     lim = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
                 4 * b * h * d * pairs, F32_TC_FLOPS_PER_S)
     return {
@@ -4453,10 +4720,12 @@ def k5_row(name, q, k, v, causal, launches, err, k5_dev) -> dict:
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
         "launches": launches, "max_abs_err": err,
-        "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal), 200),
-        "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal), 10),
+        "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                              window=window), 200),
+        "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal, window),
+                            10),
         "bound_ms": lim[0], "bound_by": lim[1],
-        "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=causal), 200),
+        "library_ms": cuda_ms(flash_library(q, k, v, causal, window), 200),
         "device_ms": k5_dev["flash_attention"]["device_ms_per_call"],
         "library_device_ms": k5_dev["sdpa"]["device_ms_per_call"]}
 
@@ -4566,13 +4835,15 @@ def k5_device_ms(rec_flash, calls: int = 100) -> dict:
     return out
 
 
-def k5_device_ms_at(q, k, v, causal, calls: int = 100) -> dict:
+def k5_device_ms_at(q, k, v, causal, calls: int = 100,
+                    window: int = 0) -> dict:
     """Device ms per call of K5 and of ``scaled_dot_product_attention``
     (GQA through ``enable_gqa``) with the same mask at one input."""
     from repro_torch.kernels.flash_attention import flash_attention
     return device_ms(
-        {"flash_attention": lambda: flash_attention(q, k, v, causal=causal),
-         "sdpa": lambda: sdpa(q, k, v, is_causal=causal)}, calls)
+        {"flash_attention": lambda: flash_attention(q, k, v, causal=causal,
+                                                    window=window),
+         "sdpa": flash_library(q, k, v, causal, window)}, calls)
 
 
 def device_ms(runs: dict, calls: int) -> dict:
@@ -4831,6 +5102,12 @@ def main() -> int:
         "main_ids": main_ids, "main_vals": main_vals})
     emit(dense)
 
+    # ---- gemma3-12b: sliding-window layers behind the main index --------
+    swa, swa_calls = swa_gemma3({
+        "ds": ds, "cost": cost, "dev": dev, "smi": smi, "index": index,
+        "main_ids": main_ids, "main_vals": main_vals})
+    emit(swa)
+
     # ---- the Table 4 baselines on the main path's corpus ----------------
     base, flat_call = baselines({"ds": ds, "cost": cost, "dev": dev,
                                  "main_ids": main_ids, "main_vals": main_vals,
@@ -4890,6 +5167,8 @@ def main() -> int:
         ("durability", dur["launches"], False),
         ("dense_archs", {n: dense["yi_9b"]["launches"][n]
                          for n in ("ivf_topk", "slab_topk")}, False),
+        ("swa_gemma3", {n: swa["gemma3_12b"]["launches"][n]
+                        for n in ("ivf_topk", "slab_topk")}, False),
         ("baselines", {"ivf_topk": base["ivf"]["launches"],
                        "ivf_topk_flat": base["flat"]["launches"]}, False)])
 
@@ -4994,7 +5273,8 @@ def main() -> int:
         report[f"slab_topk_{mode}"] = check_quantized(mode, e, q, v, k, kw,
                                                       rint)
     report["slab_topk_wide_rows"] = check_wide_rows(dev, rint)
-    report.update(check_attention(rec_flash, rec_dec, dense_calls, dev))
+    report.update(check_attention(rec_flash, rec_dec, dense_calls,
+                                  swa_calls, dev))
     emit({"phase": "kernels_checked",
           "ivf_topk_shape": [*e1.shape, q1.shape[0], k1],
           "ivf_topk_flat_shape": [*fe.shape, fq.shape[0], K],
@@ -5093,6 +5373,24 @@ def main() -> int:
                           n_path("decode_attention_yi_9b"),
                           report["decode_attention_yi_9b"]["max_abs_err"],
                           k6y_dev))
+    gemma_dev = {}
+    swa_n = swa["gemma3_12b"]
+    for kind in ("swa", "global"):
+        name = f"flash_attention_gemma3_12b_{kind}"
+        (q, k, v), kw = swa_calls["flash"][kind]
+        gemma_dev[name] = k5_device_ms_at(q, k, v, kw["causal"],
+                                          window=kw["window"])
+        by_row[name] = {"swa_gemma3": swa_n["k5_launches"][kind]}
+        kernels.append(k5_row(name, q, k, v, kw["causal"], n_path(name),
+                              report[name]["max_abs_err"], gemma_dev[name],
+                              window=kw["window"]))
+    for kind in ("ring", "global"):
+        name = f"decode_attention_gemma3_12b_{kind}"
+        (q, kc, vc, lens), _ = swa_calls["decode"][kind]
+        gemma_dev[name] = decode_device_ms(q, kc, vc, lens)
+        by_row[name] = {"swa_gemma3": swa_n["k6_launches"][kind]}
+        kernels.append(k6_row(name, q, kc, vc, lens, n_path(name),
+                              report[name]["max_abs_err"], gemma_dev[name]))
     kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"],
                           q8_dev))
     by_row["decode_attention_q8"] = {"kv_int8": kv8["launches"]}
@@ -5132,6 +5430,7 @@ def main() -> int:
           "k5_vs_sdpa_device": k5_dev, "topk_vs_library_device": topk_dev,
           "k5_yi_9b_vs_sdpa_device": k5y_dev,
           "k6_yi_9b_vs_sdpa_device": k6y_dev,
+          "gemma3_12b_vs_sdpa_device": gemma_dev,
           "k2_cold_vs_warm_l2": cold_l2_device_ms(
               calls["slab_topk"][0], TILED_EVENTS["slab_topk_fp32"])})
     t_first = LEAD_IN_LOST[0][0]

@@ -3,10 +3,13 @@
 Both functions take numpy arrays (``jax.tree.map(np.asarray, params)`` on
 the JAX side), so the port itself never touches JAX.
 
-* :func:`params_from_jax` — the JAX params pytree stacks every block leaf
-  over depth with a leading ``L`` axis; the port keeps one
-  :class:`~repro_torch.models.model.AttnBlock` per layer, so the converter
-  unstacks.  Matrices keep the JAX (in, out) layout on both sides.
+* :func:`params_from_jax` — the JAX params pytree holds one stack per
+  position of ``cfg.block_pattern``, each leaf stacked over
+  ``depth_repeat`` with a leading axis; the port keeps one
+  :class:`~repro_torch.models.model.AttnBlock` per layer, layer ``r *
+  len(pattern) + i`` being repeat ``r`` of position ``i`` (the JAX layer
+  scan's order), so the converter unstacks.  Matrices keep the JAX (in,
+  out) layout on both sides.
 * :func:`index_state_from_numpy` — loads another index's centroids and
   cluster assignment into a port index (then runs Alg. 1 as ``build``
   does).  Parity tests use it because k-means argmin near-ties make two
@@ -37,7 +40,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
                     device: DeviceLike = None) -> Model:
     """A :class:`Model` holding the JAX params ``tree`` (numpy leaves):
     ``{"embed", "blocks": ({"norm1", "wq", "wk", "wv", "wo", "norm2",
-    "mlp": {"gate", "up", "down"}},), "final_norm"[, "lm_head"]}``."""
+    "mlp": {"gate", "up", "down"}}, ...), "final_norm"[, "lm_head"]}``, one
+    entry of ``"blocks"`` per pattern position."""
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
     as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
@@ -46,13 +50,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
         model.final_norm.copy_(as_t(tree["final_norm"]))
         if model.lm_head is not None:
             model.lm_head.copy_(as_t(tree["lm_head"]))
-        stacked = tree["blocks"][0]
-        leaves = {name: stacked[name] for name in
-                  ("norm1", "wq", "wk", "wv", "wo", "norm2")}
-        leaves.update(stacked["mlp"])
+        width = len(cfg.block_pattern)
         for layer, block in enumerate(model.blocks):
+            stacked = tree["blocks"][layer % width]
+            leaves = {name: stacked[name] for name in
+                      ("norm1", "wq", "wk", "wv", "wo", "norm2")}
+            leaves.update(stacked["mlp"])
             for name, arr in leaves.items():
-                getattr(block, name).copy_(as_t(arr[layer]))
+                getattr(block, name).copy_(as_t(arr[layer // width]))
     return model
 
 

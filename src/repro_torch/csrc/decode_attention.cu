@@ -32,7 +32,9 @@
 // 32 kv heads, <= 144 rows: 2.9 MB in f32, 0.7 MB in int8) the bytes take
 // under 1 us at HBM's rate, and latency sets the time: the launch, an SM's
 // rate of drawing its rows, the block's reductions and the merge's round
-// trips through L2.
+// trips through L2.  At gemma3-12b's decode (16 query heads over 8 kv heads
+// of 256, f32) a 1,024-row ring is 16.8 MB of K and V, 0.0050 ms, and a
+// 2,064-row global cache at most 33.8 MB, 0.0101 ms.
 //
 // Design.  One body, decode_fwd, templated on a row loader (FpRows: f32 /
 // bf16 rows; Q8Rows: int8 rows and their scales), as the TPU kernels share
@@ -59,8 +61,10 @@
 //      widens each element as float(k_q) * scale (one f32 rounding) before
 //      the same arithmetic, so it gives K6's bits on the dequantized cache.
 //      The warp's max, p = exp(s - m) and l over its rows come from xor
-//      shuffles, its P.V from a lane per quad of D over its rows; the four
-//      warps' (m, l, acc) are merged in warp order.
+//      shuffles, its P.V from a lane per quad of D over its rows (two quads
+//      a lane at D = 256); the four warps' (m, l, acc) are merged in warp
+//      order.  At D = 256 in f32 a 64-row chunk stages 139 KB of K and V,
+//      past the default 48 KB (the launch opts in) and one block an SM.
 //   4. The merge, in the same launch.  A slot whose valid positions lie in
 //      one chunk is written by that chunk's block.  Otherwise every block
 //      writes its partial (m, l, acc[D]) per head and then takes a ticket
@@ -206,9 +210,10 @@ size_t smem_bytes(int chunk, int gmax) {
 }
 
 // Four blocks an SM: up to 128 registers a thread, which every entry
-// fits without spilling (the default allocation spilled some).
+// fits without spilling (the default allocation spilled some).  At D = 256
+// shared memory allows one or two blocks an SM, so two: up to 255.
 template <class T, int D, class Rows>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, (D > 128 ? 2 : 4))
 decode_fwd(const T* __restrict__ q, Rows kc, Rows vc, T* __restrict__ out,
            Strides qs, const int* __restrict__ lens, int len_all, int smax,
            int h, int group, int window, float scale, int chunk, int vec,
@@ -217,6 +222,7 @@ decode_fwd(const T* __restrict__ q, Rows kc, Rows vc, T* __restrict__ out,
   constexpr int kPitch = row_pitch<E, D>();
   constexpr int kQuads = D / 4;             // four elements of D
   constexpr int kQuadsLane = kQuads / 4;    // a lane's, in a score
+  constexpr int kLaneQuads = (kQuads + 31) / 32;  // a lane's, in P.V
   constexpr int kPart = kPartHead + D;      // floats of a partial
   const int c = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -316,21 +322,30 @@ decode_fwd(const T* __restrict__ q, Rows kc, Rows vc, T* __restrict__ out,
       for (int off = 4; off < 32; off <<= 1)
         l += __shfl_xor_sync(kFull, l, off);
       __syncwarp();
-      if (lane < kQuads) {   // P.V: a lane per four elements of D
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (lane < kQuads) {   // P.V: a lane per four elements of D, the
+                             // quads lane and lane + 32 at D = 256
+        float4 a[kLaneQuads];
+#pragma unroll
+        for (int u = 0; u < kLaneQuads; ++u)
+          a[u] = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int j = jw0; j < jw1; ++j) {
-          float4 v = widen4(reinterpret_cast<const E*>(vs + j * kPitch) +
-                            4 * lane);
-          if constexpr (Rows::kScaled) {
-            const float sv = scl[chunk + j];
-            v.x = v.x * sv, v.y = v.y * sv, v.z = v.z * sv, v.w = v.w * sv;
-          }
           const float p = pg[j];
-          a.x = fmaf(p, v.x, a.x), a.y = fmaf(p, v.y, a.y);
-          a.z = fmaf(p, v.z, a.z), a.w = fmaf(p, v.w, a.w);
+#pragma unroll
+          for (int u = 0; u < kLaneQuads; ++u) {
+            float4 v = widen4(reinterpret_cast<const E*>(vs + j * kPitch) +
+                              4 * (lane + 32 * u));
+            if constexpr (Rows::kScaled) {
+              const float sv = scl[chunk + j];
+              v.x = v.x * sv, v.y = v.y * sv, v.z = v.z * sv, v.w = v.w * sv;
+            }
+            a[u].x = fmaf(p, v.x, a[u].x), a[u].y = fmaf(p, v.y, a[u].y);
+            a[u].z = fmaf(p, v.z, a[u].z), a[u].w = fmaf(p, v.w, a[u].w);
+          }
         }
-        *reinterpret_cast<float4*>(wacc + (warp * gmax + g) * D + 4 * lane) =
-            a;
+#pragma unroll
+        for (int u = 0; u < kLaneQuads; ++u)
+          *reinterpret_cast<float4*>(wacc + (warp * gmax + g) * D +
+                                     4 * (lane + 32 * u)) = a[u];
       }
       if (lane == 0) wm[warp * gmax + g] = m, wl[warp * gmax + g] = l;
     }
@@ -469,8 +484,8 @@ extern "C" long long decode_attention_scratch_bytes(int b, int smax, int h,
 // zeroed ints that no other launch uses at the same time (zero again when
 // this one ends); scratch: decode_attention_scratch_bytes(...) bytes or
 // more, on a 16-byte boundary.  Returns a cudaError_t
-// (cudaErrorInvalidValue for a head dim other than 32, 64, 80 or 128, or
-// shapes the grid cannot hold).
+// (cudaErrorInvalidValue for a head dim other than 32, 64, 80, 128 or 256,
+// or shapes the grid cannot hold).
 extern "C" int decode_attention(int dtype, const void* q, const void* k,
                                 const void* v, void* out, long long qsb,
                                 long long qsh, long long ksb, long long kss,
@@ -483,7 +498,7 @@ extern "C" int decode_attention(int dtype, const void* q, const void* k,
                                 cudaStream_t stream) {
   if (bad_shapes(b, smax, h, kh, window)) return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, 0, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  return attn::dispatch<32, 64, 80, 128>(dtype, d, [&](auto t, auto dim) {
+  return attn::dispatch<32, 64, 80, 128, 256>(dtype, d, [&](auto t, auto dim) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dim)::value;
     return launch<T, D>(q, FpRows<T>{static_cast<const T*>(k), ks},
@@ -513,7 +528,7 @@ extern "C" int decode_attention_q8(
   const Q8Rows vr{static_cast<const int8_t*>(v),
                   static_cast<const float*>(v_scale), Strides{vsb, vss, vsh},
                   Strides{vssb, vsss, vssh}};
-  return attn::dispatch<32, 64, 80, 128>(dtype, d, [&](auto t, auto dim) {
+  return attn::dispatch<32, 64, 80, 128, 256>(dtype, d, [&](auto t, auto dim) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dim)::value;
     return launch<T, D>(q, kr, vr, out, qs, lens, len_all, b, smax, h, kh,

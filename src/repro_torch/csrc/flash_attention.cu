@@ -23,7 +23,10 @@
 // accuracy (3xTF32, below: a third of their 495 TFLOP/s in TF32).  At the
 // main path's prefill shape (1, 128, 32, 80) the work is small (5.2 MB,
 // 0.0016 ms): a warp's sequential walk over the keys, not the card's rates,
-// sets the time.
+// sets the time.  At gemma3-12b's prefill, (1, 2048, 16, 256) against 8 kv
+// heads, the operations do: 25.8 GFLOP under the 1,024-key window (0.156
+// ms at 165 TFLOP/s), 34.4 causal without it (0.208 ms), against 0.030 ms
+// of bytes.
 //
 // Design.  A block is four warps; each warp owns 16 query rows.  Both
 // products run on the tensor cores as mma.sync m16n8k8 in TF32:
@@ -54,6 +57,19 @@
 // conflict-free.  An operand whose address or strides are not multiples of
 // 16 bytes is staged into the same tiles by plain loads instead.
 //
+// Head dim 256 (gemma3's): q's pre-scaled fragments (D / 2 floats a
+// thread) beside O's accumulator (D / 2 more) would need 256 registers a
+// thread before S, P and addresses, past the 255 a thread may hold, and a
+// spill would put them in local memory.  So there q lives in shared memory
+// instead, after the K / V stages: the block's query rows, pre-scaled in
+// f32, rows padded by 32 bytes (a warp's 8-byte fragment reads then hit
+// distinct banks), read per 8-dim step of each tile; O, S and P stay in
+// registers.  The values are those the registers would hold, so the
+// arithmetic and its order are unchanged.  The f32 tiles and q take
+// 134,144 + 33,792 bytes causal (32 query rows) and + 67,584 non-causal
+// (64 rows), under the 227 KB a block may have: one block an SM.  Head
+// dims 64, 80 and 128 keep q in registers.
+//
 // Two layouts of the four warps, one per mask kind.  Non-causal (the
 // encoder, over hundreds of texts: thousands of blocks): the four warps take
 // 64 query rows and share each 32-row KV tile, so K / V cross from L2 once
@@ -62,7 +78,7 @@
 // path's shape 64 such blocks would leave half the SMs idle and walk 128
 // keys a warp): two warps take 32 query rows and two more the same rows,
 // each pair taking one half of every 64-row KV tile (D <= 80; 32 rows at
-// D = 128), and the halves are merged at the end in one fixed order (m =
+// D = 128 and 256), and the halves are merged at the end in one fixed order (m =
 // max, both sides rescaled).  Twice the blocks, half the walk.  The layout
 // reads only the mask kind, never B.
 //
@@ -107,7 +123,12 @@ struct Layout {
   static constexpr int kPitchK = D + (sizeof(T) == 4 ? 8 : kVec);
   static constexpr int kPitchV = D + kVec;
   static constexpr int kStage = kBK * (kPitchK + kPitchV);   // K then V
-  static constexpr int kBytes = 2 * kStage * (int)sizeof(T);
+  static constexpr int kTileBytes = 2 * kStage * (int)sizeof(T);
+  // q in shared memory (f32, rows padded by 8 floats) past D = 128
+  static constexpr bool kQShared = D > 128;
+  static constexpr int kPitchQ = D + 8;
+  static constexpr int kBytes =
+      kTileBytes + (kQShared ? kBQ * kPitchQ * 4 : 0);
   static constexpr int kMinBlocks = kGroups == 1 && D == 64 ? 3 : 1;
 };
 
@@ -224,19 +245,33 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // q * scale as A fragments, dims relabelled: [step][0] row g, dim 8s + 2t;
-  // [1] row g + 8; [2] row g, dim 8s + 2t + 1; [3] row g + 8
-  float qf[kSteps][4];
+  // [1] row g + 8; [2] row g, dim 8s + 2t + 1; [3] row g + 8.  Past D = 128
+  // the block's rows go to shared memory instead (the loop's first barrier
+  // orders the writes before any read), fragments read from there per step.
+  float qf[Ly::kQShared ? 1 : kSteps][4];
+  float* const qsm = reinterpret_cast<float*>(smem_raw + Ly::kTileBytes);
+  if constexpr (Ly::kQShared) {
+    for (int i = threadIdx.x; i < Ly::kBQ * D; i += kThreads) {
+      const int r = i / D, e = i - r * D;
+      qsm[r * Ly::kPitchQ + e] =
+          q0 + r < sq ? widen(q[b * qs.b + (long long)(q0 + r) * qs.s +
+                                head * qs.h + e]) * scale
+                      : 0.f;
+    }
+  } else {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool live = rows[r] < sq;
-    const T* qp = q + b * qs.b + (long long)(live ? rows[r] : 0) * qs.s +
-                  head * qs.h + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      const bool live = rows[r] < sq;
+      const T* qp = q + b * qs.b + (long long)(live ? rows[r] : 0) * qs.s +
+                    head * qs.h + 2 * t;
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s) {
-      qf[s][r] = live ? widen(qp[8 * s]) * scale : 0.f;
-      qf[s][r + 2] = live ? widen(qp[8 * s + 1]) * scale : 0.f;
+      for (int s = 0; s < kSteps; ++s) {
+        qf[s][r] = live ? widen(qp[8 * s]) * scale : 0.f;
+        qf[s][r + 2] = live ? widen(qp[8 * s + 1]) * scale : 0.f;
+      }
     }
   }
+  const float* const qw = qsm + (warp * 16 + g) * Ly::kPitchQ + 2 * t;
   // O as C fragments: [dim slice n][0, 1] row g, dims 8n + 2t, +1; [2, 3]
   // row g + 8
   float o[kSteps][4];
@@ -273,9 +308,19 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       uint32_t ah[4], al[4];
+      float qv[4];
+      if constexpr (Ly::kQShared) {
+        const float2 lo = *reinterpret_cast<const float2*>(qw + 8 * s);
+        const float2 hi =
+            *reinterpret_cast<const float2*>(qw + 8 * Ly::kPitchQ + 8 * s);
+        qv[0] = lo.x, qv[1] = hi.x, qv[2] = lo.y, qv[3] = hi.y;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qv[e] = qf[s][e];
+      }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = qf[s][e];
+        float x = qv[e];
         asm volatile("" : "+f"(x));   // split per tile, not held split
         split(x, ah[e], al[e]);
       }
@@ -431,8 +476,8 @@ int launch(const T* q, const T* k, const T* v, T* out, const Strides& qs,
 
 // dtype 0: float32, 1: bfloat16.  Strides are in elements; out is a
 // contiguous (B, Sq, H, D) tensor of q's dtype.  Returns a cudaError_t
-// (cudaErrorInvalidValue for a head dim other than 64, 80 or 128, or shapes
-// the grid cannot hold).
+// (cudaErrorInvalidValue for a head dim other than 64, 80, 128 or 256, or
+// shapes the grid cannot hold).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, long long qsb,
                                long long qss, long long qsh, long long ksb,
@@ -444,7 +489,7 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
       sq < 1 || skv < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh};
-  return attn::dispatch<64, 80, 128>(dtype, d, [&](auto t, auto dim) {
+  return attn::dispatch<64, 80, 128, 256>(dtype, d, [&](auto t, auto dim) {
     using T = typename decltype(t)::type;
     constexpr int D = decltype(dim)::value;
     const auto* qp = static_cast<const T*>(q);

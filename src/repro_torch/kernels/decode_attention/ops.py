@@ -6,16 +6,18 @@ of ``models.quantization``).
 ``decode_attention`` takes q (B, 1, H, D), a cache (B, Smax, KH, D) and the
 lengths (an int for every slot, a (B,) integer tensor, or a
 :class:`DecodeLengths`), with the semantics of the model's
-``attend_decode`` on a full (non-ring) cache: position j of slot b is valid
-when j < lengths[b] and, with a window > 0, j > lengths[b] - 1 - window.
+``attend_decode``: position j of slot b is valid when j < lengths[b] and,
+with a window > 0, j > lengths[b] - 1 - window (over a ring cache the model
+passes no window: its length reaches Smax once the ring is full, and then
+every row is valid).
 For CUDA tensors it launches the hand-written CUDA kernel
 (``csrc/decode_attention.cu``), which reads q and the cache in place
 through their strides; for CPU tensors it takes the plain version
 (``ref.py``).  A CUDA tensor never reaches the plain version: a kernel that
 fails to build or launch raises.  The op takes what the kernel builds, on
-either device: head dims 32, 64, 80 and 128, f32 or bf16, H % KH == 0, and
-every length >= 1 (at 0 the JAX package's Pallas kernel and its reference
-disagree, and the model never asks for it).
+either device: head dims 32, 64, 80, 128 and 256, f32 or bf16, H % KH ==
+0, and every length >= 1 (at 0 the JAX package's Pallas kernel and its
+reference disagree, and the model never asks for it).
 
 ``decode_attention_q8`` takes q (B, 1, H, D) f32 or bf16, k_q / v_q int8
 (B, Smax, KH, D) and k_scale / v_scale f32 (B, Smax, KH, 1), with the same
@@ -52,7 +54,7 @@ from repro_torch.kernels.decode_attention.ref import (decode_attention_q8_ref,
 __all__ = ["decode_attention", "decode_attention_q8", "decode_lengths",
            "DecodeLengths", "HEAD_DIMS"]
 
-HEAD_DIMS = (32, 64, 80, 128)  # the head dims the kernel is built for
+HEAD_DIMS = (32, 64, 80, 128, 256)  # the head dims the kernel is built for
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,10 +7,11 @@ does.  For CUDA tensors it launches the hand-written CUDA kernel
 their strides (no transpose copy); for CPU tensors it takes the plain
 version (``ref.py``).  A CUDA tensor never reaches the plain version: a
 kernel that fails to build or launch raises.  The op takes what the kernel
-builds, on either device: head dims 64, 80 and 128, f32 or bf16, H % KH ==
-0, any Sq, Skv >= 1.  ``flash_attention.launches`` counts kernel launches,
-``flash_attention.launches_by_mask`` the same split into causal and
-non-causal.
+builds, on either device: head dims 64, 80, 128 and 256, f32 or bf16, H %
+KH == 0, any Sq, Skv >= 1.  ``flash_attention.launches`` counts kernel
+launches, ``flash_attention.launches_by_mask`` the same split into causal
+and non-causal, and ``flash_attention.launches_windowed`` those with a
+window > 0.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 __all__ = ["flash_attention", "HEAD_DIMS"]
 
-HEAD_DIMS = (64, 80, 128)      # the head dims the kernel is built for
+HEAD_DIMS = (64, 80, 128, 256)  # the head dims the kernel is built for
 
 
 @functools.cache
@@ -66,6 +67,7 @@ def _launch(q, k, v, causal: bool, window: int) -> torch.Tensor:
     flash_attention.launches += 1
     flash_attention.launches_by_mask[
         "causal" if causal else "non_causal"] += 1
+    flash_attention.launches_windowed += int(window > 0)
     return out
 
 
@@ -88,3 +90,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_mask = {"causal": 0, "non_causal": 0}
+flash_attention.launches_windowed = 0

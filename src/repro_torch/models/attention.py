@@ -84,11 +84,13 @@ def attend_chunked(q, k, v, *, causal=True, window=0, logit_cap=0.0,
 
 
 def attend_decode(q, k_cache, v_cache, cache_len, *, window=0,
-                  logit_cap=0.0):
-    """One-token decode: q (B, 1, H, D) against a full (non-ring) cache
-    (B, Smax, KH, D).  ``cache_len`` (an int, or (B,) per-slot lengths)
-    counts the valid tokens INCLUDING the current one (the caller inserts
-    its k / v before attending)."""
+                  logit_cap=0.0, circular=False):
+    """One-token decode: q (B, 1, H, D) against a cache (B, Smax, KH, D).
+    ``cache_len`` (an int, or (B,) per-slot lengths) counts the valid
+    tokens INCLUDING the current one (the caller inserts its k / v before
+    attending).  ``circular``: the cache is a ring buffer of Smax rows, its
+    rows valid up to ``min(cache_len, Smax)`` and the window ignored (the
+    ring holds the window)."""
     b, sq, h, d = q.shape
     assert sq == 1
     k = _expand_kv(k_cache, h).to(torch.float32)
@@ -98,9 +100,12 @@ def attend_decode(q, k_cache, v_cache, cache_len, *, window=0,
     scores = softcap(scores, logit_cap)
     idx = torch.arange(k_cache.shape[1], device=q.device)[None, :]
     clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
-    valid = idx < clen                                     # (B | 1, Smax)
-    if window and window > 0:
-        valid &= idx > (clen - 1 - window)
+    if circular:
+        valid = idx < torch.clamp(clen, max=k_cache.shape[1])
+    else:
+        valid = idx < clen                                 # (B | 1, Smax)
+        if window and window > 0:
+            valid &= idx > (clen - 1 - window)
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v)

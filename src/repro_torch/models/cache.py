@@ -1,14 +1,23 @@
-"""Decode-time KV caches for dense attention blocks.
+"""Decode-time KV caches for attention blocks: full, and circular
+(sliding-window) ring buffers.
 
-Port of ``repro.models.cache`` for the full (non-ring) cache of ``"attn"``
-blocks; ring buffers and SSM states come with the slices that need them.
-One :class:`KVCache` per layer, each (B, Smax, KH, D).  Unlike the JAX
-package's immutable caches, :meth:`KVCache.insert` writes IN PLACE (no copy
-of the whole cache per decoded token).
+Port of ``repro.models.cache`` for the ``"attn"`` and ``"swa"`` block kinds;
+SSM states come with the slices that need them, and so does the JAX
+package's ``window_mode`` (every attention layer a ring at the long-context
+serving window).  One :class:`KVCache` per layer, each (B, size, KH, D),
+in the order of ``cfg.block_pattern`` repeated.  Unlike the JAX package's
+immutable caches, :meth:`KVCache.insert` writes IN PLACE (no copy of the
+whole cache per decoded token), and a cache carries whether it is a ring
+(the JAX package derives it from the block kind at every call).
+
+A ring of ``size`` rows keeps token p at row ``p % size``: its last
+``size`` tokens, which are exactly a window of ``size`` tokens.  So a
+decode length of ``size`` or more makes every row valid, and attending
+over a ring needs no window mask.
 """
 from __future__ import annotations
 
-from typing import List, Union
+from typing import List, Tuple, Union
 
 import torch
 
@@ -16,15 +25,19 @@ from repro_torch.configs.base import ModelConfig
 
 
 class KVCache:
-    def __init__(self, k: torch.Tensor, v: torch.Tensor):
-        self.k = k          # (B, Smax, KH, D)
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, *,
+                 circular: bool = False):
+        self.k = k          # (B, size, KH, D)
         self.v = v
+        self.circular = circular
 
     def insert(self, k_new: torch.Tensor, v_new: torch.Tensor,
                pos: Union[int, torch.Tensor]) -> "KVCache":
         """Write (B, S_new, KH, D) in place: at position ``pos`` in every
         slot, or, for a (B,) tensor ``pos`` (S_new == 1), slot b's one
-        token at ``pos[b]``."""
+        token at ``pos[b]``.  A ring writes at ``pos % size``."""
+        if self.circular:
+            pos = pos % self.k.shape[1]
         if isinstance(pos, torch.Tensor) and pos.dim() == 1:
             if k_new.shape[1] != 1:
                 raise ValueError("per-slot positions insert one token per "
@@ -38,14 +51,41 @@ class KVCache:
         self.v[:, pos:pos + s] = v_new.to(self.v.dtype)
         return self
 
+    def prefill(self, k: torch.Tensor, v: torch.Tensor) -> "KVCache":
+        """Write a prompt's (B, S, KH, D) from position 0, in place.  A ring
+        shorter than the prompt keeps its last ``size`` tokens, token p at
+        row ``p % size`` (the JAX model's prefill scatter)."""
+        size, s = self.k.shape[1], k.shape[1]
+        if not self.circular or s <= size:
+            return self.insert(k, v, 0)
+        rows = torch.arange(s - size, s, device=self.k.device) % size
+        self.k[:, rows] = k[:, -size:].to(self.k.dtype)
+        self.v[:, rows] = v[:, -size:].to(self.v.dtype)
+        return self
+
+
+def kv_cache_spec(cfg: ModelConfig, kind: str,
+                  max_len: int) -> Tuple[int, bool]:
+    """(rows, circular) of a layer of block ``kind``: an ``"swa"`` layer of a
+    config with a window is a ring of ``min(window, max_len)`` rows."""
+    if kind == "swa" and cfg.sliding_window:
+        return min(cfg.sliding_window, max_len), True
+    return max_len, False
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device, dtype=torch.float32) -> List[KVCache]:
-    """One zeroed :class:`KVCache` per layer."""
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return [KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                    torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.num_layers)]
+    """One zeroed :class:`KVCache` per layer, sized by the layer's kind."""
+    pattern = cfg.block_pattern
+    caches = []
+    for layer in range(cfg.num_layers):
+        size, circular = kv_cache_spec(cfg, pattern[layer % len(pattern)],
+                                       max_len)
+        shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+        caches.append(KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                              torch.zeros(shape, dtype=dtype, device=device),
+                              circular=circular))
+    return caches
 
 
 def cache_bytes(caches: List[KVCache]) -> int:

@@ -1,14 +1,16 @@
-"""Decoder / encoder model of dense ``"attn"`` blocks, in PyTorch.
+"""Decoder / encoder model of dense attention blocks, in PyTorch.
 
-Port of ``repro.models.model`` for dense attention blocks: the paper's
-generator and embedder and the assigned dense architectures
-(``configs.ASSIGNED_ARCHS``: yi-9b, starcoder2-7b, stablelm-1.6b, and
-musicgen-large and qwen2-vl-2b with their stubbed frontends' embedding
-inputs, qwen2-vl with M-RoPE).  MoE, Mamba2, RWKV6, sliding-window and
+Port of ``repro.models.model`` for the ``"attn"`` and ``"swa"`` (sliding
+window) block kinds: the paper's generator and embedder and the assigned
+architectures (``configs.ASSIGNED_ARCHS``: yi-9b, starcoder2-7b,
+stablelm-1.6b, musicgen-large and qwen2-vl-2b with their stubbed
+frontends' embedding inputs, qwen2-vl with M-RoPE, and gemma3-12b's 5:1
+pattern of sliding-window and global layers).  MoE, Mamba2, RWKV6 and
 shared blocks come with later slices and raise here.  A :class:`Model` is
 an ``nn.Module`` whose parameters keep the JAX package's names and (in,
-out) matrix layout, one :class:`AttnBlock` per layer (the JAX pytree stacks
-them over depth; ``repro_torch.convert`` unstacks).
+out) matrix layout, one :class:`AttnBlock` per layer in the order of
+``cfg.block_pattern`` repeated (the JAX pytree stacks each pattern
+position over depth; ``repro_torch.convert`` unstacks).
 
 Public entry points, as in the JAX package:
   init_params                          (random weights from a seed)
@@ -25,15 +27,19 @@ stream.
 Semantics kept from the reference: ``rms_norm`` scales by ``1 + w``; RoPE
 rotates the two halves of the head dim (M-RoPE each band by its stream's
 position); SwiGLU MLP; an untied ``lm_head`` when the config says so;
-prefill attends causally with NO padding mask; decode inserts k / v at
-``cache_len`` (an int, or (B,) per-slot lengths) and attends over
-``cache_len + 1`` tokens.
+prefill attends causally with NO padding mask (an ``"swa"`` layer also
+within its window); decode inserts k / v at ``cache_len`` (an int, or (B,)
+per-slot lengths) and attends over ``cache_len + 1`` tokens, an ``"swa"``
+layer over its ring cache (``models.cache``: the window's last tokens).
 
 Attention on the card is the hand-written kernels, whatever ``attn_impl``
 says (``"reference"`` and ``"chunked"`` are two plain formulations of the
 one function the prefill kernel computes): ``flash_attention`` in prefill
-(causal) and ``encode`` (non-causal), ``decode_attention`` in decode.  On
-the CPU the model runs the plain functions of ``models.attention``.  The
+(causal, with an ``"swa"`` layer's window) and ``encode`` (non-causal),
+``decode_attention`` in decode (over a ring with no window: a ring holds
+only the window's tokens, and a length of its rows or more makes every
+row valid).  On the CPU the model runs the plain functions of
+``models.attention``.  The
 kernels have no logit softcap (nor have the TPU kernels), so a config with
 one raises on the card.
 """
@@ -64,11 +70,14 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm attention + SwiGLU block (JAX block kind ``"attn"``)."""
+    """Pre-norm attention + SwiGLU block (JAX block kinds ``"attn"`` and
+    ``"swa"``: the latter attends within ``cfg.sliding_window``)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 device: torch.device):
+                 device: torch.device, kind: str = "attn"):
         super().__init__()
+        self.kind = kind
+        self.window = cfg.sliding_window if kind == "swa" else 0
         d = cfg.d_model
         z = lambda n: torch.zeros((n,), dtype=torch.float32, device=device)
         w = lambda shape: dense_init(shape, generator, device)
@@ -100,7 +109,7 @@ class AttnBlock(nn.Module):
         else:
             q = apply_rope(q, positions, inv_freq)
             k = apply_rope(k, positions, inv_freq)
-        cap = cfg.attn_logit_softcap
+        cap, window = cfg.attn_logit_softcap, self.window
         card = q.is_cuda
         if card and cap:
             raise NotImplementedError(
@@ -110,22 +119,25 @@ class AttnBlock(nn.Module):
             assert cache is not None and s == 1
             cache.insert(k, v, cache_len)
             if card:
-                out = decode_attention(q, cache.k, cache.v, lengths)
+                out = decode_attention(q, cache.k, cache.v, lengths,
+                                       window=0 if cache.circular
+                                       else window)
             else:
                 out = attn_lib.attend_decode(q, cache.k, cache.v, lengths,
-                                             logit_cap=cap)
+                                             window=window, logit_cap=cap,
+                                             circular=cache.circular)
         else:
             if cache is not None:
-                cache.insert(k, v, 0)
+                cache.prefill(k, v)
             if card:
-                out = flash_attention(q, k, v, causal=causal)
+                out = flash_attention(q, k, v, causal=causal, window=window)
             elif attn_impl == "chunked" or (attn_impl == "auto"
                                             and s >= CHUNKED_ATTN_MIN_SEQ):
                 out = attn_lib.attend_chunked(q, k, v, causal=causal,
-                                              logit_cap=cap)
+                                              window=window, logit_cap=cap)
             else:
                 out = attn_lib.attend_reference(q, k, v, causal=causal,
-                                                logit_cap=cap)
+                                                window=window, logit_cap=cap)
         x = x + out.reshape(b, s, cfg.q_dim) @ self.wo
         h = rms_norm(x, self.norm2, cfg.norm_eps)
         return x + mlp(self.gate, self.up, self.down, h)
@@ -137,18 +149,20 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, seed: int = 0,
                  device: DeviceLike = None):
         super().__init__()
-        bad = sorted(set(cfg.block_pattern) - {"attn"})
+        bad = sorted(set(cfg.block_pattern) - {"attn", "swa"})
         if bad:
             raise NotImplementedError(
                 f"{cfg.name}: block kinds {bad} come with a later slice of "
-                f"the port (this one runs dense 'attn' blocks)")
+                f"the port (this one runs 'attn' and 'swa' blocks)")
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
         self.embed = _param(dense_init((cfg.vocab_size, cfg.d_model), g, dev,
                                        scale=0.02))
-        self.blocks = nn.ModuleList(AttnBlock(cfg, g, dev)
-                                    for _ in range(cfg.num_layers))
+        pattern = cfg.block_pattern
+        self.blocks = nn.ModuleList(
+            AttnBlock(cfg, g, dev, pattern[i % len(pattern)])
+            for i in range(cfg.num_layers))
         self.final_norm = _param(torch.zeros((cfg.d_model,), device=dev))
         self.lm_head = (None if cfg.tie_embeddings else
                         _param(dense_init((cfg.d_model, cfg.vocab_size), g,

@@ -2,7 +2,8 @@
 
 Port of ``repro.serving.batching``.  A fixed pool of ``num_slots`` decode
 slots shares one batched KV cache (one :class:`~repro_torch.models.cache.
-KVCache` per layer, (num_slots, max_len, KH, D)).  A request is admitted
+KVCache` per layer, (num_slots, max_len, KH, D), or a ring of the window's
+rows for a sliding-window layer).  A request is admitted
 into a free slot: its prompt is prefilled alone, at its own unpadded
 length, into that slot's row of the cache.  One decode step (a tick)
 advances every slot one token with per-slot cache lengths, free slots
@@ -101,7 +102,8 @@ class ContinuousBatcher:
         for c in self.caches:
             c.k[slot].zero_()
             c.v[slot].zero_()
-            rows.append(KVCache(c.k[slot:slot + 1], c.v[slot:slot + 1]))
+            rows.append(KVCache(c.k[slot:slot + 1], c.v[slot:slot + 1],
+                                circular=c.circular))
         last_logits, _ = prefill(self.params, {"tokens": toks}, rows)
         self.lens[slot] = L
         self.next_tok[slot] = int(last_logits[0].argmax())

@@ -414,9 +414,10 @@ class RAGEngine:
 
 class GeneratorModel:
     """The generation model on PyTorch: Sheared-LLaMA by default, or any
-    registered dense config (``configs.ASSIGNED_ARCHS``; musicgen-large
-    takes codec ids and qwen2-vl-2b text positions on its three M-RoPE
-    streams, as in the JAX engine).
+    registered config (``configs.ASSIGNED_ARCHS``; musicgen-large takes
+    codec ids and qwen2-vl-2b text positions on its three M-RoPE streams,
+    as in the JAX engine; gemma3-12b's sliding-window layers decode over
+    ring caches of the window's rows).
 
     Prompts are left-padded with token 0 to ``max_prompt`` tokens (no
     attention mask: pad tokens are attended, as in the JAX engine) and

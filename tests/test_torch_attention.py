@@ -2,9 +2,11 @@
 versions of the prefill and decode attention kernels (``flash_attention``,
 ``decode_attention``) against the Pallas kernels in interpret mode and their
 jnp references, per-slot decode lengths against the model's
-``attend_decode``, the per-slot ``KVCache.insert``, and ``decode_step`` /
-``prefill`` / ``encode`` of carried-over models, also through the route the
-model takes on the card (the wrappers, here in their CPU versions).
+``attend_decode``, the per-slot ``KVCache.insert``, the ring caches of
+sliding-window layers (insert, prefill scatter, ``attend_decode(circular=
+True)``), and ``decode_step`` / ``prefill`` / ``encode`` of carried-over
+models, also through the route the model takes on the card (the wrappers,
+here in their CPU versions).
 
 Tolerance: both packages compute in fp32 on the CPU with other blockings and
 exp implementations.  :func:`_tol` is the JAX package's own bound for its
@@ -96,6 +98,8 @@ def _port_flash(q, k, v, causal, window):
     (1, 2, 2, 192, 192, 64, True, 100),
     (1, 4, 4, 128, 128, 80, True, 0),          # sheared-llama's head dim
     (2, 4, 1, 64, 128, 80, False, 48),
+    (1, 4, 2, 192, 192, 256, True, 64),        # gemma3's head dim, GQA 2
+    (1, 2, 1, 128, 128, 256, False, 0),
 ])
 def test_flash_plain_matches_jax_pallas_and_ref(b, h, kh, sq, skv, d, causal,
                                                 win):
@@ -232,6 +236,8 @@ def test_f32_bound_holds_3xtf32_and_catches_1xtf32(shape):
     (1, 4, 4, 128, 64, 10_000, 0),             # ring: every slot valid
     (2, 4, 4, 256, 80, 144, 0),                # the main path's head dim
     (2, 8, 2, 256, 80, 200, 50),
+    (1, 4, 2, 256, 256, 10_000, 0),            # head dim 256: a ring
+    (2, 4, 2, 256, 256, 200, 50),              # and a window
 ])
 def test_decode_plain_matches_jax_pallas_and_ref(b, h, kh, smax, d, clen,
                                                  win):
@@ -288,6 +294,70 @@ def test_kv_cache_insert_per_slot_matches_jax():
 
 
 # ---------------------------------------------------------------------------
+# ring caches of sliding-window layers
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("per_slot", [False, True])
+def test_kv_cache_ring_insert_matches_jax(per_slot):
+    """Positions past the ring's 10 rows write at ``pos % 10``, in place."""
+    rng = np.random.default_rng(8)
+    k, v = _rand(rng, (3, 10, 2, 8)), _rand(rng, (3, 10, 2, 8))
+    kn, vn = _rand(rng, (3, 1, 2, 8)), _rand(rng, (3, 1, 2, 8))
+    pos = np.array([3, 10, 27], np.int32) if per_slot else 23
+    jc = JaxKVCache(jnp.asarray(k), jnp.asarray(v)).insert(
+        jnp.asarray(kn), jnp.asarray(vn), jnp.asarray(pos), circular=True)
+    pc = KVCache(_t(k), _t(v), circular=True)
+    kept = pc.k
+    pc.insert(_t(kn), _t(vn), torch.from_numpy(pos).long() if per_slot
+              else pos)
+    assert pc.k is kept
+    assert np.array_equal(pc.k.numpy(), np.asarray(jc.k))
+    assert np.array_equal(pc.v.numpy(), np.asarray(jc.v))
+
+
+@pytest.mark.parametrize("s", [7, 16, 37])
+def test_kv_cache_ring_prefill_matches_the_jax_scatter(s):
+    """A prompt of ``s`` positions into a 16-row ring: from row 0 while it
+    fits, else its last 16 tokens at ``p % 16`` (the JAX model's prefill,
+    ``repro/models/model.py``, restated here on the JAX arrays)."""
+    rng = np.random.default_rng(s)
+    size = 16
+    k, v = _rand(rng, (2, s, 2, 8)), _rand(rng, (2, s, 2, 8))
+    zeros = jnp.zeros((2, size, 2, 8), jnp.float32)
+    jc = JaxKVCache(zeros, zeros)
+    if s <= size:
+        jc = jc.insert(jnp.asarray(k), jnp.asarray(v), 0, circular=False)
+    else:
+        pos = jnp.arange(s - size, s) % size
+        jc = JaxKVCache(jc.k.at[:, pos].set(jnp.asarray(k)[:, -size:]),
+                        jc.v.at[:, pos].set(jnp.asarray(v)[:, -size:]))
+    pc = KVCache(torch.zeros(zeros.shape), torch.zeros(zeros.shape),
+                 circular=True)
+    pc.prefill(_t(k), _t(v))
+    assert np.array_equal(pc.k.numpy(), np.asarray(jc.k))
+    assert np.array_equal(pc.v.numpy(), np.asarray(jc.v))
+    full = KVCache(torch.zeros((2, 40, 2, 8)), torch.zeros((2, 40, 2, 8)))
+    full.prefill(_t(k), _t(v))                # not a ring: from row 0
+    assert np.array_equal(full.k[:, :s].numpy(), k)
+
+
+@pytest.mark.parametrize("lens", [5, 64, 300, [1, 63, 64, 900]])
+def test_attend_decode_circular_matches_jax(lens):
+    """A 64-row ring: rows below ``min(length, 64)`` valid, the window
+    ignored; and K6's CPU version with no window gives the same."""
+    rng = np.random.default_rng(9)
+    q = _rand(rng, (4, 1, 8, 64))
+    kc, vc = _rand(rng, (4, 64, 2, 64)), _rand(rng, (4, 64, 2, 64))
+    ref = np.asarray(jattn.attend_decode(
+        *(jnp.asarray(a) for a in (q, kc, vc)), jnp.asarray(lens),
+        window=64, circular=True))
+    tl = torch.tensor(lens) if isinstance(lens, list) else lens
+    for out in (attn.attend_decode(_t(q), _t(kc), _t(vc), tl, window=64,
+                                   circular=True),
+                decode_attention(_t(q), _t(kc), _t(vc), tl)):
+        np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=_tol(64))
+
+
+# ---------------------------------------------------------------------------
 # the model: carried-over params, the CPU route and the card's route
 # ---------------------------------------------------------------------------
 def _hd80_cfgs():
@@ -311,16 +381,19 @@ class _Wrappers:
     CPU versions on these CPU tensors."""
 
     @staticmethod
-    def attend_reference(q, k, v, *, causal, logit_cap):
+    def attend_reference(q, k, v, *, causal, window, logit_cap):
         assert not logit_cap
-        return flash_attention(q, k, v, causal=causal)
+        return flash_attention(q, k, v, causal=causal, window=window)
 
     attend_chunked = attend_reference
 
     @staticmethod
-    def attend_decode(q, k_cache, v_cache, lengths, *, logit_cap):
+    def attend_decode(q, k_cache, v_cache, lengths, *, window, logit_cap,
+                      circular):
+        """As the model on the card: no window over a ring."""
         assert not logit_cap
-        return decode_attention(q, k_cache, v_cache, lengths)
+        return decode_attention(q, k_cache, v_cache, lengths,
+                                window=0 if circular else window)
 
 
 @pytest.fixture(params=["cpu", "wrappers"])
@@ -378,6 +451,32 @@ def test_head_dim_80_model_matches_jax(route):
         jl, jc = jdecode(params, jnp.asarray(nxt), jc, 20 + step)
         pl, pc = decode_step(model, _t(nxt).long(), pc, 20 + step)
     assert checked >= 16
+
+
+def test_sliding_window_model_matches_jax(route):
+    """gemma3-12b ``.reduced()`` (5 ``"swa"`` layers of window 64 and a
+    global one): a 90-position prompt past the window, then 6 greedy steps,
+    on the route of ``route`` (the card's passes the window to K5 and
+    none to K6 over a ring)."""
+    cfg = get_config("gemma3-12b").reduced()
+    jcfg = jax_get_config("gemma3-12b").reduced()
+    params, model = _carried(cfg, jcfg, 3)
+    jprefill = jax.jit(lambda p, b, c: jax_prefill(p, jcfg, b, c))
+    jdecode = jax.jit(lambda p, t, c, n: jax_decode(p, jcfg, t, c, n))
+    toks = np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (2, 90)).astype(np.int32)
+    jc = jax_init_cache(jcfg, 2, 104)
+    pc = init_cache(cfg, 2, 104, device=torch.device("cpu"))
+    jl, jc = jprefill(params, {"tokens": jnp.asarray(toks)}, jc)
+    pl, pc = prefill(model, {"tokens": _t(toks).long()}, pc)
+    for step in range(6):
+        np.testing.assert_allclose(pl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=MODEL_TOL)
+        nxt = np.asarray(jl).argmax(1).astype(np.int32)[:, None]
+        jl, jc = jdecode(params, jnp.asarray(nxt), jc, 90 + step)
+        pl, pc = decode_step(model, _t(nxt).long(), pc, 90 + step)
+    np.testing.assert_allclose(pl.numpy(), np.asarray(jl), rtol=0,
+                               atol=MODEL_TOL)
 
 
 def test_encode_matches_jax(route):

@@ -16,7 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 # the assigned architectures' config modules the port registers
 ARCH_MODULES = ("stablelm_1p6b", "starcoder2_7b", "yi_9b", "musicgen_large",
-                "qwen2_vl_2b")
+                "qwen2_vl_2b", "gemma3_12b")
 
 
 def _modules():

@@ -822,7 +822,10 @@ def _qkv(dev, b, sq, skv, h, kh, d, dtype=torch.float32, seed=0):
 # encode shapes, GQA with a window, ragged lengths (Sq != Skv, rows with no
 # valid key under the window), D = 128 (past 48 KB of shared memory), bf16;
 # windows that leave rows q >= Skv + window - 1 no valid key, causal and
-# not, in bf16 and f32; GQA 4 at each head dim
+# not, in bf16 and f32; GQA 4 at each head dim; head dim 256 (gemma3-12b's,
+# q in shared memory): its prefill (2,048 positions, 16 heads over 8, the
+# 1,024-key window) in f32 and bf16, causal without a window, ragged
+# non-causal, and a non-causal window in bf16
 FLASH_CASES = [
     (1, 128, 128, 32, 32, 80, True, 0, torch.float32),
     (4, 128, 128, 12, 12, 64, False, 0, torch.float32),
@@ -838,6 +841,11 @@ FLASH_CASES = [
     (2, 100, 100, 16, 4, 64, True, 0, torch.bfloat16),
     (2, 129, 129, 16, 4, 80, False, 0, torch.float32),
     (1, 65, 65, 16, 4, 128, True, 33, torch.float32),
+    (1, 2048, 2048, 16, 8, 256, True, 1024, torch.float32),
+    (1, 2048, 2048, 16, 8, 256, True, 1024, torch.bfloat16),
+    (1, 300, 300, 4, 2, 256, True, 0, torch.float32),
+    (2, 150, 77, 4, 2, 256, False, 0, torch.float32),
+    (2, 130, 130, 4, 4, 256, False, 20, torch.bfloat16),
 ]
 # lengths on either side of a warp's 16 query rows, the block's 64 and the
 # 32- or 64-row K / V tile
@@ -858,7 +866,7 @@ def test_cuda_flash_attention_matches_plain(cuda, b, sq, skv, h, kh, d,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_cuda_flash_attention_tile_edges(cuda, d, causal):
     for sq in EDGE_LENS:
@@ -891,7 +899,7 @@ def test_cuda_flash_attention_unaligned_kv_gives_the_same_bits(cuda, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 80, 128])
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 30)])
 def test_cuda_flash_attention_batch_equals_sequential(cuda, causal, window,
                                                       d):
@@ -933,7 +941,9 @@ def _decode_case(dev, b, smax, h, kh, d, dtype=torch.float32, seed=1):
 # and 4 served from one staged chunk (f32 and bf16), and group 16 (two
 # passes of 8 heads over it); then 8 and 9 chunks (Smax 256 and 288), and
 # windows whose valid chunks start past the first (Smax 1,100: chunks 6-9
-# and 12-17 of 18)
+# and 12-17 of 18); head dim 256 (gemma3-12b's, 16 query heads over 8: GQA
+# 2): a 1,024-row ring (every row valid), a 2,064-row global cache at the
+# engine's lengths, a window, and a ring in bf16
 DECODE_CASES = [
     (1, 144, 32, 32, 80, [129], 0, torch.float32),
     (4, 144, 8, 2, 80, [1, 77, 144, 130], 0, torch.float32),
@@ -954,6 +964,10 @@ DECODE_CASES = [
     (2, 256, 8, 2, 80, [256, 200], 0, torch.float32),
     (3, 288, 8, 8, 80, [288, 250, 257], 0, torch.float32),
     (3, 1100, 8, 4, 64, [600, 1100, 1030], 200, torch.float32),
+    (1, 1024, 16, 8, 256, [2064], 0, torch.float32),
+    (2, 2064, 16, 8, 256, [2049, 2064], 0, torch.float32),
+    (3, 300, 8, 4, 256, [300, 17, 200], 40, torch.float32),
+    (2, 1024, 16, 8, 256, [1024, 500], 0, torch.bfloat16),
 ]
 
 
