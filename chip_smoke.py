@@ -47,7 +47,9 @@ Phases, one JSON line each:
                    ids equal the main path's for the same queries outside
                    near-ties; every token in range.  Prints each batch's
                    retrieval, prefill and decode wall, the weights' bytes
-                   and ``torch.cuda.max_memory_allocated()``.  (b) each of
+                   and ``torch.cuda.max_memory_allocated()``, then profiles
+                   the first request's generation once more (as
+                   ``moe_archs`` (a) does).  (b) each of
                    the five configs at full width cut to 2 layers, one set
                    of weights drawn on the CPU from the seed and copied to
                    the card: prefill of 128 positions, then 8 decode steps,
@@ -86,7 +88,8 @@ Phases, one JSON line each:
                    main path's outside near-ties; every token in range.
                    Prints the batch's retrieval, prefill and decode wall,
                    the draw's seconds, ``max_memory_allocated``, the
-                   prompts' token counts and the launches.  (b) the first
+                   prompts' token counts and the launches, and profiles the
+                   first request's generation.  (b) the first
                    pattern (6 layers: 5 "swa", 1 "attn") at full width,
                    one set of weights drawn on the CPU from the seed and
                    copied to the card: a prompt of 1,040 positions (past
@@ -98,6 +101,49 @@ Phases, one JSON line each:
                    kind and K6 call of each cache within :func:`attn_tol`
                    of the plain versions; the CPU's and the card's seconds
                    printed.
+  moe_archs        the mixture-of-experts configs (``models/moe.py``).
+                   (a) olmoe-1b-7b at full width (16 layers of ``"moe"``
+                   blocks, d_model 2048, 16 heads of 128 (MHA), 64 experts
+                   of d_ff 1024, top-8, vocab 50,304, untied head, fp32:
+                   6,919,096,320 parameters, 27,676,385,280 bytes, random
+                   weights drawn on the card from the seed, the draw
+                   timed; gemma3-12b freed before) as ``RAGEngine``'s
+                   generator over the main path's index, beside the main
+                   generator: the main path's first 2 batches of 16,
+                   128-token prompts, 16 greedy tokens.  Counts zeroed
+                   before, read after.  Checks: K5 causal exactly 16 x 32
+                   = 512, none non-causal or windowed; K6 exactly 16 x 16 x
+                   32 = 8,192; no K7; K1 and K2 one launch a batch; the
+                   weight bytes; the ids equal the main path's outside
+                   near-ties; every token in range.  Prints each batch's
+                   retrieval, prefill and decode wall, the draw's seconds,
+                   ``max_memory_allocated``, each prefill's capacity (20:
+                   ``int(max(8, 128 x 8 / 64 x 1.25))``) and the prefill
+                   assignments it dropped, counted by the port's routing
+                   step (``models.moe.route``) on each layer's normed
+                   input (decode is dropless, capacity = B x S = 1, so
+                   every step reads all 64 experts' weights); then the
+                   first request's generation once more under
+                   ``torch.profiler`` (wall and device ms, the largest
+                   device events).  (b) both
+                   MoE configs (olmoe-1b-7b; granite-moe-3b-a800m: d_model
+                   1536, 24 heads over 8 kv heads of 64, a GQA group of 3,
+                   40 experts of d_ff 512, top-8, vocab 49,155, tied) at
+                   full width cut to 2 layers, one set of weights drawn on
+                   the CPU from the seed and copied to the card: prefill of
+                   128 positions (capacity 20 and 32: prefill drops), then
+                   8 decode steps, the same tokens into both.  Each MoE
+                   layer's top-k expert sets are recorded on both sides;
+                   where they agree, logits within ``GEN_TOL`` and greedy
+                   tokens equal outside near-ties; where a token's set
+                   differs, the CPU's k-th and (k+1)-th router
+                   probabilities must lie within ``ROUTE_TIE_TOL`` (a flip
+                   outside it fails), the flip is printed as a near-tie and
+                   that step and the steps after it are not compared
+                   (counted).  K5 2 and K6 16 launches, and each config's
+                   first K5 and K6 call within :func:`attn_tol` of the
+                   plain versions (granite's K6: the first full-width
+                   launch of a 3-head group).
   baselines        the paper's Table 4 rows 1-2 on the main path's corpus
                    and 64 queries (k 10).  ``FlatIndex`` on the card holds
                    all 25,000 rows (76,800,000 bytes) and takes each batch
@@ -427,7 +473,9 @@ Phases, one JSON line each:
                    calls, yi-9b's head dim 128 and group of 8;
                    ``swa_gemma3`` (a)'s first K5 calls with and without
                    the window and K6 calls over a ring and the global
-                   cache; head dim 256: K5 at (1, 2048, 16, 256) against
+                   cache; ``moe_archs`` (a)'s first K5 and K6 calls,
+                   olmoe-1b-7b's 16 heads of 128; head dim 256: K5 at (1,
+                   2048, 16, 256) against
                    8 kv heads with the 1,024 window in f32 and bf16, causal
                    without it, ragged non-causal, K6 over a 1,024-row ring,
                    a 2,064-row cache, per-slot lengths, a window and bf16,
@@ -454,13 +502,15 @@ Phases, one JSON line each:
                    and against its library composite at K7's ``kernels``
                    shape; K6 against ``scaled_dot_product_attention`` at
                    the recorded decode input, at ``dense_archs`` (a)'s
-                   first decode call (yi-9b) and, in ``decode_long``, at a
+                   and ``moe_archs`` (a)'s first decode calls (yi-9b,
+                   olmoe-1b-7b) and, in ``decode_long``, at a
                    4,096-row f32 cache (every row valid), with its error
                    and bound there; each K6 and K7 call one device event;
                    K5 against
                    ``scaled_dot_product_attention`` (``enable_gqa`` where
                    the heads differ) at the recorded prefill and encode
-                   inputs and at yi-9b's first prefill call; and each top-k kernel (K1 at the
+                   inputs and at yi-9b's and olmoe-1b-7b's first prefill
+                   calls; and each top-k kernel (K1 at the
                    probe's and the flat scan's inputs) against its
                    library call at its ``kernels`` inputs: 100 calls each,
                    device ms per call beside wall ms per call; and the fp32
@@ -487,7 +537,8 @@ counted in its checked window (``main_path``, ``baselines``' IVF searches
 at nprobe 8, ``continuous_batching``'s trace and engine batch, ``encode``,
 ``online_index``, ``staged_pipeline`` and its stale batch, ``scheduler``
 (a) and (b), ``tenancy`` (a), (d) and (e), ``durability``,
-``dense_archs`` (a), ``swa_gemma3`` (a)), whatever their shapes; ``flash_attention_yi_9b``
+``dense_archs`` (a), ``swa_gemma3`` (a), ``moe_archs`` (a)), whatever their
+shapes; ``flash_attention_yi_9b``
 and ``decode_attention_yi_9b`` are K5 and K6 at ``dense_archs`` (a)'s
 first calls (q (1, 128, 32, 128) against (1, 128, 4, 128) causal; (1, 1,
 32, 128) against a (1, 144, 4, 128) cache, 129 rows valid) and take that
@@ -499,7 +550,10 @@ part's K5 and K6 launches (its K1 and K2 go to their rows);
 against a 1,024-row ring, every row valid, and a (1, 2064, 8, 256) cache,
 2,049 rows valid; library: SDPA with ``enable_gqa``, a boolean mask for
 the window) and take that part's K5 launches by window and K6 launches by
-cache;
+cache; ``flash_attention_olmoe_1b_7b`` and ``decode_attention_olmoe_1b_7b``
+are K5 and K6 at ``moe_archs`` (a)'s first calls (q (1, 128, 16, 128)
+against (1, 128, 16, 128) causal; (1, 1, 16, 128) against a (1, 144, 16,
+128) cache, 129 rows valid) and take that part's K5 and K6 launches;
 ``ivf_topk_flat`` is K1 at the flat
 scan's recorded call (16 x 25,000 x 768) and takes ``baselines``' flat
 launches, the recall sweep's launches go to no row;
@@ -597,6 +651,19 @@ VISION_ROWS, VISION_GRID_W = 32, 8
 # positions (past the window, so the rings wrap in prefill) and
 # DENSE_STEPS decode steps
 SWA_GEN, SWA_PROMPT, SWA_PARITY_PROMPT = "gemma3-12b", 2048, 1040
+# moe_archs: (a) MOE_GEN at full width behind the main index, the main
+# path's first MOE_BATCHES batches; (b) each of MOE_ARCHS at PARITY_LAYERS
+# layers, MAX_PROMPT positions of prefill and DENSE_STEPS decode steps.
+# ROUTE_TIE_TOL: a token whose top-k expert set differs between the card
+# and the CPU must have its k-th and (k+1)-th CPU router probabilities
+# (~1/64 each) within it.  The router logits (|l| ~ 1) differ between the
+# two by the residual stream's drift, at most ~1e-5 (GEN_TOL's
+# reasoning), which moves a probability by ~p x 1e-5 ~ 2e-7; 1e-5 (a
+# logit gap of ~6e-4 at p = 1/64) leaves a margin of ~50x, and a flip
+# across a wider gap is a routing fault, not rounding.
+MOE_GEN, MOE_BATCHES = "olmoe-1b-7b", 2
+MOE_ARCHS = ("olmoe-1b-7b", "granite-moe-3b-a800m")
+ROUTE_TIE_TOL = 1e-5
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
 # one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
@@ -923,6 +990,62 @@ class Recorder:
             self.first[key] = ([clone(a) for a in args],
                                {n: clone(a) for n, a in kw.items()})
         return self.fn(*args, **kw)
+
+
+class RouteLog:
+    """Passes every call through to ``moe_block`` and keeps, per call, its
+    device, tokens (B x S) and capacity.  For a call at the config's
+    factor (no ``capacity`` given: prefill), or every call with
+    ``record``, it first runs the port's routing step
+    (``models.moe.route``) on the same input and keeps the capacity it
+    took and the assignments it dropped (a device tensor, read after the
+    run); with ``record`` also the top-k expert ids and the top k + 1
+    probabilities of every token, on the host."""
+
+    def __init__(self, fn, record: bool = False):
+        self.fn = fn
+        self.record = record
+        self.calls = []
+
+    def __call__(self, params, x, **kw):
+        import torch
+        from repro_torch.models.moe import route
+        entry = {"device": x.device.type, "tokens": x.shape[0] * x.shape[1],
+                 "capacity": kw.get("capacity", 0)}
+        if self.record or entry["capacity"] <= 0:
+            r = route(params, x, **kw)
+            entry.update(capacity=r.capacity, dropped=(~r.keep).sum())
+            if self.record:
+                k = r.expert_ids.shape[1]
+                entry.update(ids=r.expert_ids.cpu(), top=torch.sort(
+                    r.probs, dim=-1, descending=True).values[:, :k + 1].cpu())
+        self.calls.append(entry)
+        return self.fn(params, x, **kw)
+
+
+def route_flips(calls, n_moe: int, where: str) -> list:
+    """One step's routing on the CPU and the card: ``calls``, the step's
+    ``RouteLog(record=True)`` entries, the CPU's ``n_moe`` layers first.
+    Returns each token whose top-k expert set differs between the two
+    (layer, token, both sets, the CPU's k-th and (k+1)-th probability
+    gap); fails unless that gap is within ``ROUTE_TIE_TOL``."""
+    import torch
+    cpu, card = calls[:n_moe], calls[n_moe:]
+    check(len(card) == n_moe and all(c["device"] == "cpu" for c in cpu)
+          and all(c["device"] == "cuda" for c in card),
+          f"{where}: routing calls {[c['device'] for c in calls]}")
+    flips = []
+    for layer, (a, b) in enumerate(zip(cpu, card)):
+        k = a["ids"].shape[1]
+        sa, sb = (torch.sort(c["ids"], dim=-1).values for c in (a, b))
+        for t in torch.nonzero((sa != sb).any(-1)).flatten().tolist():
+            gap = float(a["top"][t, k - 1] - a["top"][t, k])
+            flip = {"layer": layer, "token": t, "cpu": sa[t].tolist(),
+                    "card": sb[t].tolist(), "cpu_gap": gap}
+            check(gap <= ROUTE_TIE_TOL, f"{where}: routing differs outside "
+                  f"a near-tie: {flip}, ROUTE_TIE_TOL {ROUTE_TIE_TOL}")
+            flips.append(flip)
+    return flips
 
 
 class StepRecorder:
@@ -1509,7 +1632,7 @@ def mrope_positions(s: int, prefix: int, grid_w: int):
 
 def behind_index(ctx, cfg, max_prompt: int, batches: int,
                  flash_key=lambda *args, **kw: None,
-                 dec_key=lambda *args, **kw: None) -> tuple:
+                 dec_key=lambda *args, **kw: None, moe_log=None) -> tuple:
     """``cfg`` at full width (random weights drawn on the card from the
     seed, the draw timed) as ``RAGEngine``'s generator over the main path's
     index, beside the main generator: the main path's first ``batches``
@@ -1518,7 +1641,11 @@ def behind_index(ctx, cfg, max_prompt: int, batches: int,
     Checks the weight bytes, every token in range and the ids against the
     main path's outside near-ties; the caller checks the launches.  Returns
     the part's line and its K5 / K6 recorders (first calls and calls by
-    ``flash_key`` / ``dec_key``); the generator is freed first."""
+    ``flash_key`` / ``dec_key``); the generator is freed first.
+    ``moe_log``, a :class:`RouteLog`, wraps ``moe_block`` during the
+    batches.  Then the first request's generation runs once more,
+    unwrapped, under ``torch.profiler`` (``one_request_generation``: wall
+    and device ms, the largest device events)."""
     import gc
     import torch
     from repro_torch.kernels.decode_attention import decode_attention_q8
@@ -1541,8 +1668,11 @@ def behind_index(ctx, cfg, max_prompt: int, batches: int,
                        nprobe=NPROBE, max_new_tokens=NEW_TOKENS)
     rec_flash = Recorder(model_mod.flash_attention, flash_key)
     rec_dec = Recorder(model_mod.decode_attention, dec_key)
-    saved = model_mod.flash_attention, model_mod.decode_attention
+    saved = (model_mod.flash_attention, model_mod.decode_attention,
+             model_mod.moe_block)
     model_mod.flash_attention, model_mod.decode_attention = rec_flash, rec_dec
+    if moe_log is not None:
+        model_mod.moe_block = moe_log
     q8_before = decode_attention_q8.launches
     per_batch, flat = [], []
     zero_launches()
@@ -1564,7 +1694,8 @@ def behind_index(ctx, cfg, max_prompt: int, batches: int,
         counts = launch_counts()
         windowed = flash_attention.launches_windowed
     finally:
-        model_mod.flash_attention, model_mod.decode_attention = saved
+        (model_mod.flash_attention, model_mod.decode_attention,
+         model_mod.moe_block) = saved
     q8 = decode_attention_q8.launches - q8_before
     peak = torch.cuda.max_memory_allocated()
     n_req = batches * BATCH
@@ -1593,6 +1724,9 @@ def behind_index(ctx, cfg, max_prompt: int, batches: int,
             "decode_attention_q8_launches": q8,
             "ids_equal_main_path": True, "near_tie_swaps": swaps,
             "gen_tokens": [r.output_tokens for r in flat[:3]]}
+    prompt = " ".join(flat[0].context + [flat[0].query])
+    line["one_request_generation"] = profiled(
+        lambda: gen.generate(prompt, NEW_TOKENS))
     del engine, gen, flat
     gc.collect()
     torch.cuda.empty_cache()
@@ -1632,7 +1766,10 @@ def arch_parity(cfg, dev, prompt: int,
     ``GEN_TOL``, greedy tokens outside near-ties, exact K5 (windowed: the
     ``"swa"`` layers) and K6 launches, and the first K5 / K6 call of each
     ``flash_key`` / ``dec_key`` within :func:`attn_tol` of the plain
-    versions."""
+    versions.  With mixture-of-experts layers (``moe_archs`` (b)) every
+    step's top-k expert sets are held against each other
+    (:func:`route_flips`); from the first step where they differ (a
+    near-tie) on, steps are run but not compared, and counted."""
     import copy
     import gc
     import torch
@@ -1664,14 +1801,20 @@ def arch_parity(cfg, dev, prompt: int,
     c_card = init_cache(cfg, 1, smax, device=dev)
     rec_flash = Recorder(model_mod.flash_attention, flash_key)
     rec_dec = Recorder(model_mod.decode_attention, dec_key)
-    saved = model_mod.flash_attention, model_mod.decode_attention
+    routes = RouteLog(model_mod.moe_block, record=True)
+    n_moe = sum(b.moe is not None for b in m_cpu.blocks)
+    saved = (model_mod.flash_attention, model_mod.decode_attention,
+             model_mod.moe_block)
     f0, w0 = flash_attention.launches, flash_attention.launches_windowed
     d0 = decode_attention.launches
     errs, tokens_checked, near_ties, fed = [], 0, 0, []
+    flips, not_compared = [], 0
     cpu_s = card_s = 0.0
     try:
         model_mod.flash_attention = rec_flash
         model_mod.decode_attention = rec_dec
+        if n_moe:
+            model_mod.moe_block = routes
         t0 = time.perf_counter()
         l_cpu, _ = prefill(m_cpu, batch, c_cpu)
         t1 = time.perf_counter()
@@ -1681,14 +1824,20 @@ def arch_parity(cfg, dev, prompt: int,
         cpu_s, card_s = t1 - t0, time.perf_counter() - t1
         for step in range(DENSE_STEPS + 1):
             lc = l_cpu[0]
-            errs.append(float((lk - lc).abs().max()))
-            top2 = torch.topk(lc, 2).values
-            if float(top2[0] - top2[1]) > 2 * GEN_TOL:
-                check(int(lk.argmax()) == int(lc.argmax()),
-                      f"{name}: greedy token differs at step {step}")
-                tokens_checked += 1
+            if n_moe and not flips:
+                flips = [dict(f, step=step) for f in route_flips(
+                    routes.calls[-2 * n_moe:], n_moe, f"{name} step {step}")]
+            if flips:
+                not_compared += 1        # a routing near-tie at or before
             else:
-                near_ties += 1
+                errs.append(float((lk - lc).abs().max()))
+                top2 = torch.topk(lc, 2).values
+                if float(top2[0] - top2[1]) > 2 * GEN_TOL:
+                    check(int(lk.argmax()) == int(lc.argmax()),
+                          f"{name}: greedy token differs at step {step}")
+                    tokens_checked += 1
+                else:
+                    near_ties += 1
             if step == DENSE_STEPS:
                 break
             if cfg.embedding_inputs and step == DENSE_STEPS - 1:
@@ -1705,7 +1854,8 @@ def arch_parity(cfg, dev, prompt: int,
             lk = l_card[0].cpu()
             cpu_s, card_s = cpu_s + t1 - t0, card_s + time.perf_counter() - t1
     finally:
-        model_mod.flash_attention, model_mod.decode_attention = saved
+        (model_mod.flash_attention, model_mod.decode_attention,
+         model_mod.moe_block) = saved
     windowed = sum(b.window > 0 for b in m_card.blocks)
     launches = {"flash_attention": flash_attention.launches - f0,
                 "flash_attention_windowed":
@@ -1715,8 +1865,8 @@ def arch_parity(cfg, dev, prompt: int,
                        "flash_attention_windowed": windowed,
                        "decode_attention": cfg.num_layers * DENSE_STEPS},
           f"{name}: attention launches {launches}")
-    check(max(errs) <= GEN_TOL, f"{name}: logits differ by {max(errs)} > "
-          f"{GEN_TOL}")
+    check(max(errs, default=0.0) <= GEN_TOL, f"{name}: logits differ by "
+          f"{max(errs)} > {GEN_TOL}")
 
     def held(got, ref) -> dict:
         err, ratio = attn_err(got, ref)
@@ -1755,7 +1905,17 @@ def arch_parity(cfg, dev, prompt: int,
             "max_abs_err_per_step": errs, "tokens_checked": tokens_checked,
             "near_ties": near_ties, "launches": launches,
             "k6_calls": rec_dec.calls, **first}
-    del m_cpu, m_card, c_cpu, c_card, rec_flash, rec_dec
+    if n_moe:
+        pre = routes.calls[:2 * n_moe]           # the prefill's, CPU first
+        line.update(
+            moe_layers=n_moe, experts=cfg.num_experts,
+            top_k=cfg.num_experts_per_tok,
+            prefill_capacity=[c["capacity"] for c in pre[:n_moe]],
+            prefill_dropped_cpu=[int(c["dropped"]) for c in pre[:n_moe]],
+            prefill_dropped_card=[int(c["dropped"]) for c in pre[n_moe:]],
+            route_tie_tol=ROUTE_TIE_TOL, routing_flips=flips,
+            steps_not_compared=not_compared)
+    del m_cpu, m_card, c_cpu, c_card, rec_flash, rec_dec, routes
     gc.collect()
     torch.cuda.empty_cache()
     return line
@@ -1841,6 +2001,83 @@ def swa_gemma3(ctx) -> tuple:
             "gemma3_12b": line, "parity": parity,
             "phase_s": time.perf_counter() - t_phase}, {
                 "flash": rec_flash.first, "decode": rec_dec.first}
+
+
+def moe_archs(ctx) -> tuple:
+    """The ``moe_archs`` phase (module docstring): (a) full-width
+    olmoe-1b-7b as the main index's generator, its prefills' routing
+    counted, then (b) both MoE configs at 2 layers on the card against
+    the CPU.  Returns its line and (a)'s first K5 and K6 calls."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.moe import capacity_of
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MOE_GEN)
+    log = RouteLog(model_mod.moe_block)
+    line, rec_flash, rec_dec = behind_index(ctx, cfg, MAX_PROMPT,
+                                            MOE_BATCHES, moe_log=log)
+    n_req, layers = MOE_BATCHES * BATCH, cfg.num_layers
+    e, k, factor = (cfg.num_experts, cfg.num_experts_per_tok,
+                    cfg.expert_capacity_factor)
+    want = ({"causal": layers * n_req, "non_causal": 0}, 0,
+            layers * NEW_TOKENS * n_req, 0, MOE_BATCHES, MOE_BATCHES)
+    n = line["launches"]
+    got = (n["flash_attention"], line["k5_windowed_launches"],
+           n["decode_attention"], line["decode_attention_q8_launches"],
+           n["ivf_topk"], n["slab_topk"]["fp32"])
+    check(got == want, f"moe_archs (a): K5 {got[0]}, windowed {got[1]}, "
+          f"K6 {got[2]}, K7 {got[3]}, K1 {got[4]}, K2 {got[5]}; want "
+          f"{want}")
+    check(line["weight_bytes"] == 27_676_385_280,
+          f"moe_archs (a): {line['weight_bytes']} weight bytes")
+    # routing: prefills at the factor's capacity, decode dropless
+    pre = [c for c in log.calls if "dropped" in c]
+    dec = [c for c in log.calls if "dropped" not in c]
+    cap = capacity_of(MAX_PROMPT, e, k, factor)
+    check(len(pre) == layers * n_req and len(dec) == layers * NEW_TOKENS
+          * n_req and all(c["tokens"] == MAX_PROMPT and c["capacity"] == cap
+                          for c in pre)
+          and all(c["tokens"] == c["capacity"] == 1 for c in dec),
+          f"moe_archs (a): {len(pre)} prefill and {len(dec)} decode MoE "
+          f"calls, capacities {sorted({c['capacity'] for c in pre})} / "
+          f"{sorted({c['capacity'] for c in dec})}")
+    dropped = torch.stack([c["dropped"] for c in pre]).view(
+        n_req, layers).cpu()
+    line.update(
+        experts=e, top_k=k, capacity_factor=factor,
+        prefill_capacity=[sorted({c["capacity"] for c in
+                                  pre[i * layers:(i + 1) * layers]})
+                          for i in range(n_req)],
+        prefill_assignments_per_layer=MAX_PROMPT * k,
+        prefill_dropped_per_request=dropped.sum(1).tolist(),
+        prefill_dropped_per_layer=dropped.sum(0).tolist(),
+        prefill_dropped=int(dropped.sum()),
+        prefill_dropped_share=float(dropped.sum())
+        / (n_req * layers * MAX_PROMPT * k),
+        decode_capacity=1,
+        decode_expert_weight_bytes_a_step=layers * e * 3 * cfg.d_model
+        * cfg.d_ff * 4)
+    del log, pre, dec
+    archs = []
+    for name in MOE_ARCHS:
+        small = dataclasses.replace(get_config(name),
+                                    num_layers=PARITY_LAYERS)
+        part = arch_parity(small, ctx["dev"], MAX_PROMPT)
+        want_cap = capacity_of(MAX_PROMPT, small.num_experts,
+                               small.num_experts_per_tok,
+                               small.expert_capacity_factor)
+        check(part["prefill_capacity"] == [want_cap] * PARITY_LAYERS,
+              f"{name}: prefill capacities {part['prefill_capacity']}, "
+              f"want {want_cap}")
+        archs.append(part)
+    return {"phase": "moe_archs", "nvidia_smi": ctx["smi"],
+            "olmoe_1b_7b": line, "archs": archs,
+            "phase_s": time.perf_counter() - t_phase}, {
+                "flash": rec_flash.first[None],
+                "decode": rec_dec.first[None]}
 
 
 def int8_bound(q, k, v) -> float:
@@ -4354,11 +4591,12 @@ def baselines(ctx) -> tuple:
 
 
 def check_attention(rec_flash, rec_dec, dense_calls, swa_calls,
-                    dev) -> dict:
+                    moe_calls, dev) -> dict:
     """The attention kernels against their plain versions on the card
     (module docstring, ``kernels_checked``); ``dense_calls``: the first K5
     and K6 calls of ``dense_archs`` (a); ``swa_calls``: those of
-    ``swa_gemma3`` (a), by window and by cache."""
+    ``swa_gemma3`` (a), by window and by cache; ``moe_calls``: those of
+    ``moe_archs`` (a)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -4456,6 +4694,11 @@ def check_attention(rec_flash, rec_dec, dense_calls, swa_calls,
     for kind in ("ring", "global"):
         (q, k, v, lens), kw = swa_calls["decode"][kind]
         decode_case(f"gemma3_12b_{kind}", q, k, v, lens, **kw)
+    # olmoe-1b-7b's (head dim 128, 16 heads, MHA)
+    (q, k, v), kw = moe_calls["flash"]
+    flash_case("olmoe_1b_7b", q, k, v, **kw)
+    (q, k, v, lens), kw = moe_calls["decode"]
+    decode_case("olmoe_1b_7b", q, k, v, lens, **kw)
     # head dim 256 at gemma3's prefill shape with its window, f32 and bf16;
     # causal without a window; ragged non-causal
     q256, k256, v256 = (rand(1, 2048, n, 256) for n in (16, 8, 8))
@@ -5108,6 +5351,12 @@ def main() -> int:
         "main_ids": main_ids, "main_vals": main_vals})
     emit(swa)
 
+    # ---- the MoE configs: olmoe-1b-7b behind the main index -------------
+    moe, moe_calls = moe_archs({
+        "ds": ds, "cost": cost, "dev": dev, "smi": smi, "index": index,
+        "main_ids": main_ids, "main_vals": main_vals})
+    emit(moe)
+
     # ---- the Table 4 baselines on the main path's corpus ----------------
     base, flat_call = baselines({"ds": ds, "cost": cost, "dev": dev,
                                  "main_ids": main_ids, "main_vals": main_vals,
@@ -5169,6 +5418,8 @@ def main() -> int:
                          for n in ("ivf_topk", "slab_topk")}, False),
         ("swa_gemma3", {n: swa["gemma3_12b"]["launches"][n]
                         for n in ("ivf_topk", "slab_topk")}, False),
+        ("moe_archs", {n: moe["olmoe_1b_7b"]["launches"][n]
+                       for n in ("ivf_topk", "slab_topk")}, False),
         ("baselines", {"ivf_topk": base["ivf"]["launches"],
                        "ivf_topk_flat": base["flat"]["launches"]}, False)])
 
@@ -5274,7 +5525,7 @@ def main() -> int:
                                                       rint)
     report["slab_topk_wide_rows"] = check_wide_rows(dev, rint)
     report.update(check_attention(rec_flash, rec_dec, dense_calls,
-                                  swa_calls, dev))
+                                  swa_calls, moe_calls, dev))
     emit({"phase": "kernels_checked",
           "ivf_topk_shape": [*e1.shape, q1.shape[0], k1],
           "ivf_topk_flat_shape": [*fe.shape, fq.shape[0], K],
@@ -5391,6 +5642,20 @@ def main() -> int:
         by_row[name] = {"swa_gemma3": swa_n["k6_launches"][kind]}
         kernels.append(k6_row(name, q, kc, vc, lens, n_path(name),
                               report[name]["max_abs_err"], gemma_dev[name]))
+    moe_dev = {}
+    moe_n = moe["olmoe_1b_7b"]["launches"]
+    name = "flash_attention_olmoe_1b_7b"
+    (q, k, v), kw = moe_calls["flash"]
+    moe_dev[name] = k5_device_ms_at(q, k, v, kw["causal"])
+    by_row[name] = {"moe_archs": moe_n["flash_attention"]["causal"]}
+    kernels.append(k5_row(name, q, k, v, kw["causal"], n_path(name),
+                          report[name]["max_abs_err"], moe_dev[name]))
+    name = "decode_attention_olmoe_1b_7b"
+    (q, kc, vc, lens), _ = moe_calls["decode"]
+    moe_dev[name] = decode_device_ms(q, kc, vc, lens)
+    by_row[name] = {"moe_archs": moe_n["decode_attention"]}
+    kernels.append(k6_row(name, q, kc, vc, lens, n_path(name),
+                          report[name]["max_abs_err"], moe_dev[name]))
     kernels.append(q8_row(q8_inputs, kv8["launches"], kv8["max_abs_err"],
                           q8_dev))
     by_row["decode_attention_q8"] = {"kv_int8": kv8["launches"]}
@@ -5431,6 +5696,7 @@ def main() -> int:
           "k5_yi_9b_vs_sdpa_device": k5y_dev,
           "k6_yi_9b_vs_sdpa_device": k6y_dev,
           "gemma3_12b_vs_sdpa_device": gemma_dev,
+          "olmoe_1b_7b_vs_sdpa_device": moe_dev,
           "k2_cold_vs_warm_l2": cold_l2_device_ms(
               calls["slab_topk"][0], TILED_EVENTS["slab_topk_fp32"])})
     t_first = LEAD_IN_LOST[0][0]

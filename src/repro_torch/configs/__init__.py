@@ -1,23 +1,25 @@
 """Config registry of the port.  ``--arch <id>`` ids use dashes; module
 files use underscores.  Importing the package registers the paper's two
 models (``paper_models.py``) and the assigned architectures the port runs
-(``ASSIGNED_ARCHS``: dense ``"attn"`` blocks, M-RoPE, embedding inputs, and
-gemma3-12b's sliding-window ``"swa"`` blocks); the other assigned ids wait
-for the block kinds of later slices and raise ``KeyError`` in
-``get_config``."""
+(``ASSIGNED_ARCHS``: dense ``"attn"`` blocks, M-RoPE, embedding inputs,
+gemma3-12b's sliding-window ``"swa"`` blocks, and the ``"moe"`` blocks of
+olmoe-1b-7b and granite-moe-3b-a800m); the other assigned ids wait for the
+block kinds of later slices and raise ``KeyError`` in ``get_config``."""
 from repro_torch.configs.base import ModelConfig, get_config, list_configs, register  # noqa
 from repro_torch.configs.shapes import INPUT_SHAPES, InputShape, get_shape, LONG_CONTEXT_WINDOW  # noqa
 from repro_torch.configs import (  # noqa: F401  (registers)
-    gemma3_12b, musicgen_large, paper_models, qwen2_vl_2b, stablelm_1p6b,
-    starcoder2_7b, yi_9b)
+    gemma3_12b, granite_moe_3b_a800m, musicgen_large, olmoe_1b_7b,
+    paper_models, qwen2_vl_2b, stablelm_1p6b, starcoder2_7b, yi_9b)
 
 ASSIGNED_ARCHS = (
+    "granite-moe-3b-a800m",
     "musicgen-large",
     "qwen2-vl-2b",
     "starcoder2-7b",
     "yi-9b",
     "stablelm-1.6b",
     "gemma3-12b",
+    "olmoe-1b-7b",
 )
 
 PAPER_MODELS = ("gte-base-en-v1.5", "sheared-llama-2.7b")

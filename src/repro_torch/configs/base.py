@@ -9,7 +9,7 @@ The ``block_pattern`` field drives the block stack in
 ``repro_torch.models.model``: the stack is ``depth_repeat`` repetitions of
 the pattern, and each entry is the *kind* of block ("attn", "swa"
 sliding-window attention, "moe", "mamba2", "rwkv6", "shared_attn").  The
-port runs ``"attn"`` and ``"swa"`` blocks so far.
+port runs ``"attn"``, ``"swa"``, ``"moe"`` and ``"swa_moe"`` blocks so far.
 """
 from __future__ import annotations
 

@@ -8,8 +8,10 @@ the JAX side), so the port itself never touches JAX.
   ``depth_repeat`` with a leading axis; the port keeps one
   :class:`~repro_torch.models.model.AttnBlock` per layer, layer ``r *
   len(pattern) + i`` being repeat ``r`` of position ``i`` (the JAX layer
-  scan's order), so the converter unstacks.  Matrices keep the JAX (in,
-  out) layout on both sides.
+  scan's order), so the converter unstacks, the ``"mlp"`` leaves or a
+  ``"moe"`` layer's ``"moe"`` leaves (``router``, ``gate``, ``up``,
+  ``down``) with the rest.  Matrices keep the JAX (in, out) layout on both
+  sides.
 * :func:`index_state_from_numpy` — loads another index's centroids and
   cluster assignment into a port index (then runs Alg. 1 as ``build``
   does).  Parity tests use it because k-means argmin near-ties make two
@@ -41,7 +43,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     """A :class:`Model` holding the JAX params ``tree`` (numpy leaves):
     ``{"embed", "blocks": ({"norm1", "wq", "wk", "wv", "wo", "norm2",
     "mlp": {"gate", "up", "down"}}, ...), "final_norm"[, "lm_head"]}``, one
-    entry of ``"blocks"`` per pattern position."""
+    entry of ``"blocks"`` per pattern position; a ``"moe"`` /
+    ``"swa_moe"`` position holds ``"moe": {"router", "gate", "up",
+    "down"}`` in place of ``"mlp"``."""
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
     as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
@@ -53,11 +57,16 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
         width = len(cfg.block_pattern)
         for layer, block in enumerate(model.blocks):
             stacked = tree["blocks"][layer % width]
-            leaves = {name: stacked[name] for name in
-                      ("norm1", "wq", "wk", "wv", "wo", "norm2")}
-            leaves.update(stacked["mlp"])
-            for name, arr in leaves.items():
-                getattr(block, name).copy_(as_t(arr[layer // width]))
+            leaves = {name: (getattr(block, name), stacked[name]) for name
+                      in ("norm1", "wq", "wk", "wv", "wo", "norm2")}
+            if block.moe is None:
+                leaves.update((name, (getattr(block, name), arr))
+                              for name, arr in stacked["mlp"].items())
+            else:
+                leaves.update((f"moe.{name}", (block.moe[name], arr))
+                              for name, arr in stacked["moe"].items())
+            for dst, arr in leaves.values():
+                dst.copy_(as_t(arr[layer // width]))
     return model
 
 

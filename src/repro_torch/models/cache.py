@@ -1,7 +1,8 @@
 """Decode-time KV caches for attention blocks: full, and circular
 (sliding-window) ring buffers.
 
-Port of ``repro.models.cache`` for the ``"attn"`` and ``"swa"`` block kinds;
+Port of ``repro.models.cache`` for the ``"attn"``, ``"swa"``, ``"moe"`` and
+``"swa_moe"`` block kinds;
 SSM states come with the slices that need them, and so does the JAX
 package's ``window_mode`` (every attention layer a ring at the long-context
 serving window).  One :class:`KVCache` per layer, each (B, size, KH, D),
@@ -66,9 +67,10 @@ class KVCache:
 
 def kv_cache_spec(cfg: ModelConfig, kind: str,
                   max_len: int) -> Tuple[int, bool]:
-    """(rows, circular) of a layer of block ``kind``: an ``"swa"`` layer of a
-    config with a window is a ring of ``min(window, max_len)`` rows."""
-    if kind == "swa" and cfg.sliding_window:
+    """(rows, circular) of a layer of block ``kind``: an ``"swa"`` or
+    ``"swa_moe"`` layer of a config with a window is a ring of
+    ``min(window, max_len)`` rows."""
+    if kind in ("swa", "swa_moe") and cfg.sliding_window:
         return min(cfg.sliding_window, max_len), True
     return max_len, False
 

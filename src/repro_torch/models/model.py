@@ -1,14 +1,15 @@
-"""Decoder / encoder model of dense attention blocks, in PyTorch.
+"""Decoder / encoder model of attention blocks, in PyTorch.
 
-Port of ``repro.models.model`` for the ``"attn"`` and ``"swa"`` (sliding
-window) block kinds: the paper's generator and embedder and the assigned
-architectures (``configs.ASSIGNED_ARCHS``: yi-9b, starcoder2-7b,
-stablelm-1.6b, musicgen-large and qwen2-vl-2b with their stubbed
-frontends' embedding inputs, qwen2-vl with M-RoPE, and gemma3-12b's 5:1
-pattern of sliding-window and global layers).  MoE, Mamba2, RWKV6 and
-shared blocks come with later slices and raise here.  A :class:`Model` is
-an ``nn.Module`` whose parameters keep the JAX package's names and (in,
-out) matrix layout, one :class:`AttnBlock` per layer in the order of
+Port of ``repro.models.model`` for the ``"attn"``, ``"swa"`` (sliding
+window), ``"moe"`` and ``"swa_moe"`` block kinds: the paper's generator and
+embedder and the assigned architectures (``configs.ASSIGNED_ARCHS``: yi-9b,
+starcoder2-7b, stablelm-1.6b, musicgen-large and qwen2-vl-2b with their
+stubbed frontends' embedding inputs, qwen2-vl with M-RoPE, gemma3-12b's 5:1
+pattern of sliding-window and global layers, and the mixture-of-experts
+olmoe-1b-7b and granite-moe-3b-a800m).  Mamba2, RWKV6 and shared blocks
+come with later slices and raise here.  A :class:`Model` is an
+``nn.Module`` whose parameters keep the JAX package's names and (in, out)
+matrix layout, one :class:`AttnBlock` per layer in the order of
 ``cfg.block_pattern`` repeated (the JAX pytree stacks each pattern
 position over depth; ``repro_torch.convert`` unstacks).
 
@@ -26,11 +27,15 @@ stream.
 
 Semantics kept from the reference: ``rms_norm`` scales by ``1 + w``; RoPE
 rotates the two halves of the head dim (M-RoPE each band by its stream's
-position); SwiGLU MLP; an untied ``lm_head`` when the config says so;
-prefill attends causally with NO padding mask (an ``"swa"`` layer also
-within its window); decode inserts k / v at ``cache_len`` (an int, or (B,)
-per-slot lengths) and attends over ``cache_len + 1`` tokens, an ``"swa"``
-layer over its ring cache (``models.cache``: the window's last tokens).
+position); SwiGLU MLP, or in a ``"moe"`` / ``"swa_moe"`` layer the
+mixture of experts of ``models.moe`` (dropless in decode, ``capacity = B *
+S``; the config's capacity factor in prefill and encode; its load-balance
+loss is dropped here, as serving drops it); an untied ``lm_head`` when the
+config says so; prefill attends causally with NO padding mask (an
+``"swa"`` / ``"swa_moe"`` layer also within its window); decode inserts k /
+v at ``cache_len`` (an int, or (B,) per-slot lengths) and attends over
+``cache_len + 1`` tokens, a windowed layer over its ring cache
+(``models.cache``: the window's last tokens).
 
 Attention on the card is the hand-written kernels, whatever ``attn_impl``
 says (``"reference"`` and ``"chunked"`` are two plain formulations of the
@@ -60,6 +65,10 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.cache import KVCache
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        mlp, rms_norm, rope_frequencies)
+from repro_torch.models.moe import init_moe, moe_block
+
+MOE_KINDS = ("moe", "swa_moe")
+WINDOW_KINDS = ("swa", "swa_moe")
 
 # sequences at least this long use the online-softmax chunked attention
 CHUNKED_ATTN_MIN_SEQ = 2048
@@ -70,14 +79,17 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 
 class AttnBlock(nn.Module):
-    """Pre-norm attention + SwiGLU block (JAX block kinds ``"attn"`` and
-    ``"swa"``: the latter attends within ``cfg.sliding_window``)."""
+    """Pre-norm attention + feed-forward block (JAX block kinds ``"attn"``,
+    ``"swa"``, ``"moe"`` and ``"swa_moe"``: the ``swa`` kinds attend within
+    ``cfg.sliding_window``; the ``moe`` kinds hold a mixture of experts,
+    the submodule ``moe`` with ``router``, ``gate``, ``up`` and ``down``,
+    in place of the SwiGLU ``gate``, ``up`` and ``down``)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  device: torch.device, kind: str = "attn"):
         super().__init__()
         self.kind = kind
-        self.window = cfg.sliding_window if kind == "swa" else 0
+        self.window = cfg.sliding_window if kind in WINDOW_KINDS else 0
         d = cfg.d_model
         z = lambda n: torch.zeros((n,), dtype=torch.float32, device=device)
         w = lambda shape: dense_init(shape, generator, device)
@@ -87,9 +99,15 @@ class AttnBlock(nn.Module):
         self.wv = _param(w((d, cfg.kv_dim)))
         self.wo = _param(w((cfg.q_dim, d)))
         self.norm2 = _param(z(d))
-        self.gate = _param(w((d, cfg.d_ff)))
-        self.up = _param(w((d, cfg.d_ff)))
-        self.down = _param(w((cfg.d_ff, d)))
+        if kind in MOE_KINDS:
+            self.moe = nn.ParameterDict({
+                name: _param(t) for name, t in init_moe(
+                    d, cfg.d_ff, cfg.num_experts, generator, device).items()})
+        else:
+            self.moe = None
+            self.gate = _param(w((d, cfg.d_ff)))
+            self.up = _param(w((d, cfg.d_ff)))
+            self.down = _param(w((cfg.d_ff, d)))
 
     def forward(self, x, cfg: ModelConfig, *, positions, inv_freq,
                 causal: bool, mode: str, cache: Optional[KVCache],
@@ -140,7 +158,14 @@ class AttnBlock(nn.Module):
                                                 window=window, logit_cap=cap)
         x = x + out.reshape(b, s, cfg.q_dim) @ self.wo
         h = rms_norm(x, self.norm2, cfg.norm_eps)
-        return x + mlp(self.gate, self.up, self.down, h)
+        if self.moe is None:
+            return x + mlp(self.gate, self.up, self.down, h)
+        # decode is dropless: capacity = T covers the all-to-one worst case
+        y, _ = moe_block(self.moe, h, num_experts=cfg.num_experts,
+                         top_k=cfg.num_experts_per_tok,
+                         capacity_factor=cfg.expert_capacity_factor,
+                         capacity=b * s if mode == "decode" else 0)
+        return x + y
 
 
 class Model(nn.Module):
@@ -149,11 +174,12 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, seed: int = 0,
                  device: DeviceLike = None):
         super().__init__()
-        bad = sorted(set(cfg.block_pattern) - {"attn", "swa"})
+        bad = sorted(set(cfg.block_pattern) - {"attn", "swa", *MOE_KINDS})
         if bad:
             raise NotImplementedError(
                 f"{cfg.name}: block kinds {bad} come with a later slice of "
-                f"the port (this one runs 'attn' and 'swa' blocks)")
+                f"the port (this one runs 'attn', 'swa', 'moe' and "
+                f"'swa_moe' blocks)")
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg

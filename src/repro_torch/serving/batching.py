@@ -9,7 +9,10 @@ length, into that slot's row of the cache.  One decode step (a tick)
 advances every slot one token with per-slot cache lengths, free slots
 included, as the reference does; a finished slot (its budget of tokens, or
 the cache's last position) is freed at once for the next waiting request.
-No batch-wide barrier.
+No batch-wide barrier.  Any registered config runs: a mixture-of-experts
+model routes every slot's token in a tick, free slots' included, and
+decode is dropless (capacity = slots), so no slot takes another's
+capacity; an admission's prefill runs alone, at the config's factor.
 
 On the card every layer of an admission's prefill runs the prefill
 attention kernel (``flash_attention``, causal, at (1, L, H, D)) and every

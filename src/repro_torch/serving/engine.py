@@ -417,7 +417,10 @@ class GeneratorModel:
     registered config (``configs.ASSIGNED_ARCHS``; musicgen-large takes
     codec ids and qwen2-vl-2b text positions on its three M-RoPE streams,
     as in the JAX engine; gemma3-12b's sliding-window layers decode over
-    ring caches of the window's rows).
+    ring caches of the window's rows; olmoe-1b-7b's and
+    granite-moe-3b-a800m's mixture-of-experts layers route each token to
+    its top-k experts, at the config's capacity factor in prefill and
+    dropless in decode).
 
     Prompts are left-padded with token 0 to ``max_prompt`` tokens (no
     attention mask: pad tokens are attended, as in the JAX engine) and

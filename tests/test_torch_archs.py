@@ -4,7 +4,8 @@ inputs, ``vision_embeds`` and M-RoPE positions, and each config's prefill
 and decode logits with the JAX params carried over (``params_from_jax``);
 gemma3-12b's sliding-window layers over ring caches, past the window, with
 scalar and per-slot lengths, at head dims 64 and 256, in the generator and
-in the continuous batcher.
+in the continuous batcher.  The two MoE configs are
+``tests/test_torch_moe.py``'s.
 
 Sizes: ``.reduced(num_layers=2, d_model=128)``, which forces head dim 64
 and turns starcoder2-7b into MHA; so GQA at head dim 128 is checked on
@@ -55,8 +56,8 @@ TOL = 2e-5
 ARCHS = ("stablelm-1.6b", "starcoder2-7b", "yi-9b", "musicgen-large",
          "qwen2-vl-2b")
 GEMMA = "gemma3-12b"
-UNPORTED = ("granite-moe-3b-a800m", "zamba2-2.7b", "rwkv6-1.6b",
-            "olmoe-1b-7b")
+MOE = ("granite-moe-3b-a800m", "olmoe-1b-7b")     # tests/test_torch_moe.py
+UNPORTED = ("zamba2-2.7b", "rwkv6-1.6b")
 # (arch, heads, kv heads) at head dim 128, 2 layers, d_model 256
 GQA = (("yi-9b", 8, 1), ("starcoder2-7b", 9, 1), ("qwen2-vl-2b", 6, 1))
 CPU = torch.device("cpu")
@@ -137,8 +138,8 @@ def test_config_copy_matches_reference(name):
 
 
 def test_registry_holds_the_five_and_the_paper_models():
-    assert sorted(configs.ASSIGNED_ARCHS) == sorted(ARCHS + (GEMMA,))
-    assert configs.list_configs() == sorted(ARCHS + (GEMMA,)
+    assert sorted(configs.ASSIGNED_ARCHS) == sorted(ARCHS + (GEMMA,) + MOE)
+    assert configs.list_configs() == sorted(ARCHS + (GEMMA,) + MOE
                                             + configs.PAPER_MODELS)
     assert get_config("yi-9b").param_count() == 8_829_407_232
 
@@ -150,7 +151,7 @@ def test_unported_ids_raise_key_error(name):
         get_config(name)
 
 
-@pytest.mark.parametrize("kind", ["moe", "mamba2", "rwkv6", "shared_attn"])
+@pytest.mark.parametrize("kind", ["mamba2", "rwkv6", "shared_attn"])
 def test_other_block_kinds_still_raise(kind):
     cfg = dataclasses.replace(_reduced(get_config, "yi-9b"),
                               block_pattern=(kind,))

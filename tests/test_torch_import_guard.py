@@ -16,7 +16,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 # the assigned architectures' config modules the port registers
 ARCH_MODULES = ("stablelm_1p6b", "starcoder2_7b", "yi_9b", "musicgen_large",
-                "qwen2_vl_2b", "gemma3_12b")
+                "qwen2_vl_2b", "gemma3_12b", "olmoe_1b_7b",
+                "granite_moe_3b_a800m")
 
 
 def _modules():
@@ -31,6 +32,7 @@ def test_importing_every_module_loads_no_jax_or_repro():
     for name in ("repro_torch.kernels.slab_topk.ops", "repro_torch.core.pq",
                  "repro_torch.core.storage",
                  "repro_torch.models.quantization",
+                 "repro_torch.models.moe",
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.kernels._attention",
                  "repro_torch.kernels.decode_attention.ops",

@@ -132,7 +132,7 @@ def test_encode_matches_jax():
 
 def test_other_block_kinds_raise():
     cfg = dataclasses.replace(get_config("sheared-llama-2.7b").reduced(),
-                              block_pattern=("moe",))
+                              block_pattern=("mamba2",))
     with pytest.raises(NotImplementedError, match="later slice"):
         init_params(cfg, device="cpu")
 
