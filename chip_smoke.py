@@ -144,6 +144,42 @@ Phases, one JSON line each:
                    first K5 and K6 call within :func:`attn_tol` of the
                    plain versions (granite's K6: the first full-width
                    launch of a 3-head group).
+  rwkv6_arch       the attention-free RWKV6 config (``models/rwkv6.py``),
+                   the first generator whose decode state does not grow
+                   with the sequence.  (a) rwkv6-1.6b at full width (24
+                   ``"rwkv6"`` layers, d_model 2048, 32 WKV heads of 64,
+                   d_ff 7168, vocab 65,536, untied head, fp32:
+                   1,483,180,032 parameters, 5,932,720,128 bytes, the JAX
+                   ``init_params`` tree's count, not the reference's
+                   ``param_count()``; random weights drawn on the card from
+                   the seed, the draw timed; olmoe-1b-7b freed before) as
+                   ``RAGEngine``'s generator over the main path's index,
+                   beside the main generator: the main path's first 2
+                   batches of 16, 128-token prompts, 16 greedy tokens.
+                   Counts zeroed before, read after.  Checks: no K5, K6 or
+                   K7 launch; K1 and K2 one launch a batch; the weight
+                   bytes; one request's state (``init_cache`` as
+                   ``generate`` makes it) 24 x (32 x 64 x 64 + 2 x 2048) x
+                   4 = 12,976,128 bytes, the same at 144 and 2,048
+                   positions; the ids equal the main path's outside
+                   near-ties; every token in range.  Prints each batch's
+                   retrieval, prefill and decode wall, the draw's seconds,
+                   ``max_memory_allocated`` and the first request's
+                   generation under ``torch.profiler``.  (b) its first 2
+                   layers at full width, one set of weights drawn on the
+                   CPU from the seed and copied to the card: prompts of 128
+                   (four chunks of 32), 100 (a partial last chunk) and 1
+                   position (the recurrent prefill), each followed by 8
+                   decode steps, the same tokens into both; logits of
+                   every step within ``GEN_TOL`` of the CPU's, greedy
+                   tokens equal wherever the top-2 margin exceeds 2 x
+                   ``GEN_TOL``, every layer's prefill state and shift
+                   carries within ``WKV_TOL`` (relative to 1 + |CPU|), no
+                   attention launch; then ``wkv6_chunked`` against
+                   ``wkv6_recurrent`` on the card at (1, 128, 32, 64) under
+                   the model's, the weakest and the strongest clipped
+                   decay: within ``WKV_TOL`` but the strongest, where both
+                   must stay finite and the gap is printed; each form's ms.
   baselines        the paper's Table 4 rows 1-2 on the main path's corpus
                    and 64 queries (k 10).  ``FlatIndex`` on the card holds
                    all 25,000 rows (76,800,000 bytes) and takes each batch
@@ -537,8 +573,8 @@ counted in its checked window (``main_path``, ``baselines``' IVF searches
 at nprobe 8, ``continuous_batching``'s trace and engine batch, ``encode``,
 ``online_index``, ``staged_pipeline`` and its stale batch, ``scheduler``
 (a) and (b), ``tenancy`` (a), (d) and (e), ``durability``,
-``dense_archs`` (a), ``swa_gemma3`` (a), ``moe_archs`` (a)), whatever their
-shapes; ``flash_attention_yi_9b``
+``dense_archs`` (a), ``swa_gemma3`` (a), ``moe_archs`` (a),
+``rwkv6_arch`` (a)), whatever their shapes; ``flash_attention_yi_9b``
 and ``decode_attention_yi_9b`` are K5 and K6 at ``dense_archs`` (a)'s
 first calls (q (1, 128, 32, 128) against (1, 128, 4, 128) causal; (1, 1,
 32, 128) against a (1, 144, 4, 128) cache, 129 rows valid) and take that
@@ -664,6 +700,26 @@ SWA_GEN, SWA_PROMPT, SWA_PARITY_PROMPT = "gemma3-12b", 2048, 1040
 MOE_GEN, MOE_BATCHES = "olmoe-1b-7b", 2
 MOE_ARCHS = ("olmoe-1b-7b", "granite-moe-3b-a800m")
 ROUTE_TIE_TOL = 1e-5
+# rwkv6_arch: (a) RWKV_GEN at full width behind the main index, the main
+# path's first RWKV_BATCHES batches.  Its model holds RWKV_PARAMS
+# parameters, the JAX init_params tree's count (the reference's
+# param_count() counts 57 x d_model more a layer: 1,485,981,696), and one
+# request's state is RWKV_STATE_BYTES = 24 x (32 x 64 x 64 + 2 x 2048) x 4
+# at any max_len.  (b) it at PARITY_LAYERS layers on the card and the CPU,
+# prompts of RWKV_PROMPTS positions (four chunks of 32, a partial last
+# chunk, the one-token recurrent prefill) and DENSE_STEPS decode steps.
+# WKV_TOL bounds |a - b| / (1 + |b|) between the card's and the CPU's
+# prefill state, and between the chunked and the recurrent WKV on the card
+# (tests/test_mixers.py's 1e-4 between the two forms: the same terms summed
+# in other orders, the chunked form's decays differences of cumulative
+# sums); at the strongest clipped decay (ww = 10, logw = -exp(10)) the
+# chunked form of either package departs from the recurrence by ~0.07
+# (cumulative log decays of ~3.5e5, whose fp32 ulp is 0.03), so there only
+# finiteness is gated and the gap is printed.
+RWKV_GEN, RWKV_BATCHES = "rwkv6-1.6b", 2
+RWKV_PARAMS, RWKV_STATE_BYTES = 1_483_180_032, 12_976_128
+RWKV_PROMPTS = (128, 100, 1)
+WKV_TOL = 1e-4
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
 # one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
@@ -1632,7 +1688,8 @@ def mrope_positions(s: int, prefix: int, grid_w: int):
 
 def behind_index(ctx, cfg, max_prompt: int, batches: int,
                  flash_key=lambda *args, **kw: None,
-                 dec_key=lambda *args, **kw: None, moe_log=None) -> tuple:
+                 dec_key=lambda *args, **kw: None, moe_log=None,
+                 params: int = 0) -> tuple:
     """``cfg`` at full width (random weights drawn on the card from the
     seed, the draw timed) as ``RAGEngine``'s generator over the main path's
     index, beside the main generator: the main path's first ``batches``
@@ -1645,7 +1702,8 @@ def behind_index(ctx, cfg, max_prompt: int, batches: int,
     ``moe_log``, a :class:`RouteLog`, wraps ``moe_block`` during the
     batches.  Then the first request's generation runs once more,
     unwrapped, under ``torch.profiler`` (``one_request_generation``: wall
-    and device ms, the largest device events)."""
+    and device ms, the largest device events).  The weights must hold
+    ``params`` parameters, or ``cfg.param_count()`` when it is 0."""
     import gc
     import torch
     from repro_torch.kernels.decode_attention import decode_attention_q8
@@ -1661,9 +1719,9 @@ def behind_index(ctx, cfg, max_prompt: int, batches: int,
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     weight_bytes = param_count(gen.params) * 4
-    check(weight_bytes == cfg.param_count() * 4,
-          f"{cfg.name}: {weight_bytes} weight bytes, want "
-          f"{cfg.param_count() * 4}")
+    want_bytes = (params or cfg.param_count()) * 4
+    check(weight_bytes == want_bytes, f"{cfg.name}: {weight_bytes} weight "
+          f"bytes, want {want_bytes}")
     engine = RAGEngine(ctx["index"], gen, cost_model=ctx["cost"], k=K,
                        nprobe=NPROBE, max_new_tokens=NEW_TOKENS)
     rec_flash = Recorder(model_mod.flash_attention, flash_key)
@@ -2078,6 +2136,175 @@ def moe_archs(ctx) -> tuple:
             "phase_s": time.perf_counter() - t_phase}, {
                 "flash": rec_flash.first[None],
                 "decode": rec_dec.first[None]}
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / (1 + |ref|), on the CPU."""
+    got, ref = got.cpu().double(), ref.cpu().double()
+    return float(((got - ref).abs() / (1 + ref.abs())).max())
+
+
+def rwkv6_arch(ctx) -> dict:
+    """The ``rwkv6_arch`` phase (module docstring): (a) full-width
+    rwkv6-1.6b as the main index's generator, then (b) its first
+    ``PARITY_LAYERS`` layers on the card against the CPU and the WKV forms
+    at the full-width shape on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache_bytes, init_cache
+
+    t_phase = time.perf_counter()
+    cfg = get_config(RWKV_GEN)
+    line, _, _ = behind_index(ctx, cfg, MAX_PROMPT, RWKV_BATCHES,
+                              params=RWKV_PARAMS)
+    n = line["launches"]
+    want = ({"causal": 0, "non_causal": 0}, 0, 0, 0, RWKV_BATCHES,
+            RWKV_BATCHES)
+    got = (n["flash_attention"], line["k5_windowed_launches"],
+           n["decode_attention"], line["decode_attention_q8_launches"],
+           n["ivf_topk"], n["slab_topk"]["fp32"])
+    check(got == want, f"rwkv6_arch (a): K5 {got[0]}, windowed {got[1]}, "
+          f"K6 {got[2]}, K7 {got[3]}, K1 {got[4]}, K2 {got[5]}; want "
+          f"{want}")
+    # one request's state, as ``generate`` makes it, and at 2,048 positions
+    state = {rows: cache_bytes(init_cache(cfg, 1, rows, device=ctx["dev"]))
+             for rows in (MAX_PROMPT + NEW_TOKENS, SWA_PROMPT)}
+    check(set(state.values()) == {RWKV_STATE_BYTES},
+          f"rwkv6_arch (a): state bytes {state}, want {RWKV_STATE_BYTES}")
+    line.update(params=RWKV_PARAMS, config_param_count=cfg.param_count(),
+                wkv_heads=cfg.d_model // cfg.ssm_head_dim,
+                wkv_head_dim=cfg.ssm_head_dim,
+                state_bytes_one_request=state)
+    parity = rwkv_parity(dataclasses.replace(cfg, num_layers=PARITY_LAYERS),
+                         ctx["dev"])
+    return {"phase": "rwkv6_arch", "nvidia_smi": ctx["smi"],
+            "rwkv6_1p6b": line, "parity": parity,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def rwkv_parity(cfg, dev) -> dict:
+    """(b) of ``rwkv6_arch``: ``cfg`` (cut in depth) at full width on the
+    card and the CPU, one set of weights drawn on the CPU from the seed and
+    copied to the card; for each prompt of ``RWKV_PROMPTS`` positions,
+    prefill then ``DENSE_STEPS`` decode steps, the same tokens into both.
+    Checks every step's logits within ``GEN_TOL``, greedy tokens outside
+    near-ties, every layer's prefill state within ``WKV_TOL`` and no
+    attention kernel launched; then :func:`wkv_forms`."""
+    import copy
+    import gc
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    param_count, prefill)
+
+    name, cpu = cfg.name, torch.device("cpu")
+    t0 = time.perf_counter()
+    m_cpu = init_params(cfg, seed=SEED, device="cpu")
+    m_card = copy.deepcopy(m_cpu).to(dev)
+    init_s = time.perf_counter() - t0
+    g = torch.Generator().manual_seed(9)
+    f0, d0 = flash_attention.launches, decode_attention.launches
+    runs = []
+    for prompt in RWKV_PROMPTS:
+        toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g)
+        c_cpu = init_cache(cfg, 1, prompt + DENSE_STEPS, device=cpu)
+        c_card = init_cache(cfg, 1, prompt + DENSE_STEPS, device=dev)
+        t0 = time.perf_counter()
+        l_cpu, _ = prefill(m_cpu, {"tokens": toks}, c_cpu)
+        t1 = time.perf_counter()
+        l_card, _ = prefill(m_card, {"tokens": toks.to(dev)}, c_card)
+        lk = l_card[0].cpu()
+        cpu_s, card_s = t1 - t0, time.perf_counter() - t1
+        state_err = max(max(rel_err(c.wkv, k.wkv), rel_err(c.shift_t,
+                                                           k.shift_t),
+                            rel_err(c.shift_c, k.shift_c))
+                        for c, k in zip(c_card, c_cpu))
+        check(state_err <= WKV_TOL, f"{name}: prompt {prompt}'s prefill "
+              f"state differs by {state_err} > {WKV_TOL}")
+        errs, checked, ties = [], 0, 0
+        for step in range(DENSE_STEPS + 1):
+            lc = l_cpu[0]
+            errs.append(float((lk - lc).abs().max()))
+            top2 = torch.topk(lc, 2).values
+            if float(top2[0] - top2[1]) > 2 * GEN_TOL:
+                check(int(lk.argmax()) == int(lc.argmax()), f"{name}: "
+                      f"prompt {prompt}: greedy token differs at step "
+                      f"{step}")
+                checked += 1
+            else:
+                ties += 1
+            if step == DENSE_STEPS:
+                break
+            nxt = lc.argmax().reshape(1, 1)     # the same token into both
+            t0 = time.perf_counter()
+            l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, prompt + step)
+            t1 = time.perf_counter()
+            l_card, _ = decode_step(m_card, nxt.to(dev), c_card,
+                                    prompt + step)
+            lk = l_card[0].cpu()
+            cpu_s, card_s = cpu_s + t1 - t0, card_s + time.perf_counter() - t1
+        check(max(errs) <= GEN_TOL, f"{name}: prompt {prompt}: logits "
+              f"differ by {max(errs)} > {GEN_TOL}")
+        runs.append({"prompt": prompt, "chunks": -(-prompt // 32)
+                     if prompt > 1 else "recurrent", "cpu_s": cpu_s,
+                     "card_s": card_s, "prefill_state_rel_err": state_err,
+                     "max_abs_err_per_step": errs, "tokens_checked": checked,
+                     "near_ties": ties})
+    launches = {"flash_attention": flash_attention.launches - f0,
+                "decode_attention": decode_attention.launches - d0}
+    check(launches == {"flash_attention": 0, "decode_attention": 0},
+          f"{name}: attention launches {launches}")
+    line = {"name": name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "wkv_heads": cfg.d_model // cfg.ssm_head_dim,
+            "wkv_head_dim": cfg.ssm_head_dim, "d_ff": cfg.d_ff,
+            "vocab": cfg.vocab_size, "params": param_count(m_card),
+            "init_s": init_s, "tol": GEN_TOL, "state_tol": WKV_TOL,
+            "decode_steps": DENSE_STEPS, "prompts": runs,
+            "launches": launches}
+    del m_cpu, m_card, c_cpu, c_card
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["wkv_forms"] = wkv_forms(cfg, dev)
+    return line
+
+
+def wkv_forms(cfg, dev) -> dict:
+    """``wkv6_chunked`` against ``wkv6_recurrent`` on the card at the
+    full-width shape (1, MAX_PROMPT, H, hd), r / k / v N(0, 1), u N(0,
+    0.1), a state N(0, 0.1), the log decay from ``ww`` as the block clips
+    it: the model's (``w0`` -0.6 plus N(0, 1)), the weakest (-20) and the
+    strongest (10).  Each within ``WKV_TOL`` but the strongest, which must
+    stay finite (module docstring, ``WKV_TOL``); the ms of each form."""
+    import torch
+    from repro_torch.models.rwkv6 import wkv6_chunked, wkv6_recurrent
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    h, hd = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
+    n = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    r, k, v = (n(1, MAX_PROMPT, h, hd) for _ in range(3))
+    u, s0 = 0.1 * n(h, hd), 0.1 * n(1, h, hd, hd)
+    out = {}
+    for case, ww in (("model", -0.6 + n(1, MAX_PROMPT, h, hd)),
+                     ("weakest", torch.full_like(r, -20.0)),
+                     ("strongest", torch.full_like(r, 10.0))):
+        logw = -torch.exp(torch.clamp(ww, -20.0, 10.0))
+        args = (r, k, v, logw, u, s0)
+        oc, sc = wkv6_chunked(*args)
+        o_r, s_r = wkv6_recurrent(*args)
+        finite = all(bool(torch.isfinite(t).all()) for t in (oc, sc, o_r,
+                                                            s_r))
+        err = max(rel_err(oc, o_r), rel_err(sc, s_r))
+        check(finite, f"wkv forms ({case}): non-finite output or state")
+        if case != "strongest":
+            check(err <= WKV_TOL, f"wkv forms ({case}): chunked against "
+                  f"recurrent {err} > {WKV_TOL}")
+        out[case] = {"rel_err": err, "gated": case != "strongest",
+                     "finite": finite,
+                     "chunked_ms": cuda_ms(lambda: wkv6_chunked(*args), 5),
+                     "recurrent_ms": cuda_ms(lambda: wkv6_recurrent(*args),
+                                             5)}
+    return {"shape": [1, MAX_PROMPT, h, hd], "tol": WKV_TOL, **out}
 
 
 def int8_bound(q, k, v) -> float:
@@ -5357,6 +5584,12 @@ def main() -> int:
         "main_ids": main_ids, "main_vals": main_vals})
     emit(moe)
 
+    # ---- rwkv6-1.6b: the attention-free generator behind the main index -
+    rwkv = rwkv6_arch({
+        "ds": ds, "cost": cost, "dev": dev, "smi": smi, "index": index,
+        "main_ids": main_ids, "main_vals": main_vals})
+    emit(rwkv)
+
     # ---- the Table 4 baselines on the main path's corpus ----------------
     base, flat_call = baselines({"ds": ds, "cost": cost, "dev": dev,
                                  "main_ids": main_ids, "main_vals": main_vals,
@@ -5420,6 +5653,8 @@ def main() -> int:
                         for n in ("ivf_topk", "slab_topk")}, False),
         ("moe_archs", {n: moe["olmoe_1b_7b"]["launches"][n]
                        for n in ("ivf_topk", "slab_topk")}, False),
+        ("rwkv6_arch", {n: rwkv["rwkv6_1p6b"]["launches"][n]
+                        for n in ("ivf_topk", "slab_topk")}, False),
         ("baselines", {"ivf_topk": base["ivf"]["launches"],
                        "ivf_topk_flat": base["flat"]["launches"]}, False)])
 

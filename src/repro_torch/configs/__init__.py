@@ -2,14 +2,16 @@
 files use underscores.  Importing the package registers the paper's two
 models (``paper_models.py``) and the assigned architectures the port runs
 (``ASSIGNED_ARCHS``: dense ``"attn"`` blocks, M-RoPE, embedding inputs,
-gemma3-12b's sliding-window ``"swa"`` blocks, and the ``"moe"`` blocks of
-olmoe-1b-7b and granite-moe-3b-a800m); the other assigned ids wait for the
-block kinds of later slices and raise ``KeyError`` in ``get_config``."""
+gemma3-12b's sliding-window ``"swa"`` blocks, the ``"moe"`` blocks of
+olmoe-1b-7b and granite-moe-3b-a800m, and rwkv6-1.6b's ``"rwkv6"``
+blocks); zamba2-2.7b waits for the block kinds of a later slice and raises
+``KeyError`` in ``get_config``."""
 from repro_torch.configs.base import ModelConfig, get_config, list_configs, register  # noqa
 from repro_torch.configs.shapes import INPUT_SHAPES, InputShape, get_shape, LONG_CONTEXT_WINDOW  # noqa
 from repro_torch.configs import (  # noqa: F401  (registers)
     gemma3_12b, granite_moe_3b_a800m, musicgen_large, olmoe_1b_7b,
-    paper_models, qwen2_vl_2b, stablelm_1p6b, starcoder2_7b, yi_9b)
+    paper_models, qwen2_vl_2b, rwkv6_1p6b, stablelm_1p6b, starcoder2_7b,
+    yi_9b)
 
 ASSIGNED_ARCHS = (
     "granite-moe-3b-a800m",
@@ -20,6 +22,7 @@ ASSIGNED_ARCHS = (
     "stablelm-1.6b",
     "gemma3-12b",
     "olmoe-1b-7b",
+    "rwkv6-1.6b",
 )
 
 PAPER_MODELS = ("gte-base-en-v1.5", "sheared-llama-2.7b")

@@ -6,11 +6,13 @@ the JAX side), so the port itself never touches JAX.
 * :func:`params_from_jax` — the JAX params pytree holds one stack per
   position of ``cfg.block_pattern``, each leaf stacked over
   ``depth_repeat`` with a leading axis; the port keeps one
-  :class:`~repro_torch.models.model.AttnBlock` per layer, layer ``r *
-  len(pattern) + i`` being repeat ``r`` of position ``i`` (the JAX layer
-  scan's order), so the converter unstacks, the ``"mlp"`` leaves or a
-  ``"moe"`` layer's ``"moe"`` leaves (``router``, ``gate``, ``up``,
-  ``down``) with the rest.  Matrices keep the JAX (in, out) layout on both
+  block per layer, layer ``r * len(pattern) + i`` being repeat ``r`` of
+  position ``i`` (the JAX layer scan's order), so the converter unstacks:
+  an :class:`~repro_torch.models.model.AttnBlock` takes the ``"mlp"``
+  leaves or a ``"moe"`` layer's ``"moe"`` leaves (``router``, ``gate``,
+  ``up``, ``down``) with the rest, an
+  :class:`~repro_torch.models.rwkv6.RwkvBlock` every leaf of its position
+  under the same name.  Matrices keep the JAX (in, out) layout on both
   sides.
 * :func:`index_state_from_numpy` — loads another index's centroids and
   cluster assignment into a port index (then runs Alg. 1 as ``build``
@@ -36,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pq import PQCodebook
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model
+from repro_torch.models.rwkv6 import RwkvBlock
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
@@ -45,7 +48,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     "mlp": {"gate", "up", "down"}}, ...), "final_norm"[, "lm_head"]}``, one
     entry of ``"blocks"`` per pattern position; a ``"moe"`` /
     ``"swa_moe"`` position holds ``"moe": {"router", "gate", "up",
-    "down"}`` in place of ``"mlp"``."""
+    "down"}`` in place of ``"mlp"``; an ``"rwkv6"`` position holds the
+    block's parameters by their names (``norm_t``, ``mu``, ``Wr``, ...,
+    ``Wcv``)."""
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
     as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
@@ -57,14 +62,18 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
         width = len(cfg.block_pattern)
         for layer, block in enumerate(model.blocks):
             stacked = tree["blocks"][layer % width]
-            leaves = {name: (getattr(block, name), stacked[name]) for name
-                      in ("norm1", "wq", "wk", "wv", "wo", "norm2")}
-            if block.moe is None:
-                leaves.update((name, (getattr(block, name), arr))
-                              for name, arr in stacked["mlp"].items())
+            if isinstance(block, RwkvBlock):
+                leaves = {name: (p, stacked[name])
+                          for name, p in block.named_parameters()}
             else:
-                leaves.update((f"moe.{name}", (block.moe[name], arr))
-                              for name, arr in stacked["moe"].items())
+                leaves = {name: (getattr(block, name), stacked[name]) for name
+                          in ("norm1", "wq", "wk", "wv", "wo", "norm2")}
+                if block.moe is None:
+                    leaves.update((name, (getattr(block, name), arr))
+                                  for name, arr in stacked["mlp"].items())
+                else:
+                    leaves.update((f"moe.{name}", (block.moe[name], arr))
+                                  for name, arr in stacked["moe"].items())
             for dst, arr in leaves.values():
                 dst.copy_(as_t(arr[layer // width]))
     return model

@@ -9,6 +9,7 @@ CPU instead.
   python -m repro_torch.launch.serve --dataset fiqa --queries 40
   python -m repro_torch.launch.serve --arch yi-9b --device cpu
   python -m repro_torch.launch.serve --arch olmoe-1b-7b --device cpu
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
 """
 from __future__ import annotations
 

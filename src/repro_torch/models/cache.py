@@ -1,15 +1,17 @@
-"""Decode-time KV caches for attention blocks: full, and circular
-(sliding-window) ring buffers.
+"""Decode-time caches: KV caches for attention blocks, full and circular
+(sliding-window) ring buffers, and the RWKV6 state.
 
-Port of ``repro.models.cache`` for the ``"attn"``, ``"swa"``, ``"moe"`` and
-``"swa_moe"`` block kinds;
-SSM states come with the slices that need them, and so does the JAX
-package's ``window_mode`` (every attention layer a ring at the long-context
-serving window).  One :class:`KVCache` per layer, each (B, size, KH, D),
-in the order of ``cfg.block_pattern`` repeated.  Unlike the JAX package's
-immutable caches, :meth:`KVCache.insert` writes IN PLACE (no copy of the
-whole cache per decoded token), and a cache carries whether it is a ring
-(the JAX package derives it from the block kind at every call).
+Port of ``repro.models.cache`` for the ``"attn"``, ``"swa"``, ``"moe"``,
+``"swa_moe"`` and ``"rwkv6"`` block kinds; Mamba2's state comes with the
+slice that needs it, and so does the JAX package's ``window_mode`` (every
+attention layer a ring at the long-context serving window).  One cache per
+layer, in the order of ``cfg.block_pattern`` repeated: a :class:`KVCache`
+(B, size, KH, D) for an attention layer, an
+:class:`~repro_torch.models.rwkv6.RwkvCache` (its size independent of
+``max_len``) for an ``"rwkv6"`` layer.  Unlike the JAX package's immutable
+caches, both are written IN PLACE (no copy of the whole cache per decoded
+token), and a KV cache carries whether it is a ring (the JAX package
+derives it from the block kind at every call).
 
 A ring of ``size`` rows keeps token p at row ``p % size``: its last
 ``size`` tokens, which are exactly a window of ``size`` tokens.  So a
@@ -23,6 +25,9 @@ from typing import List, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.rwkv6 import RwkvCache, init_rwkv_cache
+
+Cache = Union["KVCache", RwkvCache]
 
 
 class KVCache:
@@ -31,6 +36,19 @@ class KVCache:
         self.k = k          # (B, size, KH, D)
         self.v = v
         self.circular = circular
+
+    @property
+    def nbytes(self) -> int:
+        return (self.k.numel() * self.k.element_size()
+                + self.v.numel() * self.v.element_size())
+
+    def fresh_row(self, slot: int) -> "KVCache":
+        """Zeroes ``slot``'s row and returns a one-row cache of views of it
+        (a prefill into it writes the batched cache)."""
+        self.k[slot].zero_()
+        self.v[slot].zero_()
+        return KVCache(self.k[slot:slot + 1], self.v[slot:slot + 1],
+                       circular=self.circular)
 
     def insert(self, k_new: torch.Tensor, v_new: torch.Tensor,
                pos: Union[int, torch.Tensor]) -> "KVCache":
@@ -76,13 +94,17 @@ def kv_cache_spec(cfg: ModelConfig, kind: str,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: torch.device, dtype=torch.float32) -> List[KVCache]:
-    """One zeroed :class:`KVCache` per layer, sized by the layer's kind."""
+               device: torch.device, dtype=torch.float32) -> List[Cache]:
+    """One zeroed cache per layer, sized by the layer's kind."""
     pattern = cfg.block_pattern
     caches = []
     for layer in range(cfg.num_layers):
-        size, circular = kv_cache_spec(cfg, pattern[layer % len(pattern)],
-                                       max_len)
+        kind = pattern[layer % len(pattern)]
+        if kind == "rwkv6":
+            caches.append(init_rwkv_cache(cfg, batch, device=device,
+                                          dtype=dtype))
+            continue
+        size, circular = kv_cache_spec(cfg, kind, max_len)
         shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
         caches.append(KVCache(torch.zeros(shape, dtype=dtype, device=device),
                               torch.zeros(shape, dtype=dtype, device=device),
@@ -90,6 +112,5 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return caches
 
 
-def cache_bytes(caches: List[KVCache]) -> int:
-    return sum(c.k.numel() * c.k.element_size()
-               + c.v.numel() * c.v.element_size() for c in caches)
+def cache_bytes(caches: List[Cache]) -> int:
+    return sum(c.nbytes for c in caches)

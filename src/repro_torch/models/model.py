@@ -1,17 +1,20 @@
-"""Decoder / encoder model of attention blocks, in PyTorch.
+"""Decoder / encoder model of attention and RWKV6 blocks, in PyTorch.
 
 Port of ``repro.models.model`` for the ``"attn"``, ``"swa"`` (sliding
-window), ``"moe"`` and ``"swa_moe"`` block kinds: the paper's generator and
-embedder and the assigned architectures (``configs.ASSIGNED_ARCHS``: yi-9b,
-starcoder2-7b, stablelm-1.6b, musicgen-large and qwen2-vl-2b with their
-stubbed frontends' embedding inputs, qwen2-vl with M-RoPE, gemma3-12b's 5:1
-pattern of sliding-window and global layers, and the mixture-of-experts
-olmoe-1b-7b and granite-moe-3b-a800m).  Mamba2, RWKV6 and shared blocks
-come with later slices and raise here.  A :class:`Model` is an
-``nn.Module`` whose parameters keep the JAX package's names and (in, out)
-matrix layout, one :class:`AttnBlock` per layer in the order of
-``cfg.block_pattern`` repeated (the JAX pytree stacks each pattern
-position over depth; ``repro_torch.convert`` unstacks).
+window), ``"moe"``, ``"swa_moe"`` and ``"rwkv6"`` block kinds: the paper's
+generator and embedder and the assigned architectures
+(``configs.ASSIGNED_ARCHS``: yi-9b, starcoder2-7b, stablelm-1.6b,
+musicgen-large and qwen2-vl-2b with their stubbed frontends' embedding
+inputs, qwen2-vl with M-RoPE, gemma3-12b's 5:1 pattern of sliding-window
+and global layers, the mixture-of-experts olmoe-1b-7b and
+granite-moe-3b-a800m, and the attention-free rwkv6-1.6b).  Mamba2 and
+shared blocks come with a later slice and raise here.  A :class:`Model` is
+an ``nn.Module`` whose parameters keep the JAX package's names and (in,
+out) matrix layout, one block per layer in the order of
+``cfg.block_pattern`` repeated (an :class:`AttnBlock`, or a
+:class:`~repro_torch.models.rwkv6.RwkvBlock` for ``"rwkv6"``; the JAX
+pytree stacks each pattern position over depth; ``repro_torch.convert``
+unstacks).
 
 Public entry points, as in the JAX package:
   init_params                          (random weights from a seed)
@@ -35,7 +38,10 @@ config says so; prefill attends causally with NO padding mask (an
 ``"swa"`` / ``"swa_moe"`` layer also within its window); decode inserts k /
 v at ``cache_len`` (an int, or (B,) per-slot lengths) and attends over
 ``cache_len + 1`` tokens, a windowed layer over its ring cache
-(``models.cache``: the window's last tokens).
+(``models.cache``: the window's last tokens).  An ``"rwkv6"`` layer
+ignores positions and ``cache_len``: it carries its recurrent state and
+token shifts in its cache (``models.rwkv6``), and launches no attention
+kernel.
 
 Attention on the card is the hand-written kernels, whatever ``attn_impl``
 says (``"reference"`` and ``"chunked"`` are two plain formulations of the
@@ -62,10 +68,11 @@ from repro_torch.kernels.decode_attention import (DecodeLengths,
                                                   decode_lengths)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as attn_lib
-from repro_torch.models.cache import KVCache
+from repro_torch.models.cache import Cache, KVCache
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        mlp, rms_norm, rope_frequencies)
 from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.models.rwkv6 import RwkvBlock
 
 MOE_KINDS = ("moe", "swa_moe")
 WINDOW_KINDS = ("swa", "swa_moe")
@@ -174,21 +181,24 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, seed: int = 0,
                  device: DeviceLike = None):
         super().__init__()
-        bad = sorted(set(cfg.block_pattern) - {"attn", "swa", *MOE_KINDS})
+        bad = sorted(set(cfg.block_pattern)
+                     - {"attn", "swa", *MOE_KINDS, "rwkv6"})
         if bad:
             raise NotImplementedError(
                 f"{cfg.name}: block kinds {bad} come with a later slice of "
-                f"the port (this one runs 'attn', 'swa', 'moe' and "
-                f"'swa_moe' blocks)")
+                f"the port (this one runs 'attn', 'swa', 'moe', 'swa_moe' "
+                f"and 'rwkv6' blocks)")
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
         self.embed = _param(dense_init((cfg.vocab_size, cfg.d_model), g, dev,
                                        scale=0.02))
-        pattern = cfg.block_pattern
+        kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
+                 for i in range(cfg.num_layers)]
         self.blocks = nn.ModuleList(
-            AttnBlock(cfg, g, dev, pattern[i % len(pattern)])
-            for i in range(cfg.num_layers))
+            RwkvBlock(cfg, g, dev) if kind == "rwkv6"
+            else AttnBlock(cfg, g, dev, kind) for kind in kinds)
+        self.attends = any(kind != "rwkv6" for kind in kinds)
         self.final_norm = _param(torch.zeros((cfg.d_model,), device=dev))
         self.lm_head = (None if cfg.tie_embeddings else
                         _param(dense_init((cfg.d_model, cfg.vocab_size), g,
@@ -230,14 +240,15 @@ class Model(nn.Module):
         return pos.expand(3, b, s) if self.cfg.use_mrope else pos
 
     def run(self, x: torch.Tensor, positions: Optional[torch.Tensor], *,
-            causal: bool, mode: str, caches: Optional[List[KVCache]],
+            causal: bool, mode: str, caches: Optional[List[Cache]],
             cache_len: Union[int, torch.Tensor],
             attn_impl: str) -> torch.Tensor:
         """Apply every block to the embedded inputs ``x`` (B, S, d);
         returns the residual stream (B, S, d) before the final norm.
         ``positions`` None means :meth:`positions`, starting at
         ``cache_len`` in decode; the lengths the layers attend over are
-        checked once here, not once per layer."""
+        checked once here, not once per layer (and not at all without an
+        attention layer)."""
         b, s, _ = x.shape
         if positions is None:
             positions = self.positions(
@@ -248,12 +259,16 @@ class Model(nn.Module):
                              f"{tuple(positions.shape)} for inputs "
                              f"{tuple(x.shape)}")
         lengths = cache_len + 1
-        if mode == "decode" and x.is_cuda:
+        if mode == "decode" and x.is_cuda and self.attends:
             lengths = decode_lengths(lengths, b, x.device)
         for i, block in enumerate(self.blocks):
+            cache = None if caches is None else caches[i]
+            if isinstance(block, RwkvBlock):
+                x = block(x, self.cfg, cache)
+                continue
             x = block(x, self.cfg, positions=positions,
                       inv_freq=self.inv_freq, causal=causal,
-                      mode=mode, cache=None if caches is None else caches[i],
+                      mode=mode, cache=cache,
                       cache_len=cache_len, lengths=lengths,
                       attn_impl=attn_impl)
         return x
@@ -278,8 +293,8 @@ def param_count(model: Model) -> int:
 
 @torch.no_grad()
 def prefill(model: Model, batch: Dict[str, torch.Tensor],
-            caches: List[KVCache], *, attn_impl: str = "auto"
-            ) -> Tuple[torch.Tensor, List[KVCache]]:
+            caches: List[Cache], *, attn_impl: str = "auto"
+            ) -> Tuple[torch.Tensor, List[Cache]]:
     """Run the full prompt (``batch`` as the module docstring says),
     filling ``caches`` in place.  Returns (last-position logits (B, vocab),
     caches)."""
@@ -291,8 +306,8 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def decode_step(model: Model, tokens_or_embeds: torch.Tensor,
-                caches: List[KVCache], cache_len: Union[int, torch.Tensor]
-                ) -> Tuple[torch.Tensor, List[KVCache]]:
+                caches: List[Cache], cache_len: Union[int, torch.Tensor]
+                ) -> Tuple[torch.Tensor, List[Cache]]:
     """One-token serve step: tokens (B, 1) (the audio model decodes codec
     ids) or embeds (B, 1, d), at position ``cache_len``, one for every
     slot or a (B,) integer tensor of per-slot positions (every M-RoPE

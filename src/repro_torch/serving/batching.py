@@ -1,23 +1,29 @@
 """Continuous batching for the generation model, on PyTorch.
 
 Port of ``repro.serving.batching``.  A fixed pool of ``num_slots`` decode
-slots shares one batched KV cache (one :class:`~repro_torch.models.cache.
-KVCache` per layer, (num_slots, max_len, KH, D), or a ring of the window's
-rows for a sliding-window layer).  A request is admitted
-into a free slot: its prompt is prefilled alone, at its own unpadded
-length, into that slot's row of the cache.  One decode step (a tick)
+slots shares one batched cache (one :class:`~repro_torch.models.cache.
+KVCache` per attention layer, (num_slots, max_len, KH, D), or a ring of
+the window's rows for a sliding-window layer; one
+:class:`~repro_torch.models.rwkv6.RwkvCache` per ``"rwkv6"`` layer, the
+state and shift carries of each slot).  A request is admitted into a free
+slot: the slot's row is zeroed and its prompt prefilled alone, at its own
+unpadded length, into views of that row, so a reused slot holds what a
+fresh cache would after the same prefill (the reference copies a fresh
+prefilled cache into the slot).  One decode step (a tick)
 advances every slot one token with per-slot cache lengths, free slots
 included, as the reference does; a finished slot (its budget of tokens, or
 the cache's last position) is freed at once for the next waiting request.
 No batch-wide barrier.  Any registered config runs: a mixture-of-experts
 model routes every slot's token in a tick, free slots' included, and
 decode is dropless (capacity = slots), so no slot takes another's
-capacity; an admission's prefill runs alone, at the config's factor.
+capacity; an admission's prefill runs alone, at the config's factor; an
+RWKV6 model advances every slot's state in a tick, free slots' included,
+and an admission starts its slot's state from zeros.
 
 On the card every layer of an admission's prefill runs the prefill
 attention kernel (``flash_attention``, causal, at (1, L, H, D)) and every
 layer of a tick the decode kernel (``decode_attention``) with (num_slots,)
-lengths that differ from slot to slot.  Nothing here catches a kernel's
+lengths that differ from slot to slot (an ``"rwkv6"`` layer none).  Nothing here catches a kernel's
 error: a card run never takes a plain version.
 
 ``lens`` and ``next_tok`` stay numpy arrays on the host, as in the
@@ -43,8 +49,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, same_device
-from repro_torch.models import (KVCache, Model, decode_step, init_cache,
-                                prefill)
+from repro_torch.models import Model, decode_step, init_cache, prefill
 
 
 @dataclasses.dataclass
@@ -100,13 +105,9 @@ class ContinuousBatcher:
         toks = torch.tensor([list(prompt_tokens[:L])], dtype=torch.long,
                             device=self.device)
         # prefill straight into the slot's row, zeroed first: positions L
-        # and beyond hold zeros, as the reference's copy of a fresh row does
-        rows = []
-        for c in self.caches:
-            c.k[slot].zero_()
-            c.v[slot].zero_()
-            rows.append(KVCache(c.k[slot:slot + 1], c.v[slot:slot + 1],
-                                circular=c.circular))
+        # and beyond hold zeros and a recurrent state starts from zeros, as
+        # in the reference's copy of a fresh row
+        rows = [c.fresh_row(slot) for c in self.caches]
         last_logits, _ = prefill(self.params, {"tokens": toks}, rows)
         self.lens[slot] = L
         self.next_tok[slot] = int(last_logits[0].argmax())

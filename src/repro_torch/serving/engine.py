@@ -420,7 +420,8 @@ class GeneratorModel:
     ring caches of the window's rows; olmoe-1b-7b's and
     granite-moe-3b-a800m's mixture-of-experts layers route each token to
     its top-k experts, at the config's capacity factor in prefill and
-    dropless in decode).
+    dropless in decode; rwkv6-1.6b carries a recurrent state of a fixed
+    size in place of a KV cache and launches no attention kernel).
 
     Prompts are left-padded with token 0 to ``max_prompt`` tokens (no
     attention mask: pad tokens are attended, as in the JAX engine) and

@@ -57,7 +57,8 @@ ARCHS = ("stablelm-1.6b", "starcoder2-7b", "yi-9b", "musicgen-large",
          "qwen2-vl-2b")
 GEMMA = "gemma3-12b"
 MOE = ("granite-moe-3b-a800m", "olmoe-1b-7b")     # tests/test_torch_moe.py
-UNPORTED = ("zamba2-2.7b", "rwkv6-1.6b")
+RWKV = ("rwkv6-1.6b",)                             # tests/test_torch_rwkv6.py
+UNPORTED = ("zamba2-2.7b",)
 # (arch, heads, kv heads) at head dim 128, 2 layers, d_model 256
 GQA = (("yi-9b", 8, 1), ("starcoder2-7b", 9, 1), ("qwen2-vl-2b", 6, 1))
 CPU = torch.device("cpu")
@@ -138,8 +139,9 @@ def test_config_copy_matches_reference(name):
 
 
 def test_registry_holds_the_five_and_the_paper_models():
-    assert sorted(configs.ASSIGNED_ARCHS) == sorted(ARCHS + (GEMMA,) + MOE)
-    assert configs.list_configs() == sorted(ARCHS + (GEMMA,) + MOE
+    assert sorted(configs.ASSIGNED_ARCHS) == sorted(ARCHS + (GEMMA,) + MOE
+                                                    + RWKV)
+    assert configs.list_configs() == sorted(ARCHS + (GEMMA,) + MOE + RWKV
                                             + configs.PAPER_MODELS)
     assert get_config("yi-9b").param_count() == 8_829_407_232
 
@@ -151,7 +153,7 @@ def test_unported_ids_raise_key_error(name):
         get_config(name)
 
 
-@pytest.mark.parametrize("kind", ["mamba2", "rwkv6", "shared_attn"])
+@pytest.mark.parametrize("kind", ["mamba2", "shared_attn"])
 def test_other_block_kinds_still_raise(kind):
     cfg = dataclasses.replace(_reduced(get_config, "yi-9b"),
                               block_pattern=(kind,))
