@@ -180,6 +180,50 @@ Phases, one JSON line each:
                    the model's, the weakest and the strongest clipped
                    decay: within ``WKV_TOL`` but the strongest, where both
                    must stay finite and the gap is printed; each form's ms.
+  hybrid_zamba2    the hybrid config (``models/mamba2.py`` and one shared
+                   attention block), the first generator with two kinds of
+                   state and parameters shared across layers.  (a)
+                   zamba2-2.7b at full width (54 layers: 9 x (5
+                   ``"mamba2"`` then the one ``"shared_attn"`` block),
+                   d_model 2560, 32 heads over 32 kv heads of 80, d_ff
+                   10,240, vocab 32,000, tied head; SSM 80 heads of 64,
+                   state 64, conv width 4; fp32: 1,981,519,920 parameters,
+                   7,926,079,680 bytes, the JAX ``init_params`` tree's
+                   count, the shared block's 104,862,720 once; random
+                   weights drawn on the card from the seed, the draw timed;
+                   rwkv6-1.6b freed before) as ``RAGEngine``'s generator
+                   over the main path's index, beside the main generator:
+                   the main path's first 2 batches of 16, 128-token
+                   prompts, 16 greedy tokens.  Counts zeroed before, read
+                   after.  Checks: K5 causal exactly 9 x 32 = 288, none
+                   windowed or non-causal; K6 exactly 9 x 16 x 32 = 4,608;
+                   no K7; K1 and K2 one launch a batch; the shared block's
+                   first K5 and K6 calls at the main path's shapes; the
+                   weight bytes; one request's state (``init_cache`` as
+                   ``generate`` makes it) 88,358,400 bytes at 144
+                   positions and 439,303,680 at 2,048; the ids equal the
+                   main path's outside near-ties; every token in range.
+                   Prints each batch's retrieval, prefill and decode wall,
+                   the draw's seconds, ``max_memory_allocated`` and the
+                   first request's generation under ``torch.profiler``.
+                   (b) its first 12 layers at full width (the shared block
+                   at layers 5 and 11), one set of weights drawn on the
+                   CPU from the seed and copied to the card: prompts of
+                   128 (two chunks of 64), 100 (a partial chunk) and 1
+                   position (the recurrent prefill), each followed by 8
+                   decode steps, the same tokens into both; logits of
+                   every step within ``GEN_TOL`` of the CPU's, greedy
+                   tokens equal wherever the top-2 margin exceeds 2 x
+                   ``GEN_TOL``, every Mamba2 layer's prefill SSM state and
+                   conv carry within ``SSD_TOL`` (relative to 1 + |CPU|),
+                   K5 2 and K6 16 launches a prompt, the first K5 and K6
+                   call within :func:`attn_tol` of the plain versions, the
+                   shared block one parameter storage on the card with a
+                   KV cache of its own at each layer; then ``ssd_chunked``
+                   against ``ssd_reference`` on the card at (1, 128, 80,
+                   64), N 64, under the model's decay and the strongest
+                   the init allows, both within ``SSD_TOL`` and finite;
+                   each form's ms.
   baselines        the paper's Table 4 rows 1-2 on the main path's corpus
                    and 64 queries (k 10).  ``FlatIndex`` on the card holds
                    all 25,000 rows (76,800,000 bytes) and takes each batch
@@ -574,7 +618,10 @@ at nprobe 8, ``continuous_batching``'s trace and engine batch, ``encode``,
 ``online_index``, ``staged_pipeline`` and its stale batch, ``scheduler``
 (a) and (b), ``tenancy`` (a), (d) and (e), ``durability``,
 ``dense_archs`` (a), ``swa_gemma3`` (a), ``moe_archs`` (a),
-``rwkv6_arch`` (a)), whatever their shapes; ``flash_attention_yi_9b``
+``rwkv6_arch`` (a), ``hybrid_zamba2`` (a)), whatever their shapes
+(``hybrid_zamba2`` (a)'s K5 and K6 go to the ``flash_attention`` and
+``decode_attention`` rows: its shared block attends at the main path's
+shapes); ``flash_attention_yi_9b``
 and ``decode_attention_yi_9b`` are K5 and K6 at ``dense_archs`` (a)'s
 first calls (q (1, 128, 32, 128) against (1, 128, 4, 128) causal; (1, 1,
 32, 128) against a (1, 144, 4, 128) cache, 129 rows valid) and take that
@@ -706,7 +753,7 @@ ROUTE_TIE_TOL = 1e-5
 # param_count() counts 57 x d_model more a layer: 1,485,981,696), and one
 # request's state is RWKV_STATE_BYTES = 24 x (32 x 64 x 64 + 2 x 2048) x 4
 # at any max_len.  (b) it at PARITY_LAYERS layers on the card and the CPU,
-# prompts of RWKV_PROMPTS positions (four chunks of 32, a partial last
+# prompts of STATE_PROMPTS positions (four chunks of 32, a partial last
 # chunk, the one-token recurrent prefill) and DENSE_STEPS decode steps.
 # WKV_TOL bounds |a - b| / (1 + |b|) between the card's and the CPU's
 # prefill state, and between the chunked and the recurrent WKV on the card
@@ -718,8 +765,27 @@ ROUTE_TIE_TOL = 1e-5
 # finiteness is gated and the gap is printed.
 RWKV_GEN, RWKV_BATCHES = "rwkv6-1.6b", 2
 RWKV_PARAMS, RWKV_STATE_BYTES = 1_483_180_032, 12_976_128
-RWKV_PROMPTS = (128, 100, 1)
+STATE_PROMPTS = (128, 100, 1)
 WKV_TOL = 1e-4
+# hybrid_zamba2: (a) HYBRID_GEN at full width behind the main index, the
+# main path's first HYBRID_BATCHES batches.  Its model holds HYBRID_PARAMS
+# parameters, the JAX init_params tree's count (the reference's
+# param_count() misses conv_x, conv_b, conv_c and dt_bias, 21,072 a Mamba2
+# layer: 1,980,571,680), its one shared block HYBRID_SHARED_PARAMS of them,
+# and one request's state is HYBRID_STATE_BYTES at 144 and 2,048 positions:
+# 45 x (80 x 64 x 64 + 3 x 5,248) x 4 + 9 x 2 x rows x 32 x 80 x 4.  (b) its
+# first HYBRID_PARITY_LAYERS layers (two applications of the shared block)
+# on the card and the CPU, prompts of STATE_PROMPTS positions (two chunks
+# of 64, a partial chunk, the recurrent prefill) and DENSE_STEPS decode
+# steps.  SSD_TOL bounds |a - b| / (1 + |b|) between the card's and the
+# CPU's prefill SSM state and conv carry, and between ssd_chunked and
+# ssd_reference on the card (tests/test_mixers.py's 1e-4 between the two
+# forms: the same terms summed in other orders, the chunked form's decays
+# differences of cumulative sums).
+HYBRID_GEN, HYBRID_BATCHES, HYBRID_PARITY_LAYERS = "zamba2-2.7b", 2, 12
+HYBRID_PARAMS, HYBRID_SHARED_PARAMS = 1_981_519_920, 104_862_720
+HYBRID_STATE_BYTES = {144: 88_358_400, 2048: 439_303_680}
+SSD_TOL = 1e-4
 # ENC_TEXTS is ModelEmbedder's MICRO_BATCH: the encode phase's shape is the
 # one every micro-batch of online_index launches K5 at
 ENCODER, ENC_TEXTS, ENC_LEN = "gte-base-en-v1.5", 256, 128
@@ -931,12 +997,15 @@ def profiled(fn, count=(), events=False) -> dict:
     name in ``count``, how many device events had a name containing it and
     their device ms; with ``events``, every device event name's count and
     device ms.  The window's ``LEAD_IN`` spin kernels run and finish before
-    ``fn`` starts and are counted nowhere."""
+    ``fn`` starts and are counted nowhere.  Only device activity is
+    recorded: every number here is a device event's or the host clock's,
+    and recording each host op as well slowed a generation's ~3,000 ops a
+    step (zamba2-2.7b: 2,243 ms profiled against ~1,280 ms a request in its
+    batches) and took tens of seconds to parse after each window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     t_window = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(LEAD_IN):
             torch.cuda._sleep(LEAD_IN_CYCLES)
         torch.cuda.synchronize()
@@ -1926,31 +1995,7 @@ def arch_parity(cfg, dev, prompt: int,
     check(max(errs, default=0.0) <= GEN_TOL, f"{name}: logits differ by "
           f"{max(errs)} > {GEN_TOL}")
 
-    def held(got, ref) -> dict:
-        err, ratio = attn_err(got, ref)
-        check(ratio <= 1, f"{name}: first call's error {err} is {ratio} x "
-              f"its allowance")
-        return {"max_abs_err": err, "tol": attn_tol(got.shape[-1]),
-                "err_over_allowance": ratio}
-
-    first = {}
-    for key, ((q, k, v), kw) in rec_flash.first.items():
-        first["k5_first" if key is None else f"k5_{key}"] = {
-            "shape": list(q.shape), "kv": list(k.shape), **kw,
-            **held(flash_attention(q, k, v, **kw),
-                   flash_plain(q, k, v, kw["causal"], kw["window"]))}
-    group = cfg.num_heads // cfg.num_kv_heads
-    for key, ((q, kc, vc, lens), kw) in rec_dec.first.items():
-        k6 = {"shape": list(q.shape), "cache": list(kc.shape),
-              "length": lens, "group": group,
-              "group_passes": -(-group // 8),
-              **held(decode_attention(q, kc, vc, lens, **kw),
-                     decode_plain(q, kc, vc, lens, kw["window"]))}
-        if group > 8:
-            k6["note"] = (f"the first full-width launch of a {group}-head "
-                          f"group (8 query heads a pass: a second pass of "
-                          f"{group - 8})")
-        first["k6_first" if key is None else f"k6_{key}"] = k6
+    first = first_calls(cfg, rec_flash, rec_dec)
     line = {"name": name, "layers": cfg.num_layers,
             "pattern": list(cfg.block_pattern), "window": cfg.sliding_window,
             "d_model": cfg.d_model, "heads": cfg.num_heads,
@@ -1977,6 +2022,41 @@ def arch_parity(cfg, dev, prompt: int,
     gc.collect()
     torch.cuda.empty_cache()
     return line
+
+
+def first_calls(cfg, rec_flash, rec_dec) -> dict:
+    """The first K5 and K6 call of each key that ``rec_flash`` /
+    ``rec_dec`` recorded, each held within :func:`attn_tol` of the plain
+    version on the card."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    def held(got, ref) -> dict:
+        err, ratio = attn_err(got, ref)
+        check(ratio <= 1, f"{cfg.name}: first call's error {err} is {ratio} "
+              f"x its allowance")
+        return {"max_abs_err": err, "tol": attn_tol(got.shape[-1]),
+                "err_over_allowance": ratio}
+
+    first = {}
+    for key, ((q, k, v), kw) in rec_flash.first.items():
+        first["k5_first" if key is None else f"k5_{key}"] = {
+            "shape": list(q.shape), "kv": list(k.shape), **kw,
+            **held(flash_attention(q, k, v, **kw),
+                   flash_plain(q, k, v, kw["causal"], kw["window"]))}
+    group = cfg.num_heads // cfg.num_kv_heads
+    for key, ((q, kc, vc, lens), kw) in rec_dec.first.items():
+        k6 = {"shape": list(q.shape), "cache": list(kc.shape),
+              "length": lens, "group": group,
+              "group_passes": -(-group // 8),
+              **held(decode_attention(q, kc, vc, lens, **kw),
+                     decode_plain(q, kc, vc, lens, kw["window"]))}
+        if group > 8:
+            k6["note"] = (f"the first full-width launch of a {group}-head "
+                          f"group (8 query heads a pass: a second pass of "
+                          f"{group - 8})")
+        first["k6_first" if key is None else f"k6_{key}"] = k6
+    return first
 
 
 def dense_archs(ctx) -> tuple:
@@ -2152,6 +2232,7 @@ def rwkv6_arch(ctx) -> dict:
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import cache_bytes, init_cache
+    from repro_torch.models.rwkv6 import CHUNK
 
     t_phase = time.perf_counter()
     cfg = get_config(RWKV_GEN)
@@ -2171,25 +2252,102 @@ def rwkv6_arch(ctx) -> dict:
              for rows in (MAX_PROMPT + NEW_TOKENS, SWA_PROMPT)}
     check(set(state.values()) == {RWKV_STATE_BYTES},
           f"rwkv6_arch (a): state bytes {state}, want {RWKV_STATE_BYTES}")
+    heads = {"wkv_heads": cfg.d_model // cfg.ssm_head_dim,
+             "wkv_head_dim": cfg.ssm_head_dim}
     line.update(params=RWKV_PARAMS, config_param_count=cfg.param_count(),
-                wkv_heads=cfg.d_model // cfg.ssm_head_dim,
-                wkv_head_dim=cfg.ssm_head_dim,
-                state_bytes_one_request=state)
-    parity = rwkv_parity(dataclasses.replace(cfg, num_layers=PARITY_LAYERS),
-                         ctx["dev"])
+                state_bytes_one_request=state, **heads)
+    small = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
+    parity = state_parity(small, ctx["dev"], WKV_TOL, CHUNK)
+    parity.update(heads)
+    parity["wkv_forms"] = wkv_forms(cfg, ctx["dev"])
     return {"phase": "rwkv6_arch", "nvidia_smi": ctx["smi"],
             "rwkv6_1p6b": line, "parity": parity,
             "phase_s": time.perf_counter() - t_phase}
 
 
-def rwkv_parity(cfg, dev) -> dict:
-    """(b) of ``rwkv6_arch``: ``cfg`` (cut in depth) at full width on the
-    card and the CPU, one set of weights drawn on the CPU from the seed and
-    copied to the card; for each prompt of ``RWKV_PROMPTS`` positions,
-    prefill then ``DENSE_STEPS`` decode steps, the same tokens into both.
-    Checks every step's logits within ``GEN_TOL``, greedy tokens outside
-    near-ties, every layer's prefill state within ``WKV_TOL`` and no
-    attention kernel launched; then :func:`wkv_forms`."""
+def hybrid_zamba2(ctx) -> dict:
+    """The ``hybrid_zamba2`` phase (module docstring): (a) full-width
+    zamba2-2.7b as the main index's generator, its shared block's K5 / K6
+    calls at the main path's shapes, then (b) its first
+    ``HYBRID_PARITY_LAYERS`` layers on the card against the CPU and the SSD
+    forms at the full-width shape on the card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import cache_bytes, init_cache
+    from repro_torch.models.mamba2 import CHUNK
+
+    t_phase = time.perf_counter()
+    cfg = get_config(HYBRID_GEN)
+    line, rec_flash, rec_dec = behind_index(ctx, cfg, MAX_PROMPT,
+                                            HYBRID_BATCHES,
+                                            params=HYBRID_PARAMS)
+    n_req = HYBRID_BATCHES * BATCH
+    n_shared = cfg.block_pattern.count("shared_attn") * cfg.depth_repeat
+    n = line["launches"]
+    want = ({"causal": n_shared * n_req, "non_causal": 0}, 0,
+            n_shared * NEW_TOKENS * n_req, 0, HYBRID_BATCHES, HYBRID_BATCHES)
+    got = (n["flash_attention"], line["k5_windowed_launches"],
+           n["decode_attention"], line["decode_attention_q8_launches"],
+           n["ivf_topk"], n["slab_topk"]["fp32"])
+    check(got == want, f"hybrid_zamba2 (a): K5 {got[0]}, windowed "
+          f"{got[1]}, K6 {got[2]}, K7 {got[3]}, K1 {got[4]}, K2 {got[5]}; "
+          f"want {want}")
+    # the shared block attends at the main path's K5 and K6 shapes, so its
+    # launches go to those rows of the kernels line
+    (q, k, _), _ = rec_flash.first[None]
+    (qd, kc, _, _), _ = rec_dec.first[None]
+    shapes = {"k5": [list(q.shape), list(k.shape)],
+              "k6": [list(qd.shape), list(kc.shape)]}
+    check(shapes == ctx["main_shapes"], f"hybrid_zamba2 (a): K5 / K6 "
+          f"shapes {shapes}, the main path's {ctx['main_shapes']}")
+    # one request's state, as ``generate`` makes it, and at 2,048 positions
+    state = {rows: cache_bytes(init_cache(cfg, 1, rows, device=ctx["dev"]))
+             for rows in HYBRID_STATE_BYTES}
+    check(state == HYBRID_STATE_BYTES, f"hybrid_zamba2 (a): state bytes "
+          f"{state}, want {HYBRID_STATE_BYTES}")
+    ssm = {"mamba_layers": cfg.num_layers - n_shared,
+           "shared_applications": n_shared,
+           "ssm_heads": cfg.ssm_num_heads, "ssm_head_dim": cfg.ssm_head_dim,
+           "ssm_state": cfg.ssm_state_size,
+           "conv_width": cfg.ssm_conv_width}
+    line.update(params=HYBRID_PARAMS, config_param_count=cfg.param_count(),
+                attention_shapes=shapes, state_bytes_one_request=state,
+                **ssm)
+    small = dataclasses.replace(cfg, num_layers=HYBRID_PARITY_LAYERS)
+    parity = state_parity(small, ctx["dev"], SSD_TOL, CHUNK)
+    shared = parity["shared_blocks"]
+    width = len(cfg.block_pattern)
+    want_layers = [list(range(width - 1, HYBRID_PARITY_LAYERS, width))]
+    check([b["layers"] for b in shared] == want_layers
+          and [b["params"] for b in shared] == [HYBRID_SHARED_PARAMS],
+          f"hybrid_zamba2 (b): shared blocks {shared}, want layers "
+          f"{want_layers} of {HYBRID_SHARED_PARAMS} parameters")
+    parity.update(ssm)
+    parity["ssd_forms"] = ssd_forms(cfg, ctx["dev"])
+    return {"phase": "hybrid_zamba2", "nvidia_smi": ctx["smi"],
+            "zamba2_2p7b": line, "parity": parity,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+# each recurrent cache's state tensors, held card against CPU in (b)
+STATE_FIELDS = {"RwkvCache": ("wkv", "shift_t", "shift_c"),
+                "MambaCache": ("ssm", "conv")}
+
+
+def state_parity(cfg, dev, state_tol: float, chunk: int) -> dict:
+    """(b) of ``rwkv6_arch`` and ``hybrid_zamba2``: ``cfg`` (cut in depth)
+    at full width on the card and the CPU, one set of weights drawn on the
+    CPU from the seed and copied to the card; for each prompt of
+    ``STATE_PROMPTS`` positions, prefill then ``DENSE_STEPS`` decode steps,
+    the same tokens into both.  Checks every step's logits within
+    ``GEN_TOL``, greedy tokens outside near-ties, every recurrent layer's
+    prefill state (``STATE_FIELDS``) within ``state_tol`` relative to 1 +
+    |CPU|, and the attention launches: one K5 an attention layer a prompt,
+    one K6 an attention layer a step (none without one), the first card K5
+    and K6 call within :func:`attn_tol` of the plain versions; a block at
+    several layers (a shared block) must hold one parameter storage on the
+    card and a KV cache of its own at each layer.  ``chunk``: the
+    recurrent form's chunk, for the printout."""
     import copy
     import gc
     import torch
@@ -2197,75 +2355,106 @@ def rwkv_parity(cfg, dev) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import (decode_step, init_cache, init_params,
                                     param_count, prefill)
+    from repro_torch.models import model as model_mod
 
     name, cpu = cfg.name, torch.device("cpu")
     t0 = time.perf_counter()
     m_cpu = init_params(cfg, seed=SEED, device="cpu")
     m_card = copy.deepcopy(m_cpu).to(dev)
     init_s = time.perf_counter() - t0
+    layers_of = {}
+    for i, block in enumerate(m_card.blocks):
+        layers_of.setdefault(id(block), []).append(i)
+    shared = [group for group in layers_of.values() if len(group) > 1]
+    for group in shared:
+        ptrs = {p.data_ptr() for i in group
+                for p in m_card.blocks[i].parameters()}
+        check(len(ptrs) == len(list(m_card.blocks[group[0]].parameters())),
+              f"{name}: the block at layers {group} holds more than one "
+              f"parameter storage on the card")
+    n_attn = sum(isinstance(b, model_mod.AttnBlock) for b in m_card.blocks)
     g = torch.Generator().manual_seed(9)
+    rec_flash = Recorder(model_mod.flash_attention)
+    rec_dec = Recorder(model_mod.decode_attention)
+    saved = (model_mod.flash_attention, model_mod.decode_attention)
     f0, d0 = flash_attention.launches, decode_attention.launches
     runs = []
-    for prompt in RWKV_PROMPTS:
-        toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g)
-        c_cpu = init_cache(cfg, 1, prompt + DENSE_STEPS, device=cpu)
-        c_card = init_cache(cfg, 1, prompt + DENSE_STEPS, device=dev)
-        t0 = time.perf_counter()
-        l_cpu, _ = prefill(m_cpu, {"tokens": toks}, c_cpu)
-        t1 = time.perf_counter()
-        l_card, _ = prefill(m_card, {"tokens": toks.to(dev)}, c_card)
-        lk = l_card[0].cpu()
-        cpu_s, card_s = t1 - t0, time.perf_counter() - t1
-        state_err = max(max(rel_err(c.wkv, k.wkv), rel_err(c.shift_t,
-                                                           k.shift_t),
-                            rel_err(c.shift_c, k.shift_c))
-                        for c, k in zip(c_card, c_cpu))
-        check(state_err <= WKV_TOL, f"{name}: prompt {prompt}'s prefill "
-              f"state differs by {state_err} > {WKV_TOL}")
-        errs, checked, ties = [], 0, 0
-        for step in range(DENSE_STEPS + 1):
-            lc = l_cpu[0]
-            errs.append(float((lk - lc).abs().max()))
-            top2 = torch.topk(lc, 2).values
-            if float(top2[0] - top2[1]) > 2 * GEN_TOL:
-                check(int(lk.argmax()) == int(lc.argmax()), f"{name}: "
-                      f"prompt {prompt}: greedy token differs at step "
-                      f"{step}")
-                checked += 1
-            else:
-                ties += 1
-            if step == DENSE_STEPS:
-                break
-            nxt = lc.argmax().reshape(1, 1)     # the same token into both
+    try:
+        model_mod.flash_attention, model_mod.decode_attention = (rec_flash,
+                                                                 rec_dec)
+        for prompt in STATE_PROMPTS:
+            toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g)
+            c_cpu = init_cache(cfg, 1, prompt + DENSE_STEPS, device=cpu)
+            c_card = init_cache(cfg, 1, prompt + DENSE_STEPS, device=dev)
+            for group in shared:
+                check(len({c_card[i].k.data_ptr() for i in group})
+                      == len(group), f"{name}: layers {group} share a KV "
+                      f"cache")
             t0 = time.perf_counter()
-            l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, prompt + step)
+            l_cpu, _ = prefill(m_cpu, {"tokens": toks}, c_cpu)
             t1 = time.perf_counter()
-            l_card, _ = decode_step(m_card, nxt.to(dev), c_card,
-                                    prompt + step)
+            l_card, _ = prefill(m_card, {"tokens": toks.to(dev)}, c_card)
             lk = l_card[0].cpu()
-            cpu_s, card_s = cpu_s + t1 - t0, card_s + time.perf_counter() - t1
-        check(max(errs) <= GEN_TOL, f"{name}: prompt {prompt}: logits "
-              f"differ by {max(errs)} > {GEN_TOL}")
-        runs.append({"prompt": prompt, "chunks": -(-prompt // 32)
-                     if prompt > 1 else "recurrent", "cpu_s": cpu_s,
-                     "card_s": card_s, "prefill_state_rel_err": state_err,
-                     "max_abs_err_per_step": errs, "tokens_checked": checked,
-                     "near_ties": ties})
+            cpu_s, card_s = t1 - t0, time.perf_counter() - t1
+            state_err = max((rel_err(getattr(c, f), getattr(k, f))
+                             for c, k in zip(c_card, c_cpu)
+                             for f in STATE_FIELDS.get(type(c).__name__,
+                                                       ())), default=0.0)
+            check(state_err <= state_tol, f"{name}: prompt {prompt}'s "
+                  f"prefill state differs by {state_err} > {state_tol}")
+            errs, checked, ties = [], 0, 0
+            for step in range(DENSE_STEPS + 1):
+                lc = l_cpu[0]
+                errs.append(float((lk - lc).abs().max()))
+                top2 = torch.topk(lc, 2).values
+                if float(top2[0] - top2[1]) > 2 * GEN_TOL:
+                    check(int(lk.argmax()) == int(lc.argmax()), f"{name}: "
+                          f"prompt {prompt}: greedy token differs at step "
+                          f"{step}")
+                    checked += 1
+                else:
+                    ties += 1
+                if step == DENSE_STEPS:
+                    break
+                nxt = lc.argmax().reshape(1, 1)  # the same token into both
+                t0 = time.perf_counter()
+                l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, prompt + step)
+                t1 = time.perf_counter()
+                l_card, _ = decode_step(m_card, nxt.to(dev), c_card,
+                                        prompt + step)
+                lk = l_card[0].cpu()
+                cpu_s += t1 - t0
+                card_s += time.perf_counter() - t1
+            check(max(errs) <= GEN_TOL, f"{name}: prompt {prompt}: logits "
+                  f"differ by {max(errs)} > {GEN_TOL}")
+            runs.append({"prompt": prompt, "chunks": -(-prompt // chunk)
+                         if prompt > 1 else "recurrent", "cpu_s": cpu_s,
+                         "card_s": card_s, "prefill_state_rel_err": state_err,
+                         "max_abs_err_per_step": errs,
+                         "tokens_checked": checked, "near_ties": ties})
+    finally:
+        model_mod.flash_attention, model_mod.decode_attention = saved
     launches = {"flash_attention": flash_attention.launches - f0,
                 "decode_attention": decode_attention.launches - d0}
-    check(launches == {"flash_attention": 0, "decode_attention": 0},
-          f"{name}: attention launches {launches}")
-    line = {"name": name, "layers": cfg.num_layers, "d_model": cfg.d_model,
-            "wkv_heads": cfg.d_model // cfg.ssm_head_dim,
-            "wkv_head_dim": cfg.ssm_head_dim, "d_ff": cfg.d_ff,
-            "vocab": cfg.vocab_size, "params": param_count(m_card),
-            "init_s": init_s, "tol": GEN_TOL, "state_tol": WKV_TOL,
+    n_prompts = len(STATE_PROMPTS)
+    want = {"flash_attention": n_attn * n_prompts,
+            "decode_attention": n_attn * DENSE_STEPS * n_prompts}
+    check(launches == want, f"{name}: attention launches {launches}, want "
+          f"{want}")
+    line = {"name": name, "layers": cfg.num_layers,
+            "pattern": list(cfg.block_pattern), "d_model": cfg.d_model,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+            "params": param_count(m_card), "init_s": init_s,
+            "tol": GEN_TOL, "state_tol": state_tol,
             "decode_steps": DENSE_STEPS, "prompts": runs,
-            "launches": launches}
-    del m_cpu, m_card, c_cpu, c_card
+            "launches": launches,
+            "shared_blocks": [{"layers": group, "params": sum(
+                p.numel() for p in m_card.blocks[group[0]].parameters())}
+                for group in shared],
+            **first_calls(cfg, rec_flash, rec_dec)}
+    del m_cpu, m_card, c_cpu, c_card, rec_flash, rec_dec
     gc.collect()
     torch.cuda.empty_cache()
-    line["wkv_forms"] = wkv_forms(cfg, dev)
     return line
 
 
@@ -2305,6 +2494,51 @@ def wkv_forms(cfg, dev) -> dict:
                      "recurrent_ms": cuda_ms(lambda: wkv6_recurrent(*args),
                                              5)}
     return {"shape": [1, MAX_PROMPT, h, hd], "tol": WKV_TOL, **out}
+
+
+def ssd_forms(cfg, dev) -> dict:
+    """``ssd_chunked`` against ``ssd_reference`` on the card at the
+    full-width shape (1, MAX_PROMPT, nh, hd), N = the config's state size:
+    x, B, C N(0, 1), a state N(0, 0.1), the log decay -A dt under the
+    model's decay (``A`` = linspace(1, 16, nh) as ``A_log`` holds it, ``dt``
+    = softplus(N(0, 1) + ``dt_bias`` drawn as the init draws it)) and the
+    strongest the init allows (``A`` = 16, ``dt`` = exp(-1.1), the largest
+    the ``dt_bias`` init gives at a zero input).  Each within ``SSD_TOL``
+    relative to 1 + |reference|, finite; the ms of each form."""
+    import torch
+    from repro_torch.models.mamba2 import softplus, ssd_chunked, ssd_reference
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    nh, hd, n = cfg.ssm_num_heads, cfg.ssm_head_dim, cfg.ssm_state_size
+    r = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x, b, c = r(1, MAX_PROMPT, nh, hd), r(1, MAX_PROMPT, n), r(1, MAX_PROMPT,
+                                                                n)
+    s0 = 0.1 * r(1, nh, hd, n)
+    u = torch.rand((nh,), generator=g, device=dev)
+    dt_bias = torch.log(torch.expm1(torch.exp(u * 3.5 - 4.6)))
+    a = torch.linspace(1.0, 16.0, nh, device=dev)
+    out = {}
+    for case, log_a in (
+            ("model", -a * softplus(r(1, MAX_PROMPT, nh) + dt_bias)),
+            ("strongest", torch.full((1, MAX_PROMPT, nh),
+                                     -16.0 * float(np.exp(-1.1)),
+                                     device=dev))):
+        args = (x, log_a, b, c, s0)
+        yc, sc = ssd_chunked(*args)
+        yr, sr = ssd_reference(*args)
+        finite = all(bool(torch.isfinite(t).all()) for t in (yc, sc, yr, sr))
+        err = max(rel_err(yc, yr), rel_err(sc, sr))
+        check(finite, f"ssd forms ({case}): non-finite output or state")
+        check(err <= SSD_TOL, f"ssd forms ({case}): chunked against the "
+              f"recurrence {err} > {SSD_TOL}")
+        out[case] = {"rel_err": err, "finite": finite,
+                     "log_a_min_max": [float(log_a.min()),
+                                       float(log_a.max())],
+                     "chunked_ms": cuda_ms(lambda: ssd_chunked(*args), 5),
+                     "reference_ms": cuda_ms(lambda: ssd_reference(*args),
+                                             5)}
+    return {"shape": [1, MAX_PROMPT, nh, hd], "state": n, "tol": SSD_TOL,
+            **out}
 
 
 def int8_bound(q, k, v) -> float:
@@ -5590,6 +5824,16 @@ def main() -> int:
         "main_ids": main_ids, "main_vals": main_vals})
     emit(rwkv)
 
+    # ---- zamba2-2.7b: Mamba2 layers and one shared attention block -------
+    (q5, k5_, _), _ = rec_flash.first[True]
+    (q6, k6_, _, _), _ = rec_dec.first[None]
+    hybrid = hybrid_zamba2({
+        "ds": ds, "cost": cost, "dev": dev, "smi": smi, "index": index,
+        "main_ids": main_ids, "main_vals": main_vals,
+        "main_shapes": {"k5": [list(q5.shape), list(k5_.shape)],
+                        "k6": [list(q6.shape), list(k6_.shape)]}})
+    emit(hybrid)
+
     # ---- the Table 4 baselines on the main path's corpus ----------------
     base, flat_call = baselines({"ds": ds, "cost": cost, "dev": dev,
                                  "main_ids": main_ids, "main_vals": main_vals,
@@ -5655,6 +5899,7 @@ def main() -> int:
                        for n in ("ivf_topk", "slab_topk")}, False),
         ("rwkv6_arch", {n: rwkv["rwkv6_1p6b"]["launches"][n]
                         for n in ("ivf_topk", "slab_topk")}, False),
+        ("hybrid_zamba2", hybrid["zamba2_2p7b"]["launches"], False),
         ("baselines", {"ivf_topk": base["ivf"]["launches"],
                        "ivf_topk_flat": base["flat"]["launches"]}, False)])
 

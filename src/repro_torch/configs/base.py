@@ -8,9 +8,8 @@ that a reduced config means the same shapes in both packages.
 The ``block_pattern`` field drives the block stack in
 ``repro_torch.models.model``: the stack is ``depth_repeat`` repetitions of
 the pattern, and each entry is the *kind* of block ("attn", "swa"
-sliding-window attention, "moe", "mamba2", "rwkv6", "shared_attn").  The
-port runs ``"attn"``, ``"swa"``, ``"moe"``, ``"swa_moe"`` and ``"rwkv6"``
-blocks so far.
+sliding-window attention, "moe", "mamba2", "rwkv6", "shared_attn"); the
+port runs every kind.
 """
 from __future__ import annotations
 

@@ -7,13 +7,13 @@ the JAX side), so the port itself never touches JAX.
   position of ``cfg.block_pattern``, each leaf stacked over
   ``depth_repeat`` with a leading axis; the port keeps one
   block per layer, layer ``r * len(pattern) + i`` being repeat ``r`` of
-  position ``i`` (the JAX layer scan's order), so the converter unstacks:
-  an :class:`~repro_torch.models.model.AttnBlock` takes the ``"mlp"``
-  leaves or a ``"moe"`` layer's ``"moe"`` leaves (``router``, ``gate``,
-  ``up``, ``down``) with the rest, an
-  :class:`~repro_torch.models.rwkv6.RwkvBlock` every leaf of its position
-  under the same name.  Matrices keep the JAX (in, out) layout on both
-  sides.
+  position ``i`` (the JAX layer scan's order), so the converter unstacks
+  each parameter from the leaf of its name (a parameter ``a.b`` from
+  ``[a][b]``; an :class:`~repro_torch.models.model.AttnBlock`'s SwiGLU
+  ``gate`` / ``up`` / ``down`` from ``["mlp"]``).  A ``"shared_attn"``
+  position's leaf is ``None``: its one block takes the unstacked
+  ``tree["shared"]``, once.  Matrices keep the JAX (in, out) layout on
+  both sides.
 * :func:`index_state_from_numpy` — loads another index's centroids and
   cluster assignment into a port index (then runs Alg. 1 as ``build``
   does).  Parity tests use it because k-means argmin near-ties make two
@@ -29,6 +29,7 @@ the JAX side), so the port itself never touches JAX.
 """
 from __future__ import annotations
 
+from functools import reduce
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -37,8 +38,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pq import PQCodebook
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import Model
-from repro_torch.models.rwkv6 import RwkvBlock
+from repro_torch.models.model import AttnBlock, Model
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
@@ -50,7 +50,10 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     ``"swa_moe"`` position holds ``"moe": {"router", "gate", "up",
     "down"}`` in place of ``"mlp"``; an ``"rwkv6"`` position holds the
     block's parameters by their names (``norm_t``, ``mu``, ``Wr``, ...,
-    ``Wcv``)."""
+    ``Wcv``), a ``"mamba2"`` position ``"norm1"`` and ``"mixer": {"in_z",
+    ..., "out_proj"}``; a ``"shared_attn"`` position holds ``None`` and
+    ``tree["shared"]`` the block, unstacked, as an ``"attn"`` position's
+    leaves."""
     dev = resolve_device(device)
     model = Model(cfg, device=dev)
     as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
@@ -61,21 +64,19 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
             model.lm_head.copy_(as_t(tree["lm_head"]))
         width = len(cfg.block_pattern)
         for layer, block in enumerate(model.blocks):
-            stacked = tree["blocks"][layer % width]
-            if isinstance(block, RwkvBlock):
-                leaves = {name: (p, stacked[name])
-                          for name, p in block.named_parameters()}
+            if cfg.block_pattern[layer % width] == "shared_attn":
+                if layer >= width:
+                    continue             # the one block, copied at layer < width
+                src, pick = tree["shared"], lambda a: a
             else:
-                leaves = {name: (getattr(block, name), stacked[name]) for name
-                          in ("norm1", "wq", "wk", "wv", "wo", "norm2")}
-                if block.moe is None:
-                    leaves.update((name, (getattr(block, name), arr))
-                                  for name, arr in stacked["mlp"].items())
-                else:
-                    leaves.update((f"moe.{name}", (block.moe[name], arr))
-                                  for name, arr in stacked["moe"].items())
-            for dst, arr in leaves.values():
-                dst.copy_(as_t(arr[layer // width]))
+                src = tree["blocks"][layer % width]
+                pick = lambda a, r=layer // width: a[r]
+            for name, dst in block.named_parameters():
+                path = name.split(".")
+                if isinstance(block, AttnBlock) and block.moe is None \
+                        and name in ("gate", "up", "down"):
+                    path = ["mlp", name]
+                dst.copy_(as_t(pick(reduce(lambda d, k: d[k], path, src))))
     return model
 
 

@@ -10,6 +10,7 @@ CPU instead.
   python -m repro_torch.launch.serve --arch yi-9b --device cpu
   python -m repro_torch.launch.serve --arch olmoe-1b-7b --device cpu
   python -m repro_torch.launch.serve --arch rwkv6-1.6b --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-2.7b --device cpu
 """
 from __future__ import annotations
 

@@ -1,17 +1,18 @@
 """Decode-time caches: KV caches for attention blocks, full and circular
-(sliding-window) ring buffers, and the RWKV6 state.
+(sliding-window) ring buffers, and the RWKV6 and Mamba2 states.
 
-Port of ``repro.models.cache`` for the ``"attn"``, ``"swa"``, ``"moe"``,
-``"swa_moe"`` and ``"rwkv6"`` block kinds; Mamba2's state comes with the
-slice that needs it, and so does the JAX package's ``window_mode`` (every
-attention layer a ring at the long-context serving window).  One cache per
-layer, in the order of ``cfg.block_pattern`` repeated: a :class:`KVCache`
-(B, size, KH, D) for an attention layer, an
-:class:`~repro_torch.models.rwkv6.RwkvCache` (its size independent of
-``max_len``) for an ``"rwkv6"`` layer.  Unlike the JAX package's immutable
-caches, both are written IN PLACE (no copy of the whole cache per decoded
-token), and a KV cache carries whether it is a ring (the JAX package
-derives it from the block kind at every call).
+Port of ``repro.models.cache`` for every block kind; the JAX package's
+``window_mode`` (every attention layer a ring at the long-context serving
+window) comes with the slice that needs it.  One cache per layer, in the
+order of ``cfg.block_pattern`` repeated: a :class:`KVCache` (B, size, KH,
+D) for an attention layer (each application of a ``"shared_attn"`` block
+its own, of ``max_len`` rows), an
+:class:`~repro_torch.models.rwkv6.RwkvCache` for an ``"rwkv6"`` layer and
+a :class:`~repro_torch.models.mamba2.MambaCache` for a ``"mamba2"`` layer
+(both sized independently of ``max_len``).  Unlike the JAX package's
+immutable caches, all are written IN PLACE (no copy of the whole cache per
+decoded token), and a KV cache carries whether it is a ring (the JAX
+package derives it from the block kind at every call).
 
 A ring of ``size`` rows keeps token p at row ``p % size``: its last
 ``size`` tokens, which are exactly a window of ``size`` tokens.  So a
@@ -25,9 +26,10 @@ from typing import List, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.mamba2 import MambaCache, init_mamba_cache
 from repro_torch.models.rwkv6 import RwkvCache, init_rwkv_cache
 
-Cache = Union["KVCache", RwkvCache]
+Cache = Union["KVCache", RwkvCache, MambaCache]
 
 
 class KVCache:
@@ -103,6 +105,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
         if kind == "rwkv6":
             caches.append(init_rwkv_cache(cfg, batch, device=device,
                                           dtype=dtype))
+            continue
+        if kind == "mamba2":
+            caches.append(init_mamba_cache(cfg, batch, device=device,
+                                           dtype=dtype))
             continue
         size, circular = kv_cache_spec(cfg, kind, max_len)
         shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)

@@ -1,20 +1,23 @@
-"""Decoder / encoder model of attention and RWKV6 blocks, in PyTorch.
+"""Decoder / encoder model of attention, RWKV6 and Mamba2 blocks, in PyTorch.
 
-Port of ``repro.models.model`` for the ``"attn"``, ``"swa"`` (sliding
-window), ``"moe"``, ``"swa_moe"`` and ``"rwkv6"`` block kinds: the paper's
-generator and embedder and the assigned architectures
-(``configs.ASSIGNED_ARCHS``: yi-9b, starcoder2-7b, stablelm-1.6b,
-musicgen-large and qwen2-vl-2b with their stubbed frontends' embedding
-inputs, qwen2-vl with M-RoPE, gemma3-12b's 5:1 pattern of sliding-window
-and global layers, the mixture-of-experts olmoe-1b-7b and
-granite-moe-3b-a800m, and the attention-free rwkv6-1.6b).  Mamba2 and
-shared blocks come with a later slice and raise here.  A :class:`Model` is
-an ``nn.Module`` whose parameters keep the JAX package's names and (in,
-out) matrix layout, one block per layer in the order of
-``cfg.block_pattern`` repeated (an :class:`AttnBlock`, or a
-:class:`~repro_torch.models.rwkv6.RwkvBlock` for ``"rwkv6"``; the JAX
-pytree stacks each pattern position over depth; ``repro_torch.convert``
-unstacks).
+Port of ``repro.models.model`` for every block kind (``"attn"``, ``"swa"``
+(sliding window), ``"moe"``, ``"swa_moe"``, ``"rwkv6"``, ``"mamba2"``,
+``"shared_attn"``): the paper's generator and embedder and the assigned
+architectures (``configs.ASSIGNED_ARCHS``: yi-9b, starcoder2-7b,
+stablelm-1.6b, musicgen-large and qwen2-vl-2b with their stubbed
+frontends' embedding inputs, qwen2-vl with M-RoPE, gemma3-12b's 5:1
+pattern of sliding-window and global layers, the mixture-of-experts
+olmoe-1b-7b and granite-moe-3b-a800m, the attention-free rwkv6-1.6b, and
+the hybrid zamba2-2.7b).  A :class:`Model` is an ``nn.Module`` whose
+parameters keep the JAX package's names and (in, out) matrix layout, one
+block per layer in the order of ``cfg.block_pattern`` repeated (an
+:class:`AttnBlock`, a :class:`~repro_torch.models.rwkv6.RwkvBlock` for
+``"rwkv6"``, a :class:`MambaBlock` for ``"mamba2"``; the JAX pytree stacks
+each pattern position over depth; ``repro_torch.convert`` unstacks).  A
+``"shared_attn"`` block is ONE :class:`AttnBlock` that stands at every
+position of that kind, as the reference closes over one ``params["shared"]``
+at every application: one set of parameters (``parameters()`` and
+``param_count`` see it once), each application with its own KV cache.
 
 Public entry points, as in the JAX package:
   init_params                          (random weights from a seed)
@@ -41,7 +44,10 @@ v at ``cache_len`` (an int, or (B,) per-slot lengths) and attends over
 (``models.cache``: the window's last tokens).  An ``"rwkv6"`` layer
 ignores positions and ``cache_len``: it carries its recurrent state and
 token shifts in its cache (``models.rwkv6``), and launches no attention
-kernel.
+kernel.  A ``"mamba2"`` layer (``x + mixer(norm(x))``, ``models.mamba2``)
+ignores them too and carries its SSM state and conv carry; the engine's
+left padding runs through its state and conv, unmasked, as in the JAX
+engine.
 
 Attention on the card is the hand-written kernels, whatever ``attn_impl``
 says (``"reference"`` and ``"chunked"`` are two plain formulations of the
@@ -71,11 +77,13 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.cache import Cache, KVCache
 from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        mlp, rms_norm, rope_frequencies)
+from repro_torch.models.mamba2 import MambaCache, init_mamba2, mamba2_mixer
 from repro_torch.models.moe import init_moe, moe_block
 from repro_torch.models.rwkv6 import RwkvBlock
 
 MOE_KINDS = ("moe", "swa_moe")
 WINDOW_KINDS = ("swa", "swa_moe")
+KINDS = ("attn", "swa", *MOE_KINDS, "shared_attn", "rwkv6", "mamba2")
 
 # sequences at least this long use the online-softmax chunked attention
 CHUNKED_ATTN_MIN_SEQ = 2048
@@ -87,7 +95,9 @@ def _param(t: torch.Tensor) -> nn.Parameter:
 
 class AttnBlock(nn.Module):
     """Pre-norm attention + feed-forward block (JAX block kinds ``"attn"``,
-    ``"swa"``, ``"moe"`` and ``"swa_moe"``: the ``swa`` kinds attend within
+    ``"swa"``, ``"moe"``, ``"swa_moe"`` and ``"shared_attn"``, the last an
+    ``"attn"`` block that the model places at several layers: the ``swa``
+    kinds attend within
     ``cfg.sliding_window``; the ``moe`` kinds hold a mixture of experts,
     the submodule ``moe`` with ``router``, ``gate``, ``up`` and ``down``,
     in place of the SwiGLU ``gate``, ``up`` and ``down``)."""
@@ -175,30 +185,58 @@ class AttnBlock(nn.Module):
         return x + y
 
 
+class MambaBlock(nn.Module):
+    """The ``"mamba2"`` block: ``x + mamba2_mixer(rms_norm(x, norm1))``, its
+    mixer's parameters (:func:`~repro_torch.models.mamba2.init_mamba2`)
+    the submodule ``mixer``, named as the reference's."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 device: torch.device):
+        super().__init__()
+        self.norm1 = _param(torch.zeros((cfg.d_model,), device=device))
+        self.mixer = nn.ParameterDict({
+            name: _param(t) for name, t in init_mamba2(
+                cfg, generator, device).items()})
+
+    def forward(self, x, cfg: ModelConfig,
+                cache: Optional[MambaCache]) -> torch.Tensor:
+        """``cache`` None starts from zeros (``encode``), else it is read
+        and then written in place."""
+        y, _ = mamba2_mixer(self.mixer, rms_norm(x, self.norm1, cfg.norm_eps),
+                            cfg, cache)
+        return x + y
+
+
 class Model(nn.Module):
     """Token embedding, ``num_layers`` blocks, final norm, output head."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0,
                  device: DeviceLike = None):
         super().__init__()
-        bad = sorted(set(cfg.block_pattern)
-                     - {"attn", "swa", *MOE_KINDS, "rwkv6"})
+        bad = sorted(set(cfg.block_pattern) - set(KINDS))
         if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: block kinds {bad} come with a later slice of "
-                f"the port (this one runs 'attn', 'swa', 'moe', 'swa_moe' "
-                f"and 'rwkv6' blocks)")
+            raise ValueError(f"{cfg.name}: unknown block kinds {bad} (the "
+                             f"kinds are {', '.join(KINDS)})")
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
         self.embed = _param(dense_init((cfg.vocab_size, cfg.d_model), g, dev,
                                        scale=0.02))
-        kinds = [cfg.block_pattern[i % len(cfg.block_pattern)]
-                 for i in range(cfg.num_layers)]
-        self.blocks = nn.ModuleList(
-            RwkvBlock(cfg, g, dev) if kind == "rwkv6"
-            else AttnBlock(cfg, g, dev, kind) for kind in kinds)
-        self.attends = any(kind != "rwkv6" for kind in kinds)
+        blocks, shared = [], None
+        for i in range(cfg.num_layers):
+            kind = cfg.block_pattern[i % len(cfg.block_pattern)]
+            if kind == "shared_attn":       # drawn once, at its first layer
+                if shared is None:
+                    shared = AttnBlock(cfg, g, dev, kind)
+                blocks.append(shared)
+            elif kind == "rwkv6":
+                blocks.append(RwkvBlock(cfg, g, dev))
+            elif kind == "mamba2":
+                blocks.append(MambaBlock(cfg, g, dev))
+            else:
+                blocks.append(AttnBlock(cfg, g, dev, kind))
+        self.blocks = nn.ModuleList(blocks)
+        self.attends = any(isinstance(b, AttnBlock) for b in blocks)
         self.final_norm = _param(torch.zeros((cfg.d_model,), device=dev))
         self.lm_head = (None if cfg.tie_embeddings else
                         _param(dense_init((cfg.d_model, cfg.vocab_size), g,
@@ -263,7 +301,7 @@ class Model(nn.Module):
             lengths = decode_lengths(lengths, b, x.device)
         for i, block in enumerate(self.blocks):
             cache = None if caches is None else caches[i]
-            if isinstance(block, RwkvBlock):
+            if isinstance(block, (RwkvBlock, MambaBlock)):
                 x = block(x, self.cfg, cache)
                 continue
             x = block(x, self.cfg, positions=positions,
@@ -288,6 +326,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 
 def param_count(model: Model) -> int:
+    """Every parameter once: a shared block's, at several layers, too."""
     return sum(p.numel() for p in model.parameters())
 
 

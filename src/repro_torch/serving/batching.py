@@ -3,9 +3,11 @@
 Port of ``repro.serving.batching``.  A fixed pool of ``num_slots`` decode
 slots shares one batched cache (one :class:`~repro_torch.models.cache.
 KVCache` per attention layer, (num_slots, max_len, KH, D), or a ring of
-the window's rows for a sliding-window layer; one
-:class:`~repro_torch.models.rwkv6.RwkvCache` per ``"rwkv6"`` layer, the
-state and shift carries of each slot).  A request is admitted into a free
+the window's rows for a sliding-window layer, one for each application of
+a shared block; one :class:`~repro_torch.models.rwkv6.RwkvCache` per
+``"rwkv6"`` layer, the state and shift carries of each slot; one
+:class:`~repro_torch.models.mamba2.MambaCache` per ``"mamba2"`` layer, the
+SSM state and conv carry of each slot).  A request is admitted into a free
 slot: the slot's row is zeroed and its prompt prefilled alone, at its own
 unpadded length, into views of that row, so a reused slot holds what a
 fresh cache would after the same prefill (the reference copies a fresh
@@ -17,14 +19,16 @@ No batch-wide barrier.  Any registered config runs: a mixture-of-experts
 model routes every slot's token in a tick, free slots' included, and
 decode is dropless (capacity = slots), so no slot takes another's
 capacity; an admission's prefill runs alone, at the config's factor; an
-RWKV6 model advances every slot's state in a tick, free slots' included,
-and an admission starts its slot's state from zeros.
+RWKV6 or Mamba2 layer advances every slot's state in a tick, free slots'
+included, and an admission starts its slot's state from zeros (every
+cache's ``fresh_row``).
 
 On the card every layer of an admission's prefill runs the prefill
 attention kernel (``flash_attention``, causal, at (1, L, H, D)) and every
 layer of a tick the decode kernel (``decode_attention``) with (num_slots,)
-lengths that differ from slot to slot (an ``"rwkv6"`` layer none).  Nothing here catches a kernel's
-error: a card run never takes a plain version.
+lengths that differ from slot to slot (an ``"rwkv6"`` or ``"mamba2"``
+layer none).  Nothing here catches a kernel's error: a card run never
+takes a plain version.
 
 ``lens`` and ``next_tok`` stay numpy arrays on the host, as in the
 reference.  A tick copies the slots' greedy tokens back to the host once.

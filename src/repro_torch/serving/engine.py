@@ -421,7 +421,11 @@ class GeneratorModel:
     granite-moe-3b-a800m's mixture-of-experts layers route each token to
     its top-k experts, at the config's capacity factor in prefill and
     dropless in decode; rwkv6-1.6b carries a recurrent state of a fixed
-    size in place of a KV cache and launches no attention kernel).
+    size in place of a KV cache and launches no attention kernel;
+    zamba2-2.7b carries a Mamba2 state a layer and one KV cache for each
+    application of its one shared attention block, the prompt's left
+    padding run through the SSM and the conv, unmasked, as in the JAX
+    engine).
 
     Prompts are left-padded with token 0 to ``max_prompt`` tokens (no
     attention mask: pad tokens are attended, as in the JAX engine) and

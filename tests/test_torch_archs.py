@@ -5,7 +5,8 @@ and decode logits with the JAX params carried over (``params_from_jax``);
 gemma3-12b's sliding-window layers over ring caches, past the window, with
 scalar and per-slot lengths, at head dims 64 and 256, in the generator and
 in the continuous batcher.  The two MoE configs are
-``tests/test_torch_moe.py``'s.
+``tests/test_torch_moe.py``'s, rwkv6-1.6b ``tests/test_torch_rwkv6.py``'s
+and zamba2-2.7b ``tests/test_torch_mamba2.py``'s.
 
 Sizes: ``.reduced(num_layers=2, d_model=128)``, which forces head dim 64
 and turns starcoder2-7b into MHA; so GQA at head dim 128 is checked on
@@ -58,7 +59,7 @@ ARCHS = ("stablelm-1.6b", "starcoder2-7b", "yi-9b", "musicgen-large",
 GEMMA = "gemma3-12b"
 MOE = ("granite-moe-3b-a800m", "olmoe-1b-7b")     # tests/test_torch_moe.py
 RWKV = ("rwkv6-1.6b",)                             # tests/test_torch_rwkv6.py
-UNPORTED = ("zamba2-2.7b",)
+HYBRID = ("zamba2-2.7b",)                          # tests/test_torch_mamba2.py
 # (arch, heads, kv heads) at head dim 128, 2 layers, d_model 256
 GQA = (("yi-9b", 8, 1), ("starcoder2-7b", 9, 1), ("qwen2-vl-2b", 6, 1))
 CPU = torch.device("cpu")
@@ -140,25 +141,39 @@ def test_config_copy_matches_reference(name):
 
 def test_registry_holds_the_five_and_the_paper_models():
     assert sorted(configs.ASSIGNED_ARCHS) == sorted(ARCHS + (GEMMA,) + MOE
-                                                    + RWKV)
+                                                    + RWKV + HYBRID)
     assert configs.list_configs() == sorted(ARCHS + (GEMMA,) + MOE + RWKV
-                                            + configs.PAPER_MODELS)
+                                            + HYBRID + configs.PAPER_MODELS)
     assert get_config("yi-9b").param_count() == 8_829_407_232
 
 
-@pytest.mark.parametrize("name", UNPORTED)
+@pytest.mark.parametrize("name", HYBRID)
 def test_unported_ids_raise_key_error(name):
-    jax_get_config(name)                      # an assigned id in the JAX
-    with pytest.raises(KeyError):             # package, not yet here
-        get_config(name)
+    """The last assigned id to be ported resolves as the JAX package's, and
+    the port's ``ASSIGNED_ARCHS`` is the JAX package's set: no assigned id
+    is left unported (none raises ``KeyError``)."""
+    from repro.configs import ASSIGNED_ARCHS as JAX_ASSIGNED
+    assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
+        jax_get_config(name))
+    assert set(configs.ASSIGNED_ARCHS) == set(JAX_ASSIGNED)
+    assert len(configs.ASSIGNED_ARCHS) == len(JAX_ASSIGNED) == 10
+    for arch in JAX_ASSIGNED:
+        get_config(arch)
 
 
 @pytest.mark.parametrize("kind", ["mamba2", "shared_attn"])
 def test_other_block_kinds_still_raise(kind):
+    """The two kinds that once raised: a one-kind pattern of each builds on
+    the CPU and holds the JAX ``init_params`` tree's parameter count (a
+    ``"shared_attn"`` pattern: one block at both layers, counted once)."""
     cfg = dataclasses.replace(_reduced(get_config, "yi-9b"),
                               block_pattern=(kind,))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        init_params(cfg, device="cpu")
+    jcfg = dataclasses.replace(_reduced(jax_get_config, "yi-9b"),
+                               block_pattern=(kind,))
+    model = init_params(cfg, device="cpu")
+    tree = jax_init_params(jcfg, jax.random.PRNGKey(0))
+    assert param_count(model) == sum(a.size for a in jax.tree.leaves(tree))
+    assert (model.blocks[0] is model.blocks[1]) == (kind == "shared_attn")
 
 
 @pytest.mark.parametrize("name", ARCHS)

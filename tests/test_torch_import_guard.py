@@ -17,7 +17,7 @@ PKG = ROOT / "src" / "repro_torch"
 # the assigned architectures' config modules the port registers
 ARCH_MODULES = ("stablelm_1p6b", "starcoder2_7b", "yi_9b", "musicgen_large",
                 "qwen2_vl_2b", "gemma3_12b", "olmoe_1b_7b",
-                "granite_moe_3b_a800m", "rwkv6_1p6b")
+                "granite_moe_3b_a800m", "rwkv6_1p6b", "zamba2_2p7b")
 
 
 def _modules():
@@ -34,6 +34,7 @@ def test_importing_every_module_loads_no_jax_or_repro():
                  "repro_torch.models.quantization",
                  "repro_torch.models.moe",
                  "repro_torch.models.rwkv6",
+                 "repro_torch.models.mamba2",
                  "repro_torch.kernels.flash_attention.ops",
                  "repro_torch.kernels._attention",
                  "repro_torch.kernels.decode_attention.ops",
