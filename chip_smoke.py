@@ -11,7 +11,10 @@ Phases, one JSON line each:
                    once, into the git-ignored ``build/kernels/``), with
                    ``ptxas``'s registers and spills per kernel entry; every
                    ``flash_attention`` entry (head dims 64, 80, 128, 256,
-                   f32 and bf16, both layouts: 16), every entry of the
+                   f32 and bf16, both layouts: 16, and the 8 f32 entries
+                   that also write each row's log-sum-exp for training),
+                   every entry of K5's backward
+                   (``flash_attention_bwd_ptxas``: 9), every entry of the
                    one-launch
                    top-k kernel (``topk_tiled_ptxas``: ivf_topk, and
                    slab_topk in fp32, fp16, int8 and pq, at 16- and 64-row
@@ -600,6 +603,45 @@ Phases, one JSON line each:
                    kernels the profiler lost, beside the window's seconds
                    since the first window (see ``profiled``); a window
                    that lost them all has failed already.
+  train_lm         training (``repro_torch.train``), after the generators
+                   are freed.  (a) K5's hand-written backward
+                   (``csrc/flash_attention_bwd.cu``) at ``BWD_SHAPES``
+                   (stablelm-1.6b's (1, 4096, 32, 64) causal, GQA 8 at
+                   D 128, gemma3-12b's windowed D 256, non-causal D 80,
+                   ragged, rows with no valid key) against
+                   ``flash_attention_bwd_ref`` on the card (TF32 off):
+                   dq, dk, dv within ``BWD_TOL``, two calls bitwise equal,
+                   K5's output with its lse bitwise without, the lse
+                   within :func:`attn_tol`; at the full-width shape its
+                   ms, device ms, bound, plain ms and SDPA's backward.
+                   (b) stablelm-1.6b's first 2 layers at full width, one
+                   set of weights drawn on the CPU and copied to the card,
+                   2 x 128 tokens: the loss and every parameter's gradient
+                   card vs CPU within ``TRAIN_LOSS_TOL`` /
+                   ``TRAIN_GRAD_TOL``, K5 4 launches (a forward and its
+                   recompute a layer) and its backward 2.  (c)
+                   stablelm-1.6b at full width (24 layers, d_model 2048,
+                   32 heads of 64, d_ff 5632, vocab 100,352, fp32:
+                   1,644,267,520 parameters) drawn on the card, 3 steps of
+                   ``make_train_step(peak_lr=3e-3)`` on
+                   ``synthetic_lm_batch`` at 1 x 4,096 tokens: finite
+                   losses and grad norms > 0, step 0's loss within 0.5 of
+                   ln(100,352), the parameters bitwise unchanged by step 0
+                   (lr 0) and every one moved by step 2, K5 exactly 2 x 24
+                   x 3 and its backward 24 x 3; prints seconds a step,
+                   tokens a second, ``max_memory_allocated`` and one more
+                   step profiled (device ms split into K5 forward, K5
+                   backward, GEMMs and the rest).  (d)
+                   ``tests/test_serving_train.py``'s overfit (2 layers,
+                   d_model 128, 40 steps of a fixed (2, 33) batch) on the
+                   card and the CPU: the last loss < 0.7 x the first, every
+                   loss within ``OVERFIT_TOL`` of the CPU's, exact
+                   launches.  Adds the ``flash_attention_bwd`` row (the
+                   launches of (b)-(d)) and ``flash_attention_stablelm_
+                   1p6b_train`` (K5's training entry, the one that writes
+                   the lse, timed at (c)'s shape with (c)'s launches, and
+                   the serving entry's device ms beside it) to the
+                   ``kernels`` line.
 
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
 library time, and the bound from this run's inputs; every row also carries
@@ -609,8 +651,9 @@ last ``{"ok": true, "device": {...}}``.  Bounds: bytes read once at HBM's
 3.35 TB/s against the function's operations at the fp32-accurate peak of
 the unit the kernel runs them on: for K5 the tensor cores, whose 495 TFLOP/s
 in TF32 give 165 TFLOP/s at fp32 accuracy (3xTF32 takes three TF32
-products for one fp32 product); for the others the CUDA cores' 67 TFLOP/s
-in fp32.  A row's times and bound are at its one recorded input; its
+products for one fp32 product), and the same for K5's backward, whose
+products are the same kind, though it runs them on the CUDA cores; for the
+others the CUDA cores' 67 TFLOP/s in fp32.  A row's times and bound are at its one recorded input; its
 ``launches`` is the sum of its ``launches_by_phase``: the launches of its
 kernel in its mode or mask that each phase driving a path of the port
 counted in its checked window (``main_path``, ``baselines``' IVF searches
@@ -801,6 +844,37 @@ ENC_TOL = 1e-5
 # package's bound (tests/test_quantization.py:60); see int8_bound().
 INT8_UNIT_BOUND = 0.03
 
+# train_lm: K5's backward (csrc/flash_attention_bwd.cu) at BWD_SHAPES, (B,
+# Sq, Skv, H, KH, D, causal, window), against its plain version: dq, dk and
+# dv within BWD_TOL relative Frobenius (the same f32 products summed in
+# other orders; measured ~1e-6), the lse within attn_tol(D).  (b)
+# TRAIN_ARCH's first PARITY_LAYERS layers at full width, card vs CPU, on
+# TRAIN_PARITY_BATCH x TRAIN_PARITY_SEQ tokens: the loss within
+# TRAIN_LOSS_TOL relative and every parameter's gradient within
+# TRAIN_GRAD_TOL relative Frobenius (fp32 GEMMs and K5 on the card against
+# plain PyTorch on the CPU, GEN_TOL's reasoning; the vocab-wide softmax's
+# gradient sums 100,352 terms).  (c) TRAIN_ARCH at full width, TRAIN_STEPS
+# steps of make_train_step(peak_lr=TRAIN_LR) on synthetic_lm_batch at
+# TRAIN_BATCH x TRAIN_SEQ tokens (train_4k's sequence length).  (d)
+# tests/test_serving_train.py's overfit (TRAIN_ARCH reduced to 2 layers and
+# d_model 128, OVERFIT_STEPS steps at TRAIN_LR, total_steps OVERFIT_TOTAL,
+# a fixed (2, 33) batch) on the card against the CPU: every loss within
+# OVERFIT_TOL of the CPU's relative to 1 + |loss| (on a CPU, scaling every
+# weight by 1 + 1e-6 noise moved the 40 losses by 1.5e-6 relative at most:
+# the trajectory does not amplify the card's ~1e-6 per-op drift).
+BWD_SHAPES = {"stablelm_1p6b": (1, 4096, 4096, 32, 32, 64, True, 0),
+              "gqa8_d128": (1, 512, 512, 32, 4, 128, True, 0),
+              "gemma3_12b_window": (1, 2048, 2048, 16, 8, 256, True, 1024),
+              "non_causal_d80": (2, 128, 128, 12, 12, 80, False, 0),
+              "ragged": (1, 77, 77, 8, 2, 64, True, 0),
+              "masked_rows": (1, 96, 40, 4, 2, 64, True, 16)}
+BWD_TOL = 1e-4
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_LR = "stablelm-1.6b", 3, 3e-3
+TRAIN_BATCH, TRAIN_SEQ = 1, 4096
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+OVERFIT_STEPS, OVERFIT_TOTAL, OVERFIT_TOL = 40, 60, 1e-4
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -837,21 +911,25 @@ def bound(nbytes: float, ops: float,
 
 def flash_ptxas(lines) -> object:
     """``ptxas``'s registers and spill stores per ``flash_attention``
-    entry (dtype, head dim, warps sharing a row tile), checking that none
-    spills; "not rebuilt" when the library was built before this run."""
+    entry (dtype, head dim, warps sharing a row tile, and `` lse`` for the
+    f32 entries that also write the rows' log-sum-exp, the training
+    forward's: 16 + 8), checking that none spills; "not rebuilt" when the
+    library was built before this run."""
     import re
     if not lines:
         return "not rebuilt in this run"
     out = {}
     for ln in lines:
-        kind = re.search(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E", ln)
+        kind = re.search(r"flash_fwdI(f|13__nv_bfloat16)Li(\d+)ELi(\d)E"
+                         r"Lb(\d)E", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         spill = re.search(r"(\d+) bytes spill stores", ln)
         check(kind and regs and spill, f"unread ptxas line: {ln}")
         dtype = "f32" if kind[1] == "f" else "bf16"
-        out[f"{dtype} D={kind[2]} x{kind[3]}"] = [int(regs[1]),
-                                                  int(spill[1])]
-    check(len(out) == 16, f"flash_attention: {len(out)} entries, not 16")
+        lse = " lse" if kind[4] == "1" else ""
+        out[f"{dtype} D={kind[2]} x{kind[3]}{lse}"] = [int(regs[1]),
+                                                       int(spill[1])]
+    check(len(out) == 24, f"flash_attention: {len(out)} entries, not 24")
     spilled = {k: v for k, v in out.items() if v[1]}
     check(not spilled, f"flash_attention spills: {spilled}")
     return {"registers_and_spill_bytes": out}
@@ -1046,10 +1124,11 @@ def profiled(fn, count=(), events=False) -> dict:
 
 def zero_launches() -> None:
     """Sets the launch counts of ``ivf_topk``, ``slab_topk`` (by mode),
-    ``flash_attention`` (by mask, and those with a window) and
-    ``decode_attention`` to 0."""
+    ``flash_attention`` (by mask, and those with a window), its backward
+    ``flash_attention_bwd`` and ``decode_attention`` to 0."""
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
     from repro_torch.kernels.ivf_topk import topk_ip
     from repro_torch.kernels.slab_topk import slab_topk
     topk_ip.launches = slab_topk.launches = 0
@@ -1058,6 +1137,7 @@ def zero_launches() -> None:
     flash_attention.launches_by_mask = dict.fromkeys(
         flash_attention.launches_by_mask, 0)
     flash_attention.launches_windowed = 0
+    flash_attention_bwd.launches = 0
 
 
 def launch_counts() -> dict:
@@ -5409,12 +5489,25 @@ def flash_library(q, k, v, causal, window):
     return lambda: sdpa(q, k, v, attn_mask=mask)
 
 
+def k5_call(q, k, v, causal, window: int = 0, with_lse: bool = False):
+    """One call of K5 at an input: the serving entry (``flash_attention``
+    with no grad), or with ``with_lse`` the entry that also writes the
+    rows' log-sum-exp, which the training forward launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    if with_lse:
+        return lambda: fa_ops._launch(q, k, v, causal, window,
+                                      with_lse=True)
+    return lambda: flash_attention(q, k, v, causal=causal, window=window)
+
+
 def k5_row(name, q, k, v, causal, launches, err, k5_dev,
-           window: int = 0) -> dict:
+           window: int = 0, with_lse: bool = False) -> dict:
     """A ``kernels`` line row of K5 at one input; bound and library as in
     :func:`attention_rows` (the pairs under the window, if any, and SDPA
-    with its mask); ``k5_dev``: :func:`k5_device_ms_at` at it."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    with its mask); ``k5_dev``: :func:`k5_device_ms_at` at it, with the
+    same ``with_lse``, which times the training entry (:func:`k5_call`)
+    and adds the serving entry's device ms beside it."""
     (b, sq, h, d), skv = q.shape, k.shape[1]
     pairs = int(flash_mask(sq, skv, causal, window, "cpu").sum())
     lim = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
@@ -5424,14 +5517,16 @@ def k5_row(name, q, k, v, causal, launches, err, k5_dev,
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
         "launches": launches, "max_abs_err": err,
-        "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                              window=window), 200),
+        "ms": cuda_ms(k5_call(q, k, v, causal, window, with_lse), 200),
         "plain_ms": cuda_ms(lambda: flash_plain(q, k, v, causal, window),
                             10),
         "bound_ms": lim[0], "bound_by": lim[1],
         "library_ms": cuda_ms(flash_library(q, k, v, causal, window), 200),
         "device_ms": k5_dev["flash_attention"]["device_ms_per_call"],
-        "library_device_ms": k5_dev["sdpa"]["device_ms_per_call"]}
+        "library_device_ms": k5_dev["sdpa"]["device_ms_per_call"],
+        **({"serving_entry_device_ms":
+            k5_dev["serving_entry"]["device_ms_per_call"]}
+           if with_lse else {})}
 
 
 def k6_row(name, q, kc, vc, lens, launches, err, k6_dev) -> dict:
@@ -5540,14 +5635,16 @@ def k5_device_ms(rec_flash, calls: int = 100) -> dict:
 
 
 def k5_device_ms_at(q, k, v, causal, calls: int = 100,
-                    window: int = 0) -> dict:
-    """Device ms per call of K5 and of ``scaled_dot_product_attention``
-    (GQA through ``enable_gqa``) with the same mask at one input."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    return device_ms(
-        {"flash_attention": lambda: flash_attention(q, k, v, causal=causal,
-                                                    window=window),
-         "sdpa": flash_library(q, k, v, causal, window)}, calls)
+                    window: int = 0, with_lse: bool = False) -> dict:
+    """Device ms per call of K5 (:func:`k5_call`) and of
+    ``scaled_dot_product_attention`` (GQA through ``enable_gqa``) with the
+    same mask at one input; with ``with_lse`` K5 is the training entry and
+    ``serving_entry`` the serving one."""
+    runs = {"flash_attention": k5_call(q, k, v, causal, window, with_lse),
+            "sdpa": flash_library(q, k, v, causal, window)}
+    if with_lse:
+        runs["serving_entry"] = k5_call(q, k, v, causal, window)
+    return device_ms(runs, calls)
 
 
 def device_ms(runs: dict, calls: int) -> dict:
@@ -5614,7 +5711,358 @@ def cold_l2_device_ms(fn, event: str, calls: int = 100) -> dict:
     return out
 
 
+def bwd_ptxas(lines) -> object:
+    """``ptxas``'s registers and spill stores per entry of K5's backward
+    (``flash_bwd_prep``, and ``flash_bwd_dkv`` / ``flash_bwd_dq`` at head
+    dims 64, 80, 128, 256: 9), checking that none spills; "not rebuilt"
+    when the library was built before this run."""
+    import re
+    if not lines:
+        return "not rebuilt in this run"
+    out = {}
+    for ln in lines:
+        kind = re.search(r"flash_bwd_(prep|dkv|dq)(?:ILi(\d+)E)?", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        spill = re.search(r"(\d+) bytes spill stores", ln)
+        check(kind and regs and spill, f"unread ptxas line: {ln}")
+        key = kind[1] if kind[2] is None else f"{kind[1]} D={kind[2]}"
+        out[key] = [int(regs[1]), int(spill[1])]
+    check(len(out) == 9, f"flash_attention_bwd: {len(out)} entries, not 9")
+    spilled = {k: v for k, v in out.items() if v[1]}
+    check(not spilled, f"flash_attention_bwd spills: {spilled}")
+    return {"registers_and_spill_bytes": out}
+
+
+def bwd_bound(q, k, causal: bool, window: int) -> tuple:
+    """:func:`bound` of K5's backward at q (B, Sq, H, D), k (B, Skv, KH,
+    D): q, k, v, out, dout, lse read once and dq, dk, dv written once,
+    against the five products (S, dP, dV, dK, dQ: 2 FLOP a pair and dim
+    each) at the card's fp32-accurate peak, 3xTF32 on the tensor cores
+    (as for K5's forward), whatever unit the kernel runs them on."""
+    (b, sq, h, d), skv = q.shape, k.shape[1]
+    nbytes = (4 * q.numel() + 4 * k.numel() + b * h * sq) * 4
+    pairs = int(flash_mask(sq, skv, causal, window, "cpu").sum())
+    return bound(nbytes, 10 * b * h * d * pairs, F32_TC_FLOPS_PER_S)
+
+
+def bwd_check(dev, name: str, shape: tuple, seed: int) -> tuple:
+    """K5's backward (``flash_attention_bwd``) at one shape on the card,
+    against ``flash_attention_bwd_ref`` on the same inputs (q, k, v, dout
+    ~ N(0, 1); out and lse from K5 asked for its lse, whose output must be
+    bitwise K5's without it; the lse within :func:`attn_tol` of the plain
+    one on the rows with a valid key).  dq, dk and dv within ``BWD_TOL``
+    relative Frobenius; a second call bitwise the first.  Returns (its
+    entry, the inputs)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_ref, flash_attention_lse_ref)
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    b, sq, skv, h, kh, d, causal, window = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, sq, h, d), device=dev, generator=g)
+    k, v = (torch.randn((b, skv, kh, d), device=dev, generator=g)
+            for _ in range(2))
+    dout = torch.randn((b, sq, h, d), device=dev, generator=g)
+    out0, _ = fa_ops._launch(q, k, v, causal, window)
+    out, lse = fa_ops._launch(q, k, v, causal, window, with_lse=True)
+    check(torch.equal(out, out0), f"{name}: K5's output with its lse is "
+          f"not bitwise its output without")
+    heads = lambda *ts: [t.transpose(1, 2) for t in ts]
+    lse_ref = flash_attention_lse_ref(*heads(q, k), causal=causal,
+                                      window=window)
+    live = lse_ref > -1e29
+    dead = int((~live).sum()) // (b * h)
+    lse_err = float((lse - lse_ref)[live].abs().max())
+    check(lse_err <= attn_tol(d), f"{name}: lse error {lse_err}")
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                              window=window)
+    want = heads(*flash_attention_bwd_ref(*heads(q, k, v, out), lse,
+                                          *heads(dout), causal=causal,
+                                          window=window))
+    err = {}
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        rel = float(torch.linalg.norm(a - w)) / max(
+            float(torch.linalg.norm(w)), 1e-30)
+        err[gname] = {"rel_frobenius": rel,
+                      "max_abs": float((a - w).abs().max())}
+        check(rel <= BWD_TOL, f"{name}: {gname} relative error {rel} > "
+              f"{BWD_TOL}")
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                window=window)
+    check(all(torch.equal(x, y) for x, y in zip(again, got)),
+          f"{name}: two calls differ")
+    torch.cuda.synchronize()
+    entry = {"shape_b_sq_skv_h_kh_d": [b, sq, skv, h, kh, d],
+             "causal": causal, "window": window, "rows_with_no_key": dead,
+             "lse_max_abs_err": lse_err, "err": err, "tol": BWD_TOL,
+             "ms": cuda_ms(lambda: flash_attention_bwd(
+                 q, k, v, out, lse, dout, causal=causal, window=window),
+                 5 if sq * skv > 1 << 22 else 50)}
+    return entry, (q, k, v, out, lse, dout)
+
+
+def sdpa_bwd(q, k, v, dout, causal: bool):
+    """The yardstick of K5's backward: autograd's backward of
+    ``scaled_dot_product_attention`` (fp32, ``is_causal``) at the same
+    inputs, the forward run once outside the timed call."""
+    import torch
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = sdpa(qs, ks, vs, is_causal=causal)
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), dout,
+                                       retain_graph=True)
+
+
+def train_lm(ctx) -> tuple:
+    """The training path (``repro_torch.train``): K5's backward against its
+    plain version at ``BWD_SHAPES``; (b) TRAIN_ARCH's first PARITY_LAYERS
+    layers at full width, the loss and every gradient on the card against
+    the CPU; (c) TRAIN_ARCH at full width taking TRAIN_STEPS AdamW steps;
+    (d) the overfit of ``tests/test_serving_train.py`` on the card against
+    the CPU.  Returns (the phase's line, its ``kernels`` rows)."""
+    import copy
+    import dataclasses
+    import gc
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_ref)
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import init_params, loss_fn, param_count
+    from repro_torch.train import make_train_step, train_state_init
+
+    dev, smi = ctx["dev"], ctx["smi"]
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    def counts():
+        return {"flash_attention": dict(flash_attention.launches_by_mask),
+                "flash_attention_windowed":
+                    flash_attention.launches_windowed,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+
+    def want(fwd, bwd):
+        return {"flash_attention": {"causal": fwd, "non_causal": 0},
+                "flash_attention_windowed": 0, "flash_attention_bwd": bwd}
+
+    # ---- (a) the backward kernel against its plain version ------------
+    checks, full_inputs = {}, None
+    for i, (name, shape) in enumerate(BWD_SHAPES.items()):
+        checks[name], inputs = bwd_check(dev, name, shape, SEED + i)
+        if name == "stablelm_1p6b":
+            full_inputs = inputs
+        del inputs
+    check(checks["masked_rows"]["rows_with_no_key"] > 0,
+          "masked_rows has no row without a key")
+    q, k, v, out, lse, dout = full_inputs
+    full = BWD_SHAPES["stablelm_1p6b"]
+    bwd_fn = lambda: flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=True)
+    lib_fn = sdpa_bwd(q, k, v, dout, True)
+    bwd_dev = device_ms({"flash_attention_bwd": bwd_fn,
+                         "sdpa_bwd": lib_fn}, 10)
+    lim = bwd_bound(q, k, True, 0)
+    plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(
+        *(t.transpose(1, 2) for t in (q, k, v, out)), lse,
+        dout.transpose(1, 2), causal=True), 2)
+    bwd_row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
+        "gradient_of": "K5: port only, the JAX package differentiates "
+                       "plain jnp",
+        "launches": 0, "max_abs_err": max(
+            e["max_abs"] for e in checks["stablelm_1p6b"]["err"].values()),
+        "ms": cuda_ms(bwd_fn, 10), "plain_ms": plain_ms,
+        "bound_ms": lim[0], "bound_by": lim[1],
+        "library_ms": cuda_ms(lib_fn, 10),
+        "device_ms": bwd_dev["flash_attention_bwd"]["device_ms_per_call"],
+        "library_device_ms": bwd_dev["sdpa_bwd"]["device_ms_per_call"],
+        "shape": list(full)}
+    k5_err = attn_err(k5_call(q, k, v, True, with_lse=True)()[0],
+                      flash_plain(q, k, v, True))[0]
+    k5_dev = k5_device_ms_at(q, k, v, True, with_lse=True)
+    k5_rec = (q, k, v, k5_err, k5_dev)
+    del full_inputs, out, lse, dout, lib_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) PARITY_LAYERS layers at full width, card vs CPU ----------
+    cfg = get_config(TRAIN_ARCH)
+    cut = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
+    t0 = time.perf_counter()
+    m_cpu = init_params(cut, seed=SEED, device="cpu")
+    m_card = copy.deepcopy(m_cpu).to(dev)
+    init_s = time.perf_counter() - t0
+    toks = torch.randint(0, cfg.vocab_size, (TRAIN_PARITY_BATCH,
+                                             TRAIN_PARITY_SEQ + 1),
+                         generator=torch.Generator().manual_seed(SEED))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    grads, losses, secs = {}, {}, {}
+    zero_launches()
+    for where, m in (("cpu", m_cpu), ("card", m_card)):
+        m.requires_grad_(True)
+        b = {key: t.to(m.device) for key, t in batch.items()}
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(m, b)
+        grads[where] = torch.autograd.grad(loss, list(m.parameters()))
+        losses[where] = float(loss.detach())
+        if where == "card":
+            torch.cuda.synchronize()
+        secs[where] = time.perf_counter() - t0
+    parity_counts = counts()
+    check(parity_counts == want(2 * PARITY_LAYERS, PARITY_LAYERS),
+          f"parity launches {parity_counts}")
+    loss_err = abs(losses["card"] - losses["cpu"]) / losses["cpu"]
+    check(loss_err <= TRAIN_LOSS_TOL, f"parity loss {losses}")
+    worst = ("", 0.0)
+    for (pname, _), a, w in zip(m_cpu.named_parameters(), grads["card"],
+                                grads["cpu"]):
+        rel = float(torch.linalg.norm(a.cpu() - w)) / max(
+            float(torch.linalg.norm(w)), 1e-30)
+        worst = max(worst, (pname, rel), key=lambda x: x[1])
+    check(worst[1] <= TRAIN_GRAD_TOL, f"parity gradient {worst}")
+    parity = {"layers": PARITY_LAYERS, "tokens": [TRAIN_PARITY_BATCH,
+                                                  TRAIN_PARITY_SEQ],
+              "params": param_count(m_cpu), "init_s": init_s,
+              "loss": losses, "loss_rel_err": loss_err,
+              "loss_tol": TRAIN_LOSS_TOL,
+              "worst_grad": {"param": worst[0], "rel_frobenius": worst[1]},
+              "grad_tol": TRAIN_GRAD_TOL, "seconds": secs,
+              "launches": parity_counts}
+    del m_cpu, m_card, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) full width, TRAIN_STEPS AdamW steps -----------------------
+    allocated_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = param_count(model)
+    state = train_state_init(model)
+    params = list(model.parameters())
+    start = [p.detach().clone() for p in params]
+    step = make_train_step(cfg, peak_lr=TRAIN_LR)
+    rng = np.random.default_rng(SEED)
+    batches = [synthetic_lm_batch(rng, cfg, TRAIN_BATCH, TRAIN_SEQ + 1,
+                                  device=dev)
+               for _ in range(TRAIN_STEPS + 1)]
+    metrics, step_s = [], []
+    zero_launches()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[i])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        metrics.append(m)
+        if i == 0:
+            check(all(torch.equal(p, s) for p, s in zip(params, start)),
+                  "step 0 (lr 0) moved a parameter")
+    full_counts = counts()
+    layers = cfg.num_layers
+    check(full_counts == want(2 * layers * TRAIN_STEPS, layers * TRAIN_STEPS),
+          f"full-width launches {full_counts}")
+    unmoved = [n for (n, p), s in zip(model.named_parameters(), start)
+               if torch.equal(p, s)]
+    check(not unmoved, f"parameters not moved by step 2: {unmoved}")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+              and m["grad_norm"] > 0 for m in metrics),
+          f"non-finite or zero metrics {metrics}")
+    ln_v = math.log(cfg.vocab_size)
+    check(abs(metrics[0]["loss"] - ln_v) <= 0.5,
+          f"step 0 loss {metrics[0]['loss']}, ln(vocab) {ln_v}")
+    peak = torch.cuda.max_memory_allocated()
+    del start
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], batches[TRAIN_STEPS])
+
+    prof = profiled(one_step, events=True)
+    split = {"k5_forward": 0.0, "k5_backward": 0.0, "gemm": 0.0, "rest": 0.0}
+    for ev, (_, ms) in prof.pop("events").items():
+        low = ev.lower()
+        key = ("k5_forward" if "flash_fwd" in ev else
+               "k5_backward" if "flash_bwd" in ev else
+               "gemm" if "gemm" in low or "gemv" in low else "rest")
+        split[key] += ms
+    steady = step_s[1:]
+    full_width = {
+        "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
+        "heads": [cfg.num_heads, cfg.head_dim], "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "params": n_params,
+        "param_bytes": n_params * 4, "tokens": [TRAIN_BATCH, TRAIN_SEQ],
+        "peak_lr": TRAIN_LR, "draw_s": draw_s,
+        "allocated_before_bytes": allocated_before,
+        "metrics": metrics, "ln_vocab": ln_v, "step_s": step_s,
+        "s_per_step_1_2": sum(steady) / len(steady),
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(steady) / sum(steady),
+        "max_memory_allocated": peak, "launches": full_counts,
+        "profiled_step": {**prof, "device_ms_split": split}}
+    del state, holder, one_step, model, params, batches, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the overfit, card vs CPU ----------------------------------
+    small = cfg.reduced(num_layers=2, d_model=128)
+    toks = np.random.default_rng(0).integers(0, small.vocab_size, (2, 33))
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(torch.int32),
+             "labels": torch.from_numpy(toks[:, 1:]).to(torch.int32)}
+    losses, fit_s = {}, {}
+    for where, device in (("cpu", cpu), ("card", dev)):
+        state = train_state_init(init_params(small, seed=SEED,
+                                             device="cpu").to(device))
+        step = make_train_step(small, peak_lr=TRAIN_LR,
+                               total_steps=OVERFIT_TOTAL)
+        b = {key: t.to(device) for key, t in batch.items()}
+        zero_launches()
+        t0 = time.perf_counter()
+        losses[where] = []
+        for _ in range(OVERFIT_STEPS):
+            state, m = step(state, b)
+            losses[where].append(m["loss"])
+        fit_s[where] = time.perf_counter() - t0
+        fit_counts = counts()
+    check(fit_counts == want(2 * 2 * OVERFIT_STEPS, 2 * OVERFIT_STEPS),
+          f"overfit launches {fit_counts}")
+    fit = losses["card"]
+    check(fit[-1] < 0.7 * fit[0], f"no overfit on the card: {fit[::8]}")
+    drift = max(abs(a - w) / (1 + abs(w))
+                for a, w in zip(fit, losses["cpu"]))
+    check(drift <= OVERFIT_TOL, f"overfit card vs CPU drift {drift}")
+    overfit = {"arch": small.name, "steps": OVERFIT_STEPS,
+               "total_steps": OVERFIT_TOTAL, "losses_card": fit,
+               "losses_cpu_first_last": [losses["cpu"][0],
+                                         losses["cpu"][-1]],
+               "max_drift": drift, "tol": OVERFIT_TOL, "seconds": fit_s,
+               "launches": fit_counts}
+
+    bwd_row["launches_by_phase"] = {
+        "train_lm_full_width": full_counts["flash_attention_bwd"],
+        "train_lm_parity": parity_counts["flash_attention_bwd"],
+        "train_lm_overfit": fit_counts["flash_attention_bwd"]}
+    bwd_row["launches"] = sum(bwd_row["launches_by_phase"].values())
+    q, k, v, k5_err, k5_dev = k5_rec
+    fwd_by_phase = {
+        "train_lm_full_width": full_counts["flash_attention"]["causal"]}
+    k5_train = k5_row("flash_attention_stablelm_1p6b_train", q, k, v, True,
+                      sum(fwd_by_phase.values()), k5_err, k5_dev,
+                      with_lse=True)
+    k5_train["launches_by_phase"] = fwd_by_phase
+    line = {"phase": "train_lm", "nvidia_smi": smi,
+            "bwd_checks": checks, "bwd_full_width": bwd_row,
+            "bwd_vs_sdpa_device": bwd_dev, "parity": parity,
+            "full_width": full_width, "overfit": overfit,
+            "phase_s": time.perf_counter() - t_phase}
+    return line, [bwd_row, k5_train]
+
+
 def main() -> int:
+    import gc
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5651,6 +6099,7 @@ def main() -> int:
     k5_ptxas = flash_ptxas(_build.ptxas_report.get("flash_attention"))
     topk_ptxas = tiled_ptxas(_build.ptxas_report)
     k6_ptxas = decode_ptxas(_build.ptxas_report.get("decode_attention"))
+    bwd_ptx = bwd_ptxas(_build.ptxas_report.get("flash_attention_bwd"))
     emit({"phase": "env", "nvidia_smi": smi,
           "device": torch.cuda.get_device_name(0),
           "device_count": torch.cuda.device_count(),
@@ -5659,6 +6108,7 @@ def main() -> int:
           "build_s_per_kernel": per_kernel_s,
           "flash_attention_ptxas": k5_ptxas, "topk_tiled_ptxas": topk_ptxas,
           "decode_attention_ptxas": k6_ptxas,
+          "flash_attention_bwd_ptxas": bwd_ptx,
           "ptxas": _build.ptxas_report})
 
     # ---- main path ------------------------------------------------------
@@ -6185,6 +6635,14 @@ def main() -> int:
           "lost_max": max(lost for _, lost in LEAD_IN_LOST),
           "s_since_first_window_and_lost": [
               [round(t - t_first, 1), lost] for t, lost in LEAD_IN_LOST]})
+
+    # ---- training: the last phase, with the generators freed ------------
+    del engine, gen, ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+    train, train_rows = train_lm({"dev": dev, "smi": smi})
+    emit(train)
+    kernels += train_rows
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -14,6 +14,10 @@ the JAX side), so the port itself never touches JAX.
   position's leaf is ``None``: its one block takes the unstacked
   ``tree["shared"]``, once.  Matrices keep the JAX (in, out) layout on
   both sides.
+* :func:`params_to_jax` — the inverse: the model as the JAX params tree
+  (numpy leaves), each pattern position's parameters stacked over depth,
+  a ``"shared_attn"`` position ``None`` and its one block under
+  ``"shared"``; what ``repro.train.checkpoint`` writes and reads.
 * :func:`index_state_from_numpy` — loads another index's centroids and
   cluster assignment into a port index (then runs Alg. 1 as ``build``
   does).  Parity tests use it because k-means argmin near-ties make two
@@ -30,7 +34,7 @@ the JAX side), so the port itself never touches JAX.
 from __future__ import annotations
 
 from functools import reduce
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -72,12 +76,55 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
                 src = tree["blocks"][layer % width]
                 pick = lambda a, r=layer // width: a[r]
             for name, dst in block.named_parameters():
-                path = name.split(".")
-                if isinstance(block, AttnBlock) and block.moe is None \
-                        and name in ("gate", "up", "down"):
-                    path = ["mlp", name]
+                path = _block_path(block, name)
                 dst.copy_(as_t(pick(reduce(lambda d, k: d[k], path, src))))
     return model
+
+
+def _block_path(block, name: str) -> List[str]:
+    """A parameter's path in the JAX tree's block dict."""
+    if isinstance(block, AttnBlock) and block.moe is None \
+            and name in ("gate", "up", "down"):
+        return ["mlp", name]
+    return name.split(".")
+
+
+def _block_tree(blocks: Sequence, stacked: bool = True) -> Dict[str, Any]:
+    """The JAX tree of one pattern position: each parameter of
+    ``blocks`` (the position's layers in depth order) stacked over a
+    leading axis, or the one shared block's unstacked."""
+    tree: Dict[str, Any] = {}
+    per = [dict(b.named_parameters()) for b in blocks]
+    for name in per[0]:
+        arr = np.stack([p[name].detach().cpu().numpy() for p in per])
+        *head, leaf = _block_path(blocks[0], name)
+        reduce(lambda d, k: d.setdefault(k, {}), head, tree)[leaf] = \
+            arr if stacked else arr[0]
+    return tree
+
+
+def params_to_jax(model: Model) -> Dict[str, Any]:
+    """The JAX params tree of ``model`` (f32 numpy leaves), the layout
+    :func:`params_from_jax` reads: ``"blocks"`` a tuple with one entry per
+    pattern position, each leaf stacked over ``depth_repeat``; a
+    ``"shared_attn"`` position ``None`` and ``"shared"`` its one block,
+    unstacked."""
+    cfg = model.cfg
+    host = lambda t: t.detach().cpu().numpy().copy()
+    tree: Dict[str, Any] = {"embed": host(model.embed),
+                            "final_norm": host(model.final_norm)}
+    if model.lm_head is not None:
+        tree["lm_head"] = host(model.lm_head)
+    width, blocks = len(cfg.block_pattern), []
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind == "shared_attn":
+            tree["shared"] = _block_tree([model.blocks[i]], stacked=False)
+            blocks.append(None)
+        else:
+            blocks.append(_block_tree([model.blocks[r * width + i] for r in
+                                       range(cfg.depth_repeat)]))
+    tree["blocks"] = tuple(blocks)
+    return tree
 
 
 def pq_codebook_from_numpy(codebooks: np.ndarray, dim: int,

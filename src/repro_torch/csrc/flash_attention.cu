@@ -204,13 +204,17 @@ __device__ __forceinline__ void stage(T* dst, const T* src, long long stride,
   }
 }
 
-template <class T, int D, int kGroups>
-__global__ void __launch_bounds__(kThreads,
-                                  (Layout<T, D, kGroups>::kMinBlocks))
+// kLse: also write each row's log-sum-exp (f32 only; the training path's
+// forward, whose backward reads it); the serving entries are kLse = false,
+// and compile as if the store were not there.
+template <class T, int D, int kGroups, bool kLse>
+__global__ void __launch_bounds__(
+    kThreads, (kLse ? 1 : Layout<T, D, kGroups>::kMinBlocks))
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ out, Strides qs,
           Strides ks_, Strides vs_, Strides os, int sq, int skv, int group,
-          int causal, int window, float scale, int vec) {
+          int causal, int window, float scale, int vec,
+          float* __restrict__ lse) {
   using Ly = Layout<T, D, kGroups>;
   constexpr int kBK = Ly::kBK, kPK = Ly::kPitchK, kPV = Ly::kPitchV;
   constexpr int kSteps = D / 8;           // 8-dim steps of q . k and of O
@@ -416,6 +420,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       const float mn = fmaxf(m[r], m1);
       const float a0 = expf(m[r] - mn), a1 = expf(m1 - mn);
       l[r] = l[r] * a0 + l1 * a1;
+      if constexpr (kLse) m[r] = mn;   // the row's (m, l), for its lse
 #pragma unroll
       for (int n = 0; n < kSteps; ++n)
 #pragma unroll
@@ -430,6 +435,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
     if (rows[r] >= sq) continue;
     const float den = fmaxf(l[r], 1e-20f);
+    if constexpr (kLse) {
+      if (t == 0)   // the quad holds one (m, l) a row
+        lse[((long long)b * gridDim.y + head) * sq + rows[r]] =
+            m[r] + logf(den);
+    }
     T* op = out + b * os.b + (long long)rows[r] * os.s + head * os.h + 2 * t;
 #pragma unroll
     for (int n = 0; n < kSteps; ++n) {
@@ -446,13 +456,13 @@ bool aligned16(const T* p, const Strides& s) {
          s.s % kVec == 0 && s.h % kVec == 0;
 }
 
-template <class T, int D, int kGroups>
+template <class T, int D, int kGroups, bool kLse>
 int launch(const T* q, const T* k, const T* v, T* out, const Strides& qs,
            const Strides& ks, const Strides& vs, int b, int sq, int skv,
-           int h, int kh, int causal, int window, float scale,
+           int h, int kh, int causal, int window, float scale, float* lse,
            cudaStream_t stream) {
   using Ly = Layout<T, D, kGroups>;
-  const auto kernel = flash_fwd<T, D, kGroups>;
+  const auto kernel = flash_fwd<T, D, kGroups, kLse>;
   // the opt-in holds for the current device only, so it is set on every
   // launch that needs it (a cheap host call), never cached
   if (Ly::kBytes > 48 * 1024) {
@@ -468,23 +478,28 @@ int launch(const T* q, const T* k, const T* v, T* out, const Strides& qs,
   const dim3 grid((sq + Ly::kBQ - 1) / Ly::kBQ, h, b);
   kernel<<<grid, kThreads, Ly::kBytes, stream>>>(
       q, k, v, out, qs, ks, vs, os, sq, skv, h / kh, causal, window, scale,
-      vec);
+      vec, lse);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16.  Strides are in elements; out is a
-// contiguous (B, Sq, H, D) tensor of q's dtype.  Returns a cudaError_t
-// (cudaErrorInvalidValue for a head dim other than 64, 80, 128 or 256, or
-// shapes the grid cannot hold).
+// contiguous (B, Sq, H, D) tensor of q's dtype.  lse, when not null (f32
+// only), is a contiguous (B, H, Sq) f32 tensor that takes each row's
+// log-sum-exp of its scaled, masked scores, m + log(max(l, 1e-20)) from
+// the row's final (m, l) (the backward's input, flash_attention_bwd.cu);
+// out is the same with or without it.  Returns a cudaError_t
+// (cudaErrorInvalidValue for a head dim other than 64, 80, 128 or 256, a
+// bf16 call asking for the lse, or shapes the grid cannot hold).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, long long qsb,
                                long long qss, long long qsh, long long ksb,
                                long long kss, long long ksh, long long vsb,
                                long long vss, long long vsh, int b, int sq,
                                int skv, int h, int kh, int d, int causal,
-                               int window, float scale, cudaStream_t stream) {
+                               int window, float scale, void* lse,
+                               cudaStream_t stream) {
   if (b < 1 || b > 65535 || h < 1 || h > 65535 || kh < 1 || h % kh != 0 ||
       sq < 1 || skv < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
@@ -496,9 +511,24 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     const auto* kp = static_cast<const T*>(k);
     const auto* vp = static_cast<const T*>(v);
     auto* op = static_cast<T*>(out);
-    return causal ? launch<T, D, 2>(qp, kp, vp, op, qs, ks, vs, b, sq, skv, h,
-                                    kh, 1, window, scale, stream)
-                  : launch<T, D, 1>(qp, kp, vp, op, qs, ks, vs, b, sq, skv, h,
-                                    kh, 0, window, scale, stream);
+    if (lse != nullptr) {
+      if constexpr (std::is_same<T, float>::value) {
+        auto* lp = static_cast<float*>(lse);
+        return causal ? launch<T, D, 2, true>(qp, kp, vp, op, qs, ks, vs, b,
+                                              sq, skv, h, kh, 1, window,
+                                              scale, lp, stream)
+                      : launch<T, D, 1, true>(qp, kp, vp, op, qs, ks, vs, b,
+                                              sq, skv, h, kh, 0, window,
+                                              scale, lp, stream);
+      } else {
+        return (int)cudaErrorInvalidValue;   // the lse is f32 only
+      }
+    }
+    return causal ? launch<T, D, 2, false>(qp, kp, vp, op, qs, ks, vs, b, sq,
+                                           skv, h, kh, 1, window, scale,
+                                           nullptr, stream)
+                  : launch<T, D, 1, false>(qp, kp, vp, op, qs, ks, vs, b, sq,
+                                           skv, h, kh, 0, window, scale,
+                                           nullptr, stream);
   });
 }

@@ -21,6 +21,7 @@ at every application: one set of parameters (``parameters()`` and
 
 Public entry points, as in the JAX package:
   init_params                          (random weights from a seed)
+  forward / loss_fn                    (training)
   prefill / decode_step                (serving)
   encode                               (mean-pooled sentence embedding)
 
@@ -35,8 +36,10 @@ Semantics kept from the reference: ``rms_norm`` scales by ``1 + w``; RoPE
 rotates the two halves of the head dim (M-RoPE each band by its stream's
 position); SwiGLU MLP, or in a ``"moe"`` / ``"swa_moe"`` layer the
 mixture of experts of ``models.moe`` (dropless in decode, ``capacity = B *
-S``; the config's capacity factor in prefill and encode; its load-balance
-loss is dropped here, as serving drops it); an untied ``lm_head`` when the
+S``; the config's capacity factor in prefill, training and encode; its
+load-balance losses, summed over the layers, are what ``forward`` returns
+as ``aux`` and ``loss_fn`` adds, and what serving drops); an untied
+``lm_head`` when the
 config says so; prefill attends causally with NO padding mask (an
 ``"swa"`` / ``"swa_moe"`` layer also within its window); decode inserts k /
 v at ``cache_len`` (an int, or (B,) per-slot lengths) and attends over
@@ -56,7 +59,14 @@ one function the prefill kernel computes): ``flash_attention`` in prefill
 ``decode_attention`` in decode (over a ring with no window: a ring holds
 only the window's tokens, and a length of its rows or more makes every
 row valid).  On the CPU the model runs the plain functions of
-``models.attention``.  The
+``models.attention``, and its gradient is autograd's through them, as the
+JAX package differentiates its ``jnp`` attention; on the card the
+gradient of ``flash_attention`` is its hand-written backward kernel.  In
+training (:func:`forward` under grad mode) each block runs under
+``torch.utils.checkpoint`` (non-reentrant), so its activations are
+recomputed in the backward, as the reference checkpoints each pattern
+group: every attention layer launches ``flash_attention`` twice a step
+(the forward and its recompute) and its backward once.  The
 kernels have no logit softcap (nor have the TPU kernels), so a config with
 one raises on the card.
 """
@@ -66,6 +76,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -130,9 +141,11 @@ class AttnBlock(nn.Module):
                 causal: bool, mode: str, cache: Optional[KVCache],
                 cache_len: Union[int, torch.Tensor],
                 lengths: Union[int, torch.Tensor, DecodeLengths],
-                attn_impl: str):
+                attn_impl: str
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """``cache_len``: where decode inserts the token; ``lengths``: the
-        valid tokens it attends over, the current one included."""
+        valid tokens it attends over, the current one included.  Returns
+        (x, the MoE load-balance loss, or None without experts)."""
         b, s, _ = x.shape
         h = rms_norm(x, self.norm1, cfg.norm_eps)
         q = (h @ self.wq).view(b, s, cfg.num_heads, cfg.head_dim)
@@ -176,13 +189,13 @@ class AttnBlock(nn.Module):
         x = x + out.reshape(b, s, cfg.q_dim) @ self.wo
         h = rms_norm(x, self.norm2, cfg.norm_eps)
         if self.moe is None:
-            return x + mlp(self.gate, self.up, self.down, h)
+            return x + mlp(self.gate, self.up, self.down, h), None
         # decode is dropless: capacity = T covers the all-to-one worst case
-        y, _ = moe_block(self.moe, h, num_experts=cfg.num_experts,
-                         top_k=cfg.num_experts_per_tok,
-                         capacity_factor=cfg.expert_capacity_factor,
-                         capacity=b * s if mode == "decode" else 0)
-        return x + y
+        y, aux = moe_block(self.moe, h, num_experts=cfg.num_experts,
+                           top_k=cfg.num_experts_per_tok,
+                           capacity_factor=cfg.expert_capacity_factor,
+                           capacity=b * s if mode == "decode" else 0)
+        return x + y, aux
 
 
 class MambaBlock(nn.Module):
@@ -279,14 +292,18 @@ class Model(nn.Module):
 
     def run(self, x: torch.Tensor, positions: Optional[torch.Tensor], *,
             causal: bool, mode: str, caches: Optional[List[Cache]],
-            cache_len: Union[int, torch.Tensor],
-            attn_impl: str) -> torch.Tensor:
+            cache_len: Union[int, torch.Tensor], attn_impl: str,
+            remat: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Apply every block to the embedded inputs ``x`` (B, S, d);
-        returns the residual stream (B, S, d) before the final norm.
-        ``positions`` None means :meth:`positions`, starting at
-        ``cache_len`` in decode; the lengths the layers attend over are
-        checked once here, not once per layer (and not at all without an
-        attention layer)."""
+        returns (the residual stream (B, S, d) before the final norm, the
+        MoE layers' load-balance losses summed in layer order, or None
+        without a MoE layer).  ``positions`` None means :meth:`positions`,
+        starting at ``cache_len`` in decode; the lengths the layers attend
+        over are checked once here, not once per layer (and not at all
+        without an attention layer).  ``remat``: each block under
+        ``torch.utils.checkpoint`` (non-reentrant), its activations
+        recomputed in the backward."""
         b, s, _ = x.shape
         if positions is None:
             positions = self.positions(
@@ -299,17 +316,25 @@ class Model(nn.Module):
         lengths = cache_len + 1
         if mode == "decode" and x.is_cuda and self.attends:
             lengths = decode_lengths(lengths, b, x.device)
+        def apply(x, block, cache):
+            if isinstance(block, (RwkvBlock, MambaBlock)):
+                return block(x, self.cfg, cache), None
+            return block(x, self.cfg, positions=positions,
+                         inv_freq=self.inv_freq, causal=causal, mode=mode,
+                         cache=cache, cache_len=cache_len, lengths=lengths,
+                         attn_impl=attn_impl)
+
+        aux_total = None
         for i, block in enumerate(self.blocks):
             cache = None if caches is None else caches[i]
-            if isinstance(block, (RwkvBlock, MambaBlock)):
-                x = block(x, self.cfg, cache)
-                continue
-            x = block(x, self.cfg, positions=positions,
-                      inv_freq=self.inv_freq, causal=causal,
-                      mode=mode, cache=cache,
-                      cache_len=cache_len, lengths=lengths,
-                      attn_impl=attn_impl)
-        return x
+            if remat:
+                x, aux = checkpoint(apply, x, block, cache,
+                                    use_reentrant=False)
+            else:
+                x, aux = apply(x, block, cache)
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return x, aux_total
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
@@ -330,6 +355,51 @@ def param_count(model: Model) -> int:
     return sum(p.numel() for p in model.parameters())
 
 
+def forward(model: Model, batch: Dict[str, torch.Tensor], *,
+            attn_impl: str = "auto", compute_dtype=torch.float32, dist=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training forward: (logits (B, S, vocab), the MoE load-balance
+    losses summed over the layers, an f32 scalar, 0 without experts), the
+    reference's ``forward(mode="train")`` (serving's modes are
+    :func:`prefill` and :func:`decode_step`).  Under grad mode each block
+    runs under ``torch.utils.checkpoint``, as the reference checkpoints
+    each group in train mode.  fp32 only, on one device:
+    ``compute_dtype`` other than float32 raises (ROADMAP item 3), and so
+    does ``dist`` (the multi-device item 5)."""
+    if dist is not None:
+        raise NotImplementedError("forward(dist=...): the port runs on one "
+                                  "device (multi-device is ROADMAP item 5)")
+    if compute_dtype != torch.float32:
+        raise NotImplementedError(f"forward(compute_dtype={compute_dtype}):"
+                                  f" the port's model is fp32 only "
+                                  f"(compute_dtype is ROADMAP item 3)")
+    x, aux = model.run(model.embed_inputs(batch), batch.get("positions"),
+                       causal=True, mode="train", caches=None, cache_len=0,
+                       attn_impl=attn_impl, remat=torch.is_grad_enabled())
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return model.logits(x), aux
+
+
+def loss_fn(model: Model, batch: Dict[str, torch.Tensor], *,
+            compute_dtype=torch.float32, attn_impl: str = "auto",
+            dist=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy over ``batch["labels"]`` (B, S) under
+    ``batch["loss_mask"]`` (all ones if absent), plus
+    ``cfg.router_aux_loss_coef`` times the MoE load-balance loss.  Returns
+    (total, {"ce", "aux"}), f32 scalars, as the reference's ``loss_fn``."""
+    logits, aux = forward(model, batch, compute_dtype=compute_dtype,
+                          attn_impl=attn_impl, dist=dist)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    labels = batch["labels"].to(device=logp.device, dtype=torch.long)
+    ll = logp.gather(-1, labels[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(ll) if mask is None else mask.to(ll)
+    ce = -(ll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = ce + model.cfg.router_aux_loss_coef * aux
+    return total, {"ce": ce, "aux": aux}
+
+
 @torch.no_grad()
 def prefill(model: Model, batch: Dict[str, torch.Tensor],
             caches: List[Cache], *, attn_impl: str = "auto"
@@ -337,9 +407,9 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
     """Run the full prompt (``batch`` as the module docstring says),
     filling ``caches`` in place.  Returns (last-position logits (B, vocab),
     caches)."""
-    x = model.run(model.embed_inputs(batch), batch.get("positions"),
-                  causal=True, mode="prefill", caches=caches, cache_len=0,
-                  attn_impl=attn_impl)
+    x, _ = model.run(model.embed_inputs(batch), batch.get("positions"),
+                     causal=True, mode="prefill", caches=caches, cache_len=0,
+                     attn_impl=attn_impl)
     return model.logits(x[:, -1]), caches
 
 
@@ -355,9 +425,9 @@ def decode_step(model: Model, tokens_or_embeds: torch.Tensor,
     if isinstance(cache_len, torch.Tensor):
         cache_len = cache_len.to(device=model.device, dtype=torch.long)
     key = "tokens" if tokens_or_embeds.dim() == 2 else "embeds"
-    x = model.run(model.embed_inputs({key: tokens_or_embeds}), None,
-                  causal=True, mode="decode", caches=caches,
-                  cache_len=cache_len, attn_impl="auto")
+    x, _ = model.run(model.embed_inputs({key: tokens_or_embeds}), None,
+                     causal=True, mode="decode", caches=caches,
+                     cache_len=cache_len, attn_impl="auto")
     return model.logits(x[:, 0]), caches
 
 
@@ -367,9 +437,9 @@ def encode(model: Model, batch: Dict[str, torch.Tensor], *,
     """Bidirectional mean-pooled, unit-norm sentence embedding.  Padded
     tokens are attended; ``batch["attn_mask"]`` only selects what is
     pooled."""
-    x = model.run(model.embed_inputs(batch), batch.get("positions"),
-                  causal=False, mode="train", caches=None, cache_len=0,
-                  attn_impl=attn_impl)
+    x, _ = model.run(model.embed_inputs(batch), batch.get("positions"),
+                     causal=False, mode="train", caches=None, cache_len=0,
+                     attn_impl=attn_impl)
     x = rms_norm(x, model.final_norm, model.cfg.norm_eps)
     mask = batch.get("attn_mask")
     if mask is None:

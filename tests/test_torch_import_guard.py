@@ -48,6 +48,10 @@ def test_importing_every_module_loads_no_jax_or_repro():
                  "repro_torch.core.tenant",
                  "repro_torch.core.durability",
                  "repro_torch.serving.simulator",
+                 "repro_torch.train", "repro_torch.train.train_step",
+                 "repro_torch.train.checkpoint",
+                 "repro_torch.train.optimizer",
+                 "repro_torch.launch.train",
                  *(f"repro_torch.configs.{m}" for m in ARCH_MODULES)):
         assert name in mods
     code = ("import importlib, sys\n"
