@@ -611,9 +611,14 @@ Phases, one JSON line each:
                    ragged, rows with no valid key) against
                    ``flash_attention_bwd_ref`` on the card (TF32 off):
                    dq, dk, dv within ``BWD_TOL``, two calls bitwise equal,
-                   K5's output with its lse bitwise without, the lse
-                   within :func:`attn_tol`; at the full-width shape its
-                   ms, device ms, bound, plain ms and SDPA's backward.
+                   non-causal D 80's batch of 2 bitwise its elements run
+                   alone, K5's output with its lse bitwise without, the lse
+                   within :func:`attn_tol`; at every shape its device ms
+                   beside SDPA's backward of the same function (GQA,
+                   the window's mask; none where rows have no valid key:
+                   ``bwd_shapes_device_ms``);
+                   at the full-width shape its ms, bound, plain ms and
+                   SDPA's backward in the ``kernels`` row.
                    (b) stablelm-1.6b's first 2 layers at full width, one
                    set of weights drawn on the CPU and copied to the card,
                    2 x 128 tokens: the loss and every parameter's gradient
@@ -869,6 +874,16 @@ BWD_SHAPES = {"stablelm_1p6b": (1, 4096, 4096, 32, 32, 64, True, 0),
               "ragged": (1, 77, 77, 8, 2, 64, True, 0),
               "masked_rows": (1, 96, 40, 4, 2, 64, True, 16)}
 BWD_TOL = 1e-4
+# profiled calls per shape for K5's backward's device ms beside SDPA's
+# (none at masked_rows: SDPA gives its rows with no valid key NaN where K5
+# gives them the mean of V, so it is not the same function there)
+BWD_DEV_CALLS = {"gqa8_d128": 50, "gemma3_12b_window": 10,
+                 "non_causal_d80": 100, "ragged": 100, "masked_rows": 100}
+BWD_NO_LIBRARY = ("masked_rows",)
+# K5's backward's device ms at (1, 4096, 32, 64) causal before its tensor
+# core redesign (the CUDA-core f32 kernel, on an H100 80GB HBM3 at 700 W;
+# PERF.md), printed beside this run's as the parent value
+BWD_PARENT_DEVICE_MS = 11.64960
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_LR = "stablelm-1.6b", 3, 3e-3
 TRAIN_BATCH, TRAIN_SEQ = 1, 4096
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
@@ -5713,9 +5728,9 @@ def cold_l2_device_ms(fn, event: str, calls: int = 100) -> dict:
 
 def bwd_ptxas(lines) -> object:
     """``ptxas``'s registers and spill stores per entry of K5's backward
-    (``flash_bwd_prep``, and ``flash_bwd_dkv`` / ``flash_bwd_dq`` at head
-    dims 64, 80, 128, 256: 9), checking that none spills; "not rebuilt"
-    when the library was built before this run."""
+    (``flash_bwd_prep``, and the tensor-core passes ``flash_bwd_dkv`` /
+    ``flash_bwd_dq`` at head dims 64, 80, 128, 256: 9), checking that none
+    spills; "not rebuilt" when the library was built before this run."""
     import re
     if not lines:
         return "not rebuilt in this run"
@@ -5801,15 +5816,52 @@ def bwd_check(dev, name: str, shape: tuple, seed: int) -> tuple:
     return entry, (q, k, v, out, lse, dout)
 
 
-def sdpa_bwd(q, k, v, dout, causal: bool):
+def sdpa_bwd(q, k, v, dout, causal: bool, window: int = 0):
     """The yardstick of K5's backward: autograd's backward of
-    ``scaled_dot_product_attention`` (fp32, ``is_causal``) at the same
-    inputs, the forward run once outside the timed call."""
+    ``scaled_dot_product_attention`` (fp32; ``enable_gqa`` when H != KH,
+    ``is_causal`` or, under a window, K5's boolean mask, as
+    :func:`flash_library`) at the same inputs, the forward run once outside
+    the timed call."""
     import torch
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    out = sdpa(qs, ks, vs, is_causal=causal)
+    out = flash_library(qs, ks, vs, causal, window)()
     return lambda: torch.autograd.grad(out, (qs, ks, vs), dout,
                                        retain_graph=True)
+
+
+def bwd_batch_equal(name: str, inputs: tuple, causal: bool,
+                    window: int) -> int:
+    """Checks that K5's backward on a batch gives bitwise the dq, dk and dv
+    of each of its elements run alone; returns the batch size."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v, out, lse, dout = inputs
+    whole = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                window=window)
+    for e in range(q.shape[0]):
+        one = flash_attention_bwd(*(t[e:e + 1] for t in inputs),
+                                  causal=causal, window=window)
+        check(all(torch.equal(w[e:e + 1], o) for w, o in zip(whole, one)),
+              f"{name}: element {e} alone differs from the batch")
+    return q.shape[0]
+
+
+def bwd_device_ms(q, k, v, out, lse, dout, causal: bool, window: int,
+                  calls: int, library: bool = True) -> dict:
+    """Device ms per call of K5's backward and, with ``library``, of SDPA's
+    backward (:func:`sdpa_bwd`, the same function: GQA and the window's
+    mask) at one input, each over ``calls`` calls under
+    ``torch.profiler``."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    runs = {"flash_attention_bwd": lambda: flash_attention_bwd(
+        q, k, v, out, lse, dout, causal=causal, window=window)}
+    if library:
+        runs["sdpa_bwd"] = sdpa_bwd(q, k, v, dout, causal, window)
+    runs = device_ms(runs, calls)
+    return {"kernel_device_ms":
+            runs["flash_attention_bwd"]["device_ms_per_call"],
+            "sdpa_bwd_device_ms": runs["sdpa_bwd"]["device_ms_per_call"]
+            if library else None, "calls": calls}
 
 
 def train_lm(ctx) -> tuple:
@@ -5846,11 +5898,20 @@ def train_lm(ctx) -> tuple:
                 "flash_attention_windowed": 0, "flash_attention_bwd": bwd}
 
     # ---- (a) the backward kernel against its plain version ------------
-    checks, full_inputs = {}, None
+    checks, full_inputs, shape_dev = {}, None, {}
     for i, (name, shape) in enumerate(BWD_SHAPES.items()):
         checks[name], inputs = bwd_check(dev, name, shape, SEED + i)
+        causal, window = shape[6], shape[7]
+        if name == "non_causal_d80":
+            checks[name]["batch_bitwise_elements"] = bwd_batch_equal(
+                name, inputs, causal, window)
         if name == "stablelm_1p6b":
             full_inputs = inputs
+        else:   # the full-width shape's are timed below, beside its row
+            q, k, v, out, lse, dout = inputs
+            shape_dev[name] = bwd_device_ms(
+                q, k, v, out, lse, dout, causal, window,
+                BWD_DEV_CALLS[name], name not in BWD_NO_LIBRARY)
         del inputs
     check(checks["masked_rows"]["rows_with_no_key"] > 0,
           "masked_rows has no row without a key")
@@ -5861,6 +5922,11 @@ def train_lm(ctx) -> tuple:
     lib_fn = sdpa_bwd(q, k, v, dout, True)
     bwd_dev = device_ms({"flash_attention_bwd": bwd_fn,
                          "sdpa_bwd": lib_fn}, 10)
+    shape_dev = {"stablelm_1p6b": {
+        "kernel_device_ms": bwd_dev["flash_attention_bwd"][
+            "device_ms_per_call"],
+        "sdpa_bwd_device_ms": bwd_dev["sdpa_bwd"]["device_ms_per_call"]},
+        **shape_dev}
     lim = bwd_bound(q, k, True, 0)
     plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(
         *(t.transpose(1, 2) for t in (q, k, v, out)), lse,
@@ -5878,6 +5944,7 @@ def train_lm(ctx) -> tuple:
         "library_ms": cuda_ms(lib_fn, 10),
         "device_ms": bwd_dev["flash_attention_bwd"]["device_ms_per_call"],
         "library_device_ms": bwd_dev["sdpa_bwd"]["device_ms_per_call"],
+        "parent_device_ms": BWD_PARENT_DEVICE_MS,
         "shape": list(full)}
     k5_err = attn_err(k5_call(q, k, v, True, with_lse=True)()[0],
                       flash_plain(q, k, v, True))[0]
@@ -6054,7 +6121,8 @@ def train_lm(ctx) -> tuple:
                       with_lse=True)
     k5_train["launches_by_phase"] = fwd_by_phase
     line = {"phase": "train_lm", "nvidia_smi": smi,
-            "bwd_checks": checks, "bwd_full_width": bwd_row,
+            "bwd_checks": checks, "bwd_shapes_device_ms": shape_dev,
+            "bwd_full_width": bwd_row,
             "bwd_vs_sdpa_device": bwd_dev, "parity": parity,
             "full_width": full_width, "overfit": overfit,
             "phase_s": time.perf_counter() - t_phase}

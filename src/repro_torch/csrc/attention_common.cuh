@@ -1,8 +1,9 @@
 // Support shared by the attention kernels (flash_attention.cu,
-// decode_attention.cu): element strides of a (B, S, H, D) operand, f32 /
-// bf16 loads and stores, 16-byte cp.async copies into shared memory, and
-// the dispatch from the C interface's dtype code and head dim to a kernel
-// instantiated for them.
+// flash_attention_bwd.cu, decode_attention.cu): element strides of a (B,
+// S, H, D) operand, f32 / bf16 loads and stores, 16-byte cp.async copies
+// into shared memory, the 3xTF32 products of the tensor cores (split, mma,
+// mma3), and the dispatch from the C interface's dtype code and head dim
+// to a kernel instantiated for them.
 #pragma once
 
 #include <cmath>
@@ -43,6 +44,49 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" :: "n"(kPending) : "memory");
+}
+
+// x = hi + lo, hi rounded to nearest at 11 significant bits (Veltkamp: t =
+// x * 8193, hi = t - (t - x)); lo = x - hi is exact, and the tensor core
+// reads its top 11 bits
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const float t = __fmul_rn(x, 8193.f);
+  const float h = __fsub_rn(t, __fsub_rn(t, x));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(x, h));
+}
+
+// c += a . b, one m16n8k8 TF32 product with f32 accumulators.  Fragments
+// (g = lane / 4, t = lane % 4): a[0] A(g, t), a[1] A(g + 8, t), a[2] A(g,
+// t + 4), a[3] A(g + 8, t + 4); b[0] B(t, g), b[1] B(t + 4, g); c[0] C(g,
+// 2t), c[1] C(g, 2t + 1), c[2] C(g + 8, 2t), c[3] C(g + 8, 2t + 1).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b in 3xTF32 (lo.hi + hi.lo + hi.hi, small terms first) for a
+// split A and a B of two f32 values: exact in TF32 (bf16 K / V: lo is 0,
+// one product fewer) or split too.
+template <bool kExact>
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  if constexpr (kExact) {
+    const uint32_t bh[2] = {__float_as_uint(b0), __float_as_uint(b1)};
+    mma(c, al, bh);
+    mma(c, ah, bh);
+  } else {
+    uint32_t bh[2], bl[2];
+    split(b0, bh[0], bl[0]);
+    split(b1, bh[1], bl[1]);
+    mma(c, al, bh);
+    mma(c, ah, bl);
+    mma(c, ah, bh);
+  }
 }
 
 template <class T>

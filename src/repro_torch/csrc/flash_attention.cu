@@ -36,7 +36,8 @@
 // significant bits) and lo = x - hi (exact; the tensor core reads its top
 // 11 bits), and every product is lo.hi + hi.lo + hi.hi, small terms first,
 // into f32 accumulators (3xTF32, as CUTLASS's OpMultiplyAddFastF32 and
-// PyTorch's f32 SDPA do): about f32 accuracy, where one TF32 product would
+// PyTorch's f32 SDPA do; attention_common.cuh's split and mma3, shared
+// with the backward): about f32 accuracy, where one TF32 product would
 // miss the checks' bound by far.  (cvt.rna.tf32.f32 gives the same hi, but
 // compiles to a longer integer sequence.)  P stays
 // f32 and takes the same split; bf16 K / V widen exactly into TF32, so
@@ -105,6 +106,8 @@ using attn::cp_async_commit;
 using attn::cp_async_wait;
 using attn::kFull;
 using attn::kNegInf;
+using attn::mma3;
+using attn::split;
 using attn::Strides;
 using attn::widen;
 
@@ -131,43 +134,6 @@ struct Layout {
       kTileBytes + (kQShared ? kBQ * kPitchQ * 4 : 0);
   static constexpr int kMinBlocks = kGroups == 1 && D == 64 ? 3 : 1;
 };
-
-// x = hi + lo, hi rounded to nearest at 11 significant bits
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  const float t = __fmul_rn(x, 8193.f);
-  const float h = __fsub_rn(t, __fsub_rn(t, x));
-  hi = __float_as_uint(h);
-  lo = __float_as_uint(__fsub_rn(x, h));
-}
-
-// c += a . b, one m16n8k8 TF32 product with f32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a . b in 3xTF32 for a split A and a B of two f32 values: exact in
-// TF32 (bf16 K / V: lo is 0, one product fewer) or split too.
-template <bool kExact>
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0,
-                                     float b1) {
-  if constexpr (kExact) {
-    const uint32_t bh[2] = {__float_as_uint(b0), __float_as_uint(b1)};
-    mma(c, al, bh);
-    mma(c, ah, bh);
-  } else {
-    uint32_t bh[2], bl[2];
-    split(b0, bh[0], bl[0]);
-    split(b1, bh[1], bl[1]);
-    mma(c, al, bh);
-    mma(c, ah, bl);
-    mma(c, ah, bh);
-  }
-}
 
 __device__ __forceinline__ float2 widen2(const float* p) {
   return *reinterpret_cast<const float2*>(p);

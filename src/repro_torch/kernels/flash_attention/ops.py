@@ -100,8 +100,15 @@ def _heads(*ts: torch.Tensor):
     return [t.transpose(1, 2) for t in ts]
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous, starting at a multiple of 16 bytes (the
+    gradient kernel copies rows with 16-byte ``cp.async``)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch_bwd(q, k, v, out, lse, dout, causal: bool, window: int):
-    q, k, v, out, lse, dout = (t.contiguous()
+    q, k, v, out, lse, dout = (_aligned(t)
                                for t in (q, k, v, out, lse, dout))
     (b, sq, h, d), skv, kh = q.shape, k.shape[1], k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \

@@ -11,7 +11,8 @@ and ``tests/test_torch_attention_grad.py`` hold those to the JAX package).
 Tolerances (f32 on both sides, TF32 off):
 - ``GRAD_TOL`` = 1e-4 in relative Frobenius norm on dq, dk and dv: the
   kernel sums the same f32 products as the plain version in other orders
-  (64-key tiles, a thread's running sums), measured at ~1e-6; and the
+  (on the tensor cores in 3xTF32, tiles of 16 to 64 rows), measured at
+  ~1e-6; and the
   rows' log-sum-exp within ``LSE_TOL`` = 1e-5 x max(1, D / 64) of the
   plain one (scores of |s| < ~5 summed over D products, a few ulps of f32
   apart; measured 8.1e-6 at D = 256).
@@ -46,7 +47,17 @@ BWD_CASES = [(1, 300, 300, 8, 8, 64, True, 0),
              (1, 160, 160, 4, 2, 256, True, 64),
              (2, 100, 100, 4, 4, 80, False, 0),
              (1, 77, 77, 8, 2, 64, True, 0),
-             (1, 96, 40, 4, 2, 64, True, 16)]
+             (1, 96, 40, 4, 2, 64, True, 16),
+             # the edges of the kernel's tiles (64 x 64 at D = 64, 32 q
+             # rows or keys at D >= 80, 16 keys in the dQ pass at D = 256)
+             (1, 65, 65, 4, 2, 64, True, 0),
+             (1, 129, 129, 4, 4, 80, True, 0),
+             (1, 129, 129, 4, 2, 128, True, 0),
+             (2, 100, 37, 4, 2, 64, False, 0),    # non-causal, Sq > Skv
+             (1, 33, 150, 4, 4, 128, False, 0),   # non-causal, Sq < Skv
+             (1, 129, 129, 8, 1, 80, True, 0),    # GQA 8 over one kv head
+             (1, 129, 65, 4, 2, 256, False, 0),
+             (1, 150, 40, 4, 2, 256, True, 16)]   # rows with no valid key
 
 
 @pytest.fixture
@@ -93,6 +104,28 @@ def test_card_bwd_matches_the_plain_version(cuda, case):
     again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                 window=window)
     assert all(torch.equal(x, y) for x, y in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(3, 129, 129, 4, 2, 64, True, 0),
+                                  (2, 100, 70, 4, 4, 80, False, 0),
+                                  (2, 90, 40, 4, 2, 256, True, 16)])
+def test_card_bwd_batch_equals_its_elements(cuda, case):
+    """A batch's dq, dk and dv are bitwise those of each element run
+    alone: every sum runs in an order fixed by the element's own rows."""
+    b, sq, skv, h, kh, d, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(sq)
+    q = torch.randn((b, sq, h, d), device=cuda, generator=g)
+    k, v = (torch.randn((b, skv, kh, d), device=cuda, generator=g)
+            for _ in range(2))
+    dout = torch.randn((b, sq, h, d), device=cuda, generator=g)
+    out, lse = fa_ops._launch(q, k, v, causal, window, with_lse=True)
+    inputs = (q, k, v, out, lse, dout)
+    whole = flash_attention_bwd(*inputs, causal=causal, window=window)
+    for e in range(b):
+        one = flash_attention_bwd(*(t[e:e + 1] for t in inputs),
+                                  causal=causal, window=window)
+        assert all(torch.equal(w[e:e + 1], o) for w, o in zip(whole, one))
 
 
 @pytest.mark.gpu
