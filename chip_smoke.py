@@ -602,7 +602,8 @@ Phases, one JSON line each:
   profiler_lead_in how many of each profiler window's ``LEAD_IN`` spin
                    kernels the profiler lost, beside the window's seconds
                    since the first window (see ``profiled``); a window
-                   that lost them all has failed already.
+                   that lost them all was run again (a timing loop) or
+                   has failed already.
   train_lm         training (``repro_torch.train``), after the generators
                    are freed.  (a) K5's hand-written backward
                    (``csrc/flash_attention_bwd.cu``) at ``BWD_SHAPES``
@@ -879,11 +880,6 @@ BWD_TOL = 1e-4
 # gives them the mean of V, so it is not the same function there)
 BWD_DEV_CALLS = {"gqa8_d128": 50, "gemma3_12b_window": 10,
                  "non_causal_d80": 100, "ragged": 100, "masked_rows": 100}
-BWD_NO_LIBRARY = ("masked_rows",)
-# K5's backward's device ms at (1, 4096, 32, 64) causal before its tensor
-# core redesign (the CUDA-core f32 kernel, on an H100 80GB HBM3 at 700 W;
-# PERF.md), printed beside this run's as the parent value
-BWD_PARENT_DEVICE_MS = 11.64960
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_LR = "stablelm-1.6b", 3, 3e-3
 TRAIN_BATCH, TRAIN_SEQ = 1, 4096
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
@@ -1074,48 +1070,56 @@ def cuda_ms(fn, iters: int) -> float:
 # time, a longer span the longer ago the process's first window was (a
 # lone kernel at a window's start goes missing within a minute of it).
 # Each window therefore opens with LEAD_IN spin kernels of LEAD_IN_CYCLES
-# SM cycles each (~0.1 ms at 1.98 GHz, so ~6.4 ms in all) that take that
+# SM cycles each (~0.1 ms at 1.98 GHz, so ~12.8 ms in all) that take that
 # loss; they are left out of every count, and ``lead_in_lost`` says how
-# many went missing.  A window that lost all of them may have lost records
-# of ``fn`` too, and fails.  LEAD_IN_LOST keeps every window's seconds
-# since the first window and its loss, printed at the end.
-LEAD_IN, LEAD_IN_CYCLES, LEAD_IN_EVENT = 64, 200_000, "spin_kernel"
+# many went missing (up to 40 of them late in a run, and once all of 64).
+# A window that lost all of them may have lost records of ``fn`` too: it
+# is run again if the caller allows it, else it fails.  LEAD_IN_LOST
+# keeps every window's seconds since the first window and its loss,
+# printed at the end.
+LEAD_IN, LEAD_IN_CYCLES, LEAD_IN_EVENT = 128, 200_000, "spin_kernel"
 LEAD_IN_LOST: list = []
 
 
-def profiled(fn, count=(), events=False) -> dict:
+def profiled(fn, count=(), events=False, retries=0) -> dict:
     """Host wall ms of one call of ``fn`` (ending in a device sync) under
     ``torch.profiler``, the device time in it (kernels and copies only, so
     nothing is counted twice), the largest device events and, for each
     name in ``count``, how many device events had a name containing it and
     their device ms; with ``events``, every device event name's count and
     device ms.  The window's ``LEAD_IN`` spin kernels run and finish before
-    ``fn`` starts and are counted nowhere.  Only device activity is
-    recorded: every number here is a device event's or the host clock's,
-    and recording each host op as well slowed a generation's ~3,000 ops a
-    step (zamba2-2.7b: 2,243 ms profiled against ~1,280 ms a request in its
-    batches) and took tens of seconds to parse after each window."""
+    ``fn`` starts and are counted nowhere; a window that lost them all is
+    run again, ``fn`` included, up to ``retries`` times.  Only device
+    activity is recorded: every number here is a device event's or the
+    host clock's, and recording each host op as well slowed a
+    generation's ~3,000 ops a step (zamba2-2.7b: 2,243 ms profiled against
+    ~1,280 ms a request in its batches) and took tens of seconds to parse
+    after each window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    t_window = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(LEAD_IN):
-            torch.cuda._sleep(LEAD_IN_CYCLES)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev, lead_in_seen, lead_in_ms = {}, 0, 0.0
-    for ev in prof.key_averages():
-        t = (getattr(ev, "self_device_time_total", 0)
-             or getattr(ev, "self_cuda_time_total", 0)) / 1e3
-        if t > 0 and str(ev.device_type).endswith("CUDA"):
-            if LEAD_IN_EVENT in ev.key:
-                lead_in_seen += ev.count
-                lead_in_ms += t
-            else:
-                dev[ev.key] = (ev.count, t)
+    for _ in range(retries + 1):
+        t_window = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(LEAD_IN):
+                torch.cuda._sleep(LEAD_IN_CYCLES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev, lead_in_seen, lead_in_ms = {}, 0, 0.0
+        for ev in prof.key_averages():
+            t = (getattr(ev, "self_device_time_total", 0)
+                 or getattr(ev, "self_cuda_time_total", 0)) / 1e3
+            if t > 0 and str(ev.device_type).endswith("CUDA"):
+                if LEAD_IN_EVENT in ev.key:
+                    lead_in_seen += ev.count
+                    lead_in_ms += t
+                else:
+                    dev[ev.key] = (ev.count, t)
+        LEAD_IN_LOST.append((t_window, LEAD_IN - lead_in_seen))
+        if lead_in_seen:
+            break
     top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:8]
     out = {"wall_ms": wall_ms,
            "device_ms": sum(t for _, t in dev.values()) if dev
@@ -1124,7 +1128,6 @@ def profiled(fn, count=(), events=False) -> dict:
            "lead_in_lost": LEAD_IN - lead_in_seen,
            "lead_in_spin_ms": lead_in_ms / lead_in_seen if lead_in_seen
            else "not measured"}
-    LEAD_IN_LOST.append((t_window, out["lead_in_lost"]))
     check(out["lead_in_lost"] < LEAD_IN, f"profiler: all {LEAD_IN} lead-in "
           "kernels of a window lost; its records of the call may be too")
     if events:
@@ -5675,7 +5678,8 @@ def device_ms(runs: dict, calls: int) -> dict:
     out = {"calls": calls}
     for name, fn in runs.items():
         fn()                                            # warm
-        prof = profiled(lambda: [fn() for _ in range(calls)], events=True)
+        prof = profiled(lambda: [fn() for _ in range(calls)], events=True,
+                        retries=1)
         per_call = {k: round(n / calls) if 2 * n >= calls else 0
                     for k, (n, _) in prof["events"].items()}
         out[name] = {"device_ms_per_call": sum(
@@ -5717,7 +5721,7 @@ def cold_l2_device_ms(fn, event: str, calls: int = 100) -> dict:
                 before()
                 fn()
         run()                                           # warm up
-        prof = profiled(run, count=(event,))
+        prof = profiled(run, count=(event,), retries=1)
         n = prof["launches"][event]
         out[name] = {"events": n, "device_ms_per_event":
                      prof["device_ms_of"][event] / n if n else
@@ -5911,7 +5915,7 @@ def train_lm(ctx) -> tuple:
             q, k, v, out, lse, dout = inputs
             shape_dev[name] = bwd_device_ms(
                 q, k, v, out, lse, dout, causal, window,
-                BWD_DEV_CALLS[name], name not in BWD_NO_LIBRARY)
+                BWD_DEV_CALLS[name], checks[name]["rows_with_no_key"] == 0)
         del inputs
     check(checks["masked_rows"]["rows_with_no_key"] > 0,
           "masked_rows has no row without a key")
@@ -5944,7 +5948,6 @@ def train_lm(ctx) -> tuple:
         "library_ms": cuda_ms(lib_fn, 10),
         "device_ms": bwd_dev["flash_attention_bwd"]["device_ms_per_call"],
         "library_device_ms": bwd_dev["sdpa_bwd"]["device_ms_per_call"],
-        "parent_device_ms": BWD_PARENT_DEVICE_MS,
         "shape": list(full)}
     k5_err = attn_err(k5_call(q, k, v, True, with_lse=True)()[0],
                       flash_plain(q, k, v, True))[0]

@@ -68,9 +68,19 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a . b in 3xTF32 (lo.hi + hi.lo + hi.hi, small terms first) for a
-// split A and a B of two f32 values: exact in TF32 (bf16 K / V: lo is 0,
-// one product fewer) or split too.
+// c += a . b in 3xTF32 for a split A and a split B: lo.hi + hi.lo + hi.hi,
+// small terms first
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma(c, al, bh);
+  mma(c, ah, bl);
+  mma(c, ah, bh);
+}
+
+// c += a . b in 3xTF32 for a split A and a B of two f32 values: exact in
+// TF32 (bf16 K / V: lo is 0, one product fewer) or split here.
 template <bool kExact>
 __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], float b0,
@@ -83,9 +93,7 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
     uint32_t bh[2], bl[2];
     split(b0, bh[0], bl[0]);
     split(b1, bh[1], bl[1]);
-    mma(c, al, bh);
-    mma(c, ah, bl);
-    mma(c, ah, bh);
+    mma3(c, ah, al, bh, bl);
   }
 }
 

@@ -116,7 +116,7 @@ using attn::cp_async16;
 using attn::cp_async_commit;
 using attn::cp_async_wait;
 using attn::kFull;
-using attn::mma;
+using attn::mma3;
 using attn::split;
 
 constexpr int kThreads = 128;   // four warps
@@ -220,16 +220,13 @@ __device__ __forceinline__ void split_tiles(const float* raw,
   }
 }
 
-// c += a . b in 3xTF32 (lo.hi + hi.lo + hi.hi, small terms first) for a
-// split A and a B of two split values: the arithmetic of attn::mma3<false>
-__device__ __forceinline__ void mma3s(float (&c)[4], const uint32_t (&ah)[4],
-                                      const uint32_t (&al)[4], float2 b0,
-                                      float2 b1) {
-  const uint32_t bh[2] = {__float_as_uint(b0.x), __float_as_uint(b1.x)};
-  const uint32_t bl[2] = {__float_as_uint(b0.y), __float_as_uint(b1.y)};
-  mma(c, al, bh);
-  mma(c, ah, bl);
-  mma(c, ah, bh);
+// the hi and lo parts of two (hi, lo) pairs of a split tile
+__device__ __forceinline__ void unpair(float2 x0, float2 x1, uint32_t (&hi)[2],
+                                       uint32_t (&lo)[2]) {
+  hi[0] = __float_as_uint(x0.x);
+  hi[1] = __float_as_uint(x1.x);
+  lo[0] = __float_as_uint(x0.y);
+  lo[1] = __float_as_uint(x1.y);
 }
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -261,10 +258,6 @@ __device__ __forceinline__ void split_rows(const float* p, int s,
 // 8j .. 8j + 7 of the split tile ``b``)^T over D, and d[j] the same of
 // ``a2`` and ``b2``: S^T = K Q^T with dP^T = V dO^T, S = Q K^T with dP =
 // dO V^T.  Each A fragment is split once a dim step and used for every j.
-// At D = 64 and 80 the hi.hi products and the two small ones go to
-// separate accumulators, added at the end: four independent mma chains a j
-// instead of two, each shorter (and fewer of the tensor core's truncated
-// sums in each); past D = 80 the registers have no room for them.
 // Row 8j + g of a split tile has the swizzle of g, so column 8s + t + 4u
 // lies at 8s + off[s & 1][u]; steps go in pairs, so s & 1 is known.
 template <int D, int kJ, int kP>
@@ -283,12 +276,10 @@ __device__ __forceinline__ void row_products(float (&c)[kJ][4],
     for (int u = 0; u < 2; ++u) off[p][u] = ((8 * p + t + 4 * u) ^ x) - 8 * p;
   const float2* const br = b + g * D;
   const float2* const br2 = b2 + g * D;
-  constexpr bool kApart = D <= 80;
-  float c2[kJ][4], d2[kJ][4];   // the small products, kept apart
 #pragma unroll
   for (int j = 0; j < kJ; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = d[j][e] = c2[j][e] = d2[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) c[j][e] = d[j][e] = 0.f;
 #pragma unroll kUnroll
   for (int s2 = 0; s2 < D / 16; ++s2) {
 #pragma unroll
@@ -300,29 +291,13 @@ __device__ __forceinline__ void row_products(float (&c)[kJ][4],
       const int o0 = 8 * s + off[p][0], o1 = 8 * s + off[p][1];
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {   // B: row 8j + g, dims 8s + t, + 4
-        const float2 x0 = br[8 * j * D + o0], x1 = br[8 * j * D + o1];
-        const float2 y0 = br2[8 * j * D + o0], y1 = br2[8 * j * D + o1];
-        const uint32_t xh[2] = {__float_as_uint(x0.x), __float_as_uint(x1.x)};
-        const uint32_t xl[2] = {__float_as_uint(x0.y), __float_as_uint(x1.y)};
-        const uint32_t yh[2] = {__float_as_uint(y0.x), __float_as_uint(y1.x)};
-        const uint32_t yl[2] = {__float_as_uint(y0.y), __float_as_uint(y1.y)};
-        mma(kApart ? c2[j] : c[j], al, xh);
-        mma(kApart ? d2[j] : d[j], a2l, yh);
-        mma(kApart ? c2[j] : c[j], ah, xl);
-        mma(kApart ? d2[j] : d[j], a2h, yl);
-        mma(c[j], ah, xh);
-        mma(d[j], a2h, yh);
+        uint32_t xh[2], xl[2], yh[2], yl[2];
+        unpair(br[8 * j * D + o0], br[8 * j * D + o1], xh, xl);
+        unpair(br2[8 * j * D + o0], br2[8 * j * D + o1], yh, yl);
+        mma3(c[j], ah, al, xh, xl);
+        mma3(d[j], a2h, a2l, yh, yl);
       }
     }
-  }
-  if constexpr (kApart) {
-#pragma unroll
-    for (int j = 0; j < kJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        c[j][e] += c2[j][e];
-        d[j][e] += d2[j][e];
-      }
   }
 }
 
@@ -372,8 +347,10 @@ __device__ __forceinline__ void add_tile(float (&acc)[kN][4],
 #pragma unroll
       for (int n = 0; n < kC; ++n) {
         const int o = 8 * j * D + 8 * (c0 + n);
-        mma3s(part[n], ah, al, r0[o + off[0][(c0 + n) & 1]],
-              r1[o + off[1][(c0 + n) & 1]]);
+        uint32_t bh[2], bl[2];
+        unpair(r0[o + off[0][(c0 + n) & 1]], r1[o + off[1][(c0 + n) & 1]],
+               bh, bl);
+        mma3(part[n], ah, al, bh, bl);
       }
     }
 #pragma unroll

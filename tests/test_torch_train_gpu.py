@@ -11,7 +11,7 @@ and ``tests/test_torch_attention_grad.py`` hold those to the JAX package).
 Tolerances (f32 on both sides, TF32 off):
 - ``GRAD_TOL`` = 1e-4 in relative Frobenius norm on dq, dk and dv: the
   kernel sums the same f32 products as the plain version in other orders
-  (on the tensor cores in 3xTF32, tiles of 16 to 64 rows), measured at
+  (on the tensor cores in 3xTF32, tiles of 8 to 64 rows), measured at
   ~1e-6; and the
   rows' log-sum-exp within ``LSE_TOL`` = 1e-5 x max(1, D / 64) of the
   plain one (scores of |s| < ~5 summed over D products, a few ulps of f32
@@ -48,8 +48,10 @@ BWD_CASES = [(1, 300, 300, 8, 8, 64, True, 0),
              (2, 100, 100, 4, 4, 80, False, 0),
              (1, 77, 77, 8, 2, 64, True, 0),
              (1, 96, 40, 4, 2, 64, True, 16),
-             # the edges of the kernel's tiles (64 x 64 at D = 64, 32 q
-             # rows or keys at D >= 80, 16 keys in the dQ pass at D = 256)
+             # the edges of the kernel's tiles: the dK / dV pass takes
+             # keys x q rows of 64 x 32 at D = 64 and 80, 32 x 16 at 128
+             # and 32 x 8 at 256; the dQ pass q rows x keys of 64 x 32 at
+             # D <= 128 and 32 x 16 at 256
              (1, 65, 65, 4, 2, 64, True, 0),
              (1, 129, 129, 4, 4, 80, True, 0),
              (1, 129, 129, 4, 2, 128, True, 0),
