@@ -11,11 +11,12 @@ Phases, one JSON line each:
                    once, into the git-ignored ``build/kernels/``), with
                    ``ptxas``'s registers and spills per kernel entry; every
                    ``flash_attention`` entry (head dims 64, 80, 128, 256,
-                   f32 and bf16, both layouts: 16, and the 8 f32 entries
-                   that also write each row's log-sum-exp for training),
-                   every entry of K5's backward
-                   (``flash_attention_bwd_ptxas``: 9), every entry of the
-                   one-launch
+                   f32 and bf16, both layouts: 16, and the 16 f32 and bf16
+                   entries that also write each row's log-sum-exp and the
+                   f32 output for training), every entry of K5's backward
+                   (``flash_attention_bwd_ptxas``: the prep pass and the
+                   dK / dV and dQ passes at the four head dims, f32 and
+                   bf16: 18), every entry of the one-launch
                    top-k kernel (``topk_tiled_ptxas``: ivf_topk, and
                    slab_topk in fp32, fp16, int8 and pq, at 16- and 64-row
                    tiles: 10 entries) and every
@@ -309,6 +310,45 @@ Phases, one JSON line each:
                    admissions, (b)'s decode wall per query beside the main
                    path's, the distinct lengths per tick and the
                    near-ties.
+  bf16_serving     ``compute_dtype=torch.bfloat16`` on the serving path.
+                   (a) the main path's generator (sheared-llama-2.7b, 32
+                   layers, d_model 2560, 32 heads of 80, vocab 32,000)
+                   drawn on the card with ``init_params(dtype=bf16)``
+                   (5.39 GB of weights), serving the main path's first
+                   ``BF16_BATCHES`` batches of 16 through
+                   ``RAGEngine.answer_batch(batcher=ContinuousBatcher(...,
+                   compute_dtype=bf16))`` behind the main index (16 slots
+                   of ``BATCHER_LEN``, the batcher's f32 caches, 128-token
+                   prompts, 16 greedy tokens).  Counts zeroed before, read
+                   after.  Checks: K5 causal exactly 32 x 32, every one
+                   bf16 (``launches_by_dtype``); K6 exactly layers x
+                   ticks, every one the f32 entry (q widened, over f32
+                   caches); no K7; K1 and K2 one launch a batch; the ids
+                   equal the main path's outside near-ties; every token in
+                   range; the first K5 and K6 calls within
+                   :func:`attn_tol` (plus one bf16 ulp for a bf16 output)
+                   of the plain versions.  Prints each batch's retrieval,
+                   prefill (admissions) and decode (ticks) wall, ms a
+                   tick, the weight bytes, ``max_memory_allocated`` and
+                   ``continuous_batching``'s f32 engine batch beside them.
+                   (b) the cuts of the f32 phases in bf16 (bf16 weights
+                   drawn on the CPU and copied to the card, bf16 compute),
+                   card against CPU: sheared-llama-2.7b's first 2 layers
+                   over f32 caches and over bf16 caches (K6's bf16 entry),
+                   olmoe-1b-7b's first 2, zamba2-2.7b's first 12 and
+                   rwkv6-1.6b's first 2 over bf16 caches (:func:`arch_parity`
+                   and :func:`state_parity` with a dtype): logits within
+                   ``GEN_BF16_TOL``, greedy tokens equal wherever the top-2
+                   margin exceeds 2 x ``GEN_BF16_TOL``, routing flips
+                   within ``ROUTE_TIE_BF16_TOL`` up to the first layer with
+                   one, each MoE block of the prefill run on the card on
+                   the CPU block's input (routing within
+                   ``ROUTE_TIE_BF16_TOL`` in every layer, the output within
+                   ``MOE_BF16_TOL`` on the tokens whose kept experts agree,
+                   at least half of them), states within
+                   ``STATE_BF16_TOL``, K5 and K6 launches by entry; and
+                   rwkv6-1.6b in bf16 over f32 caches raises ``TypeError``
+                   before any work, as the reference does.
   encode           gte-base-en-v1.5 at full width (12 layers, d_model 768,
                    12 heads of 64; random weights from the seed): ``encode``
                    of 256 chunk texts of the corpus at 128 tokens on the card
@@ -648,18 +688,48 @@ Phases, one JSON line each:
                    the lse, timed at (c)'s shape with (c)'s launches, and
                    the serving entry's device ms beside it) to the
                    ``kernels`` line.
+  train_lm_bf16    ``train_lm``'s (a), (b) and (c) in bf16
+                   (``compute_dtype=torch.bfloat16``, the parameters f32):
+                   (a) K5's backward's bf16 entries at ``BWD_SHAPES``
+                   against ``flash_attention_bwd_ref`` on the card, within
+                   ``BWD_BF16_TOL``, bitwise the f32 entries' result on the
+                   widened inputs rounded to bf16, two calls bitwise, the
+                   batch of 2 bitwise its elements, K5's bf16 training
+                   entry's f32 output rounded bitwise its serving output;
+                   device ms beside SDPA's bf16 backward (which rounds P
+                   and dS to bf16: a slightly different function); (b) the
+                   2-layer cut's loss and gradients card against CPU
+                   within ``TRAIN_BF16_LOSS_TOL`` / ``TRAIN_BF16_GRAD_TOL``,
+                   which cannot tell bf16 from f32, so also block 0's
+                   feed-forward half on one bf16 input and cotangent: the
+                   ``up`` and ``down`` gradients within
+                   ``TRAIN_BF16_LAST_GRAD_TOL``, where the card's f32
+                   half misses it; (c) 3 steps of ``make_train_step(peak_lr=3e-3,
+                   compute_dtype=bf16)`` at 1 x 4,096 tokens with
+                   ``train_lm`` (c)'s checks, K5 exactly 2 x 24 x 3 and its
+                   backward 24 x 3 launches, every one bf16; prints s a
+                   step, tokens a second, ``max_memory_allocated`` and one
+                   profiled step split into K5, K5's backward, GEMMs, casts
+                   and the rest.  Adds ``flash_attention_bwd_bf16`` and
+                   ``flash_attention_stablelm_1p6b_train_bf16`` to the
+                   ``kernels`` line.
 
 Then the ``kernels`` line (per kernel: launches, error, time, plain and
 library time, and the bound from this run's inputs; every row also carries
 the breakdown's device ms of the kernel and of its library call), the
 ``nvidia-smi`` line, and
-last ``{"ok": true, "device": {...}}``.  Bounds: bytes read once at HBM's
+last ``{"ok": true, "device": {...}}``; the script fails if a row's
+library time (wall or device) is under its bound.  Bounds: bytes read once at HBM's
 3.35 TB/s against the function's operations at the fp32-accurate peak of
 the unit the kernel runs them on: for K5 the tensor cores, whose 495 TFLOP/s
 in TF32 give 165 TFLOP/s at fp32 accuracy (3xTF32 takes three TF32
 products for one fp32 product), and the same for K5's backward, whose
-products are the same kind, though it runs them on the CUDA cores; for the
-others the CUDA cores' 67 TFLOP/s in fp32.  A row's times and bound are at its one recorded input; its
+products are the same kind, on the tensor cores too; for the
+others the CUDA cores' 67 TFLOP/s in fp32.  The bf16 rows count a bf16 x
+bf16 product at bf16's 989 TFLOP/s and an f32 x bf16 product as three
+bf16 products (the f32 side split into three bf16 parts), cheaper than
+two TF32 products at 495 (:func:`bound`).  A row's times and bound are
+at its one recorded input; its
 ``launches`` is the sum of its ``launches_by_phase``: the launches of its
 kernel in its mode or mask that each phase driving a path of the port
 counted in its checked window (``main_path``, ``baselines``' IVF searches
@@ -694,7 +764,10 @@ at ``continuous_batching``'s recorded (16, 1, 32, 80) call and per-slot
 lengths), every other K6 launch to ``decode_attention``; the codec rows
 take ``codec_paths``' launches (int8 also ``tenancy`` (f)'s and
 ``durability``'s) and K7's row
-``kv_int8``'s.  Any failed
+``kv_int8``'s; ``flash_attention_bf16_batcher`` is K5's bf16 entry at
+``bf16_serving`` (a)'s first call and takes its K5 launches (its K1, K2
+and K6 go to the ``ivf_topk``, ``slab_topk`` and
+``decode_attention_batcher`` rows).  Any failed
 check raises, so the script exits non-zero without that last line; it also
 does so when no CUDA device is present or the package is missing beside
 it.
@@ -718,6 +791,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12          # fp32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12         # TF32 on the tensor cores
+BF16_FLOPS_PER_S = 989e12         # bf16 on the tensor cores, f32 sums
 F32_TC_FLOPS_PER_S = TF32_FLOPS_PER_S / 3  # fp32-accurate (3xTF32) on them
 
 DATASET, RECORDS, DIM, NLIST = "fiqa", 25_000, 768, 125
@@ -885,6 +959,54 @@ TRAIN_BATCH, TRAIN_SEQ = 1, 4096
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 128
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
 OVERFIT_STEPS, OVERFIT_TOTAL, OVERFIT_TOL = 40, 60, 1e-4
+# bf16_serving: (a) the main generator drawn in bf16, the main path's first
+# BF16_BATCHES batches through the bf16 batcher; (b) the cuts in bf16 on the
+# card and the CPU.  GEN_BF16_TOL bounds |card - CPU| of the bf16 logits:
+# each side rounds every op to bf16 (unit roundoff u = 2**-8) after f32
+# sums of other orders (cuBLAS against oneDNN), so an element lands on the
+# other neighbour where a sum falls near a rounding boundary, and that
+# carries through the layers.  The logits (|l| < 8) lie on a grid of 2**-5
+# at most; 0.125 is 4 steps of it (this phase measures 1 step at
+# sheared-llama-2.7b's 2 layers, ~2.75 at zamba2-2.7b's 12: PERF.md §6).
+# ROUTE_TIE_BF16_TOL: a routing flip's CPU probability gap; the router's
+# bf16 logits (|l| ~ 1, a grid of 2**-7) move a probability of ~1/64 by
+# ~2**-7 / 64 = 1.2e-4 a step, the router's inputs (d_model bf16 terms,
+# some a step apart) by a few steps more, and 2e-3 leaves ~16.  It gates
+# every MoE block run on the card on the CPU block's own input
+# (:func:`moe_block_parity`), and in the chained prefill the layers up to
+# the first with a flip: past it a flipped token's stream, and through
+# attention every later token's, differ by more than rounding, so those
+# flips are recorded, not gated (:func:`route_flips`).  MOE_BF16_TOL: such
+# a block's output on the tokens whose kept experts agree, relative
+# Frobenius: each element is an f32 sum rounded to bf16 after products
+# rounded the same way, so the two sides differ by a step (at most 2u
+# relative) only where sums of other orders fall near a rounding boundary;
+# every element a step apart would give 2u = 2**-7.  STATE_BF16_TOL: the recurrent
+# states (f32, fed by bf16 projections) card against CPU, relative to 1 +
+# |CPU|: a projection element a step (2u relative) apart moves the state's
+# terms it feeds (measured 0.058 at zamba2-2.7b's 12 layers, ~15 u; 0.025
+# at rwkv6-1.6b's 2: PERF.md §6).
+BF16_BATCHES = 2
+GEN_BF16_TOL, ROUTE_TIE_BF16_TOL, STATE_BF16_TOL = 0.125, 2e-3, 0.1
+MOE_BF16_TOL = 2.0 ** -7
+# train_lm_bf16: K5's backward in bf16 against its plain version, both the
+# f32 gradient of the widened inputs rounded once to bf16, so they differ
+# by one bf16 ulp only where the two f32 sums (~1e-6 apart) straddle a
+# rounding boundary: BWD_BF16_TOL relative Frobenius (a kernel that missed
+# by a rounding everywhere would be ~2e-3 off); (b)'s loss and gradients
+# card vs CPU in bf16 within TRAIN_BF16_LOSS_TOL (relative) and
+# TRAIN_BF16_GRAD_TOL (relative Frobenius; tests/test_torch_bf16_train.py's
+# GRAD_TOL, the port's bf16 gradients against the reference's): bf16's
+# rounding flips in the forward and the backward of both devices; such a
+# tolerance cannot tell bf16 from f32, so (b) also holds one block's
+# feed-forward half, fed the same bf16 input and cotangent on both
+# devices, to TRAIN_BF16_LAST_GRAD_TOL on its up and down gradients
+# (tests/test_torch_bf16_train.py's LAST_GRAD_TOL: the port's bf16 there
+# 2.4e-4 to 5.1e-4 from the reference's, its f32 9.2e-3 or more), where
+# the card's f32 half must miss it (:func:`block_grad_control`)
+BWD_BF16_TOL = 1e-3
+TRAIN_BF16_LOSS_TOL, TRAIN_BF16_GRAD_TOL = 2e-4, 3e-2
+TRAIN_BF16_LAST_GRAD_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -915,7 +1037,16 @@ def bound(nbytes: float, ops: float,
     """(least ms on the card, what bounds it): the bytes over HBM's rate
     against the operations over the peak of the unit the kernel uses (the
     fp32 peak outside the tensor cores unless ``flops_per_s`` says
-    otherwise)."""
+    otherwise).  The attention kernels' products run on the tensor cores
+    in TF32, f32 operands split into a hi and a lo part: an f32 product
+    takes three TF32 products (3xTF32, ``F32_TC_FLOPS_PER_S``).  With bf16
+    operands the least the card could issue, whatever the kernel issues:
+    a bf16 x bf16 product is one bf16 product, exact with f32 sums, at
+    ``BF16_FLOPS_PER_S`` (989 TFLOP/s); an f32 x bf16 product the cheaper
+    of three bf16 products (the f32 side split exactly into three bf16
+    parts) at 989 and two TF32 products (its hi and lo) at 495, so three
+    at 989.  Callers pass such work as bf16 products at
+    ``BF16_FLOPS_PER_S``."""
     t_b, t_f = nbytes / HBM_BYTES_PER_S, ops / flops_per_s
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
@@ -923,9 +1054,9 @@ def bound(nbytes: float, ops: float,
 def flash_ptxas(lines) -> object:
     """``ptxas``'s registers and spill stores per ``flash_attention``
     entry (dtype, head dim, warps sharing a row tile, and `` lse`` for the
-    f32 entries that also write the rows' log-sum-exp, the training
-    forward's: 16 + 8), checking that none spills; "not rebuilt" when the
-    library was built before this run."""
+    entries that also write the rows' log-sum-exp and the f32 output, the
+    training forward's, f32 and bf16: 16 + 16), checking that none spills;
+    "not rebuilt" when the library was built before this run."""
     import re
     if not lines:
         return "not rebuilt in this run"
@@ -940,7 +1071,7 @@ def flash_ptxas(lines) -> object:
         lse = " lse" if kind[4] == "1" else ""
         out[f"{dtype} D={kind[2]} x{kind[3]}{lse}"] = [int(regs[1]),
                                                        int(spill[1])]
-    check(len(out) == 24, f"flash_attention: {len(out)} entries, not 24")
+    check(len(out) == 32, f"flash_attention: {len(out)} entries, not 32")
     spilled = {k: v for k, v in out.items() if v[1]}
     check(not spilled, f"flash_attention spills: {spilled}")
     return {"registers_and_spill_bytes": out}
@@ -1142,9 +1273,11 @@ def profiled(fn, count=(), events=False, retries=0) -> dict:
 
 def zero_launches() -> None:
     """Sets the launch counts of ``ivf_topk``, ``slab_topk`` (by mode),
-    ``flash_attention`` (by mask, and those with a window), its backward
-    ``flash_attention_bwd`` and ``decode_attention`` to 0."""
-    from repro_torch.kernels.decode_attention import decode_attention
+    ``flash_attention`` (by mask, by dtype, and those with a window), its
+    backward ``flash_attention_bwd`` (by dtype) and ``decode_attention``
+    (by dtype) to 0."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_q8)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd)
     from repro_torch.kernels.ivf_topk import topk_ip
@@ -1156,6 +1289,9 @@ def zero_launches() -> None:
         flash_attention.launches_by_mask, 0)
     flash_attention.launches_windowed = 0
     flash_attention_bwd.launches = 0
+    for op in (flash_attention, flash_attention_bwd, decode_attention,
+               decode_attention_q8):
+        op.launches_by_dtype = dict.fromkeys(op.launches_by_dtype, 0)
 
 
 def launch_counts() -> dict:
@@ -1223,11 +1359,13 @@ class RouteLog:
     (``models.moe.route``) on the same input and keeps the capacity it
     took and the assignments it dropped (a device tensor, read after the
     run); with ``record`` also the top-k expert ids and the top k + 1
-    probabilities of every token, on the host."""
+    probabilities of every token, on the host; with ``keep_io`` also the
+    call's parameters, keywords, input and output (cloned)."""
 
-    def __init__(self, fn, record: bool = False):
+    def __init__(self, fn, record: bool = False, keep_io: bool = False):
         self.fn = fn
         self.record = record
+        self.keep_io = keep_io
         self.calls = []
 
     def __call__(self, params, x, **kw):
@@ -1243,15 +1381,79 @@ class RouteLog:
                 entry.update(ids=r.expert_ids.cpu(), top=torch.sort(
                     r.probs, dim=-1, descending=True).values[:, :k + 1].cpu())
         self.calls.append(entry)
-        return self.fn(params, x, **kw)
+        out = self.fn(params, x, **kw)
+        if self.keep_io:
+            entry.update(params=params, kw=kw, x=x.clone(),
+                         out=out[0].clone())
+        return out
 
 
-def route_flips(calls, n_moe: int, where: str) -> list:
+def kept_experts(r, num_experts: int):
+    """(T, K) of a :func:`models.moe.route` result: each token's expert
+    ids that kept their capacity slot, -1 for a dropped one, sorted."""
+    import torch
+    slot_tok = torch.empty_like(r.slot)
+    slot_tok[r.order] = r.slot
+    keep = (slot_tok < num_experts * r.capacity).view(r.expert_ids.shape)
+    return torch.sort(torch.where(keep, r.expert_ids, -1), dim=-1).values
+
+
+def moe_block_parity(calls, n_moe: int, where: str) -> list:
+    """bf16's MoE blocks compared on one input: ``calls``, a prefill's
+    ``RouteLog(record=True, keep_io=True)`` entries, the CPU's ``n_moe``
+    layers first.  Each card block is run again on its CPU block's input:
+    its routing is held to the CPU's by :func:`route_flips` (every layer
+    gated at ``ROUTE_TIE_BF16_TOL``), and its output, on the tokens whose
+    kept experts agree, within ``MOE_BF16_TOL`` relative Frobenius of the
+    CPU block's output.  Fails unless at least half of the tokens are
+    compared in every layer.  Returns a line per layer."""
+    import torch
+    from repro_torch.models.moe import moe_block, route
+    cpu, card = calls[:n_moe], calls[n_moe:]
+    rerun, lines = [], []
+    for a, b in zip(cpu, card):
+        x = a["x"].to(b["x"].device)
+        r = route(b["params"], x, **a["kw"])
+        y = moe_block(b["params"], x, **a["kw"])[0].float().cpu()
+        k = r.expert_ids.shape[1]
+        rerun.append({"device": "cuda", "ids": r.expert_ids.cpu(),
+                      "top": torch.sort(r.probs, dim=-1, descending=True)
+                      .values[:, :k + 1].cpu(), "kept": kept_experts(
+                          r, a["kw"]["num_experts"]).cpu(), "out": y})
+    flips = route_flips(cpu + rerun, n_moe, f"{where} on the CPU's inputs",
+                        ROUTE_TIE_BF16_TOL)
+    for layer, (a, c) in enumerate(zip(cpu, rerun)):
+        kept = kept_experts(route(a["params"], a["x"], **a["kw"]),
+                            a["kw"]["num_experts"])
+        same = (kept == c["kept"]).all(-1)
+        want = a["out"].float().reshape(-1, a["out"].shape[-1])[same]
+        got = c["out"].reshape(-1, c["out"].shape[-1])[same]
+        err = float(torch.linalg.norm(got - want)) / max(
+            float(torch.linalg.norm(want)), 1e-30)
+        n = int(same.sum())
+        check(2 * n >= len(same) and err <= MOE_BF16_TOL,
+              f"{where}: MoE layer {layer} on the CPU's input: {n} of "
+              f"{len(same)} tokens compared, output {err} apart "
+              f"(tolerance {MOE_BF16_TOL})")
+        lines.append({"layer": layer, "tokens": len(same),
+                      "tokens_compared": n, "out_rel_frobenius": err,
+                      "routing_flips": [f for f in flips
+                                        if f["layer"] == layer]})
+    return lines
+
+
+def route_flips(calls, n_moe: int, where: str,
+                tol: float = ROUTE_TIE_TOL, cascade: bool = False) -> list:
     """One step's routing on the CPU and the card: ``calls``, the step's
     ``RouteLog(record=True)`` entries, the CPU's ``n_moe`` layers first.
     Returns each token whose top-k expert set differs between the two
     (layer, token, both sets, the CPU's k-th and (k+1)-th probability
-    gap); fails unless that gap is within ``ROUTE_TIE_TOL``."""
+    gap); fails unless that gap is within ``tol`` (``ROUTE_TIE_TOL``, or
+    ``ROUTE_TIE_BF16_TOL`` in bf16).  With ``cascade`` (bf16, where a
+    near-tie flips some token of a prefill in most layers), a layer after
+    the first one with a flip is not gated: a flipped token's stream, and
+    through attention every later token's, differ there by more than
+    rounding; its flips are returned, marked ``after_a_flip``."""
     import torch
     cpu, card = calls[:n_moe], calls[n_moe:]
     check(len(card) == n_moe and all(c["device"] == "cpu" for c in cpu)
@@ -1261,12 +1463,16 @@ def route_flips(calls, n_moe: int, where: str) -> list:
     for layer, (a, b) in enumerate(zip(cpu, card)):
         k = a["ids"].shape[1]
         sa, sb = (torch.sort(c["ids"], dim=-1).values for c in (a, b))
+        after = cascade and any(f["layer"] < layer for f in flips)
         for t in torch.nonzero((sa != sb).any(-1)).flatten().tolist():
             gap = float(a["top"][t, k - 1] - a["top"][t, k])
             flip = {"layer": layer, "token": t, "cpu": sa[t].tolist(),
                     "card": sb[t].tolist(), "cpu_gap": gap}
-            check(gap <= ROUTE_TIE_TOL, f"{where}: routing differs outside "
-                  f"a near-tie: {flip}, ROUTE_TIE_TOL {ROUTE_TIE_TOL}")
+            if after:
+                flip["after_a_flip"] = True
+            else:
+                check(gap <= tol, f"{where}: routing differs outside a "
+                      f"near-tie: {flip}, tolerance {tol}")
             flips.append(flip)
     return flips
 
@@ -1982,7 +2188,8 @@ def dense_yi(ctx) -> tuple:
 
 def arch_parity(cfg, dev, prompt: int,
                 flash_key=lambda *args, **kw: None,
-                dec_key=lambda *args, **kw: None) -> dict:
+                dec_key=lambda *args, **kw: None, dtype=None,
+                cache_dtype=None) -> dict:
     """``cfg`` (cut in depth) at full width on the card and on the CPU,
     one set of weights drawn on the CPU from the seed and copied to the
     card: prefill of ``prompt`` positions, then ``DENSE_STEPS`` decode
@@ -1994,10 +2201,18 @@ def arch_parity(cfg, dev, prompt: int,
     versions.  With mixture-of-experts layers (``moe_archs`` (b)) every
     step's top-k expert sets are held against each other
     (:func:`route_flips`); from the first step where they differ (a
-    near-tie) on, steps are run but not compared, and counted."""
+    near-tie) on, steps are run but not compared, and counted.  With
+    ``dtype`` bf16 (``bf16_serving`` (b)): the weights drawn in bf16, every
+    step computed in bf16 over caches of ``cache_dtype``, the logits held
+    within ``GEN_BF16_TOL`` (and the routing within ``ROUTE_TIE_BF16_TOL``),
+    K6's launches counted by the entry's dtype, and each MoE block of the
+    prefill run on the card on the CPU block's input
+    (:func:`moe_block_parity`), so that a routing near-tie that stops the
+    logits' comparison still leaves every MoE layer compared."""
     import copy
     import gc
     import torch
+    from repro_torch.kernels._attention import dtype_name
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.models import (decode_step, init_cache, init_params,
@@ -2005,8 +2220,12 @@ def arch_parity(cfg, dev, prompt: int,
     from repro_torch.models import model as model_mod
 
     name, cpu = cfg.name, torch.device("cpu")
+    bf16 = dtype is not None
+    dtype, cache_dtype = dtype or torch.float32, cache_dtype or torch.float32
+    tol, route_tol = ((GEN_BF16_TOL, ROUTE_TIE_BF16_TOL) if bf16
+                      else (GEN_TOL, ROUTE_TIE_TOL))
     t0 = time.perf_counter()
-    m_cpu = init_params(cfg, seed=SEED, device="cpu")
+    m_cpu = init_params(cfg, seed=SEED, device="cpu", dtype=dtype)
     m_card = copy.deepcopy(m_cpu).to(dev)
     init_s = time.perf_counter() - t0
     g = torch.Generator().manual_seed(9)
@@ -2022,16 +2241,18 @@ def arch_parity(cfg, dev, prompt: int,
         batch["positions"] = mrope_positions(prompt, VISION_ROWS,
                                              VISION_GRID_W)
     smax = prompt + DENSE_STEPS
-    c_cpu = init_cache(cfg, 1, smax, device=cpu)
-    c_card = init_cache(cfg, 1, smax, device=dev)
+    c_cpu = init_cache(cfg, 1, smax, device=cpu, dtype=cache_dtype)
+    c_card = init_cache(cfg, 1, smax, device=dev, dtype=cache_dtype)
     rec_flash = Recorder(model_mod.flash_attention, flash_key)
     rec_dec = Recorder(model_mod.decode_attention, dec_key)
-    routes = RouteLog(model_mod.moe_block, record=True)
+    routes = RouteLog(model_mod.moe_block, record=True, keep_io=bf16)
     n_moe = sum(b.moe is not None for b in m_cpu.blocks)
     saved = (model_mod.flash_attention, model_mod.decode_attention,
              model_mod.moe_block)
     f0, w0 = flash_attention.launches, flash_attention.launches_windowed
     d0 = decode_attention.launches
+    by_dtype0 = (dict(flash_attention.launches_by_dtype),
+                 dict(decode_attention.launches_by_dtype))
     errs, tokens_checked, near_ties, fed = [], 0, 0, []
     flips, not_compared = [], 0
     cpu_s = card_s = 0.0
@@ -2041,23 +2262,24 @@ def arch_parity(cfg, dev, prompt: int,
         if n_moe:
             model_mod.moe_block = routes
         t0 = time.perf_counter()
-        l_cpu, _ = prefill(m_cpu, batch, c_cpu)
+        l_cpu, _ = prefill(m_cpu, batch, c_cpu, compute_dtype=dtype)
         t1 = time.perf_counter()
         l_card, _ = prefill(m_card, {n: t.to(dev) for n, t in batch.items()},
-                            c_card)
-        lk = l_card[0].cpu()
+                            c_card, compute_dtype=dtype)
+        lk = l_card[0].float().cpu()
         cpu_s, card_s = t1 - t0, time.perf_counter() - t1
         for step in range(DENSE_STEPS + 1):
-            lc = l_cpu[0]
+            lc = l_cpu[0].float()
             if n_moe and not flips:
                 flips = [dict(f, step=step) for f in route_flips(
-                    routes.calls[-2 * n_moe:], n_moe, f"{name} step {step}")]
+                    routes.calls[-2 * n_moe:], n_moe, f"{name} step {step}",
+                    route_tol, cascade=bf16)]
             if flips:
                 not_compared += 1        # a routing near-tie at or before
             else:
                 errs.append(float((lk - lc).abs().max()))
                 top2 = torch.topk(lc, 2).values
-                if float(top2[0] - top2[1]) > 2 * GEN_TOL:
+                if float(top2[0] - top2[1]) > 2 * tol:
                     check(int(lk.argmax()) == int(lc.argmax()),
                           f"{name}: greedy token differs at step {step}")
                     tokens_checked += 1
@@ -2072,11 +2294,12 @@ def arch_parity(cfg, dev, prompt: int,
                 nxt = lc.argmax().reshape(1, 1)
                 fed.append("ids" if cfg.embedding_inputs else "tokens")
             t0 = time.perf_counter()
-            l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, prompt + step)
+            l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, prompt + step,
+                                   compute_dtype=dtype)
             t1 = time.perf_counter()
             l_card, _ = decode_step(m_card, nxt.to(dev), c_card,
-                                    prompt + step)
-            lk = l_card[0].cpu()
+                                    prompt + step, compute_dtype=dtype)
+            lk = l_card[0].float().cpu()
             cpu_s, card_s = cpu_s + t1 - t0, card_s + time.perf_counter() - t1
     finally:
         (model_mod.flash_attention, model_mod.decode_attention,
@@ -2090,8 +2313,22 @@ def arch_parity(cfg, dev, prompt: int,
                        "flash_attention_windowed": windowed,
                        "decode_attention": cfg.num_layers * DENSE_STEPS},
           f"{name}: attention launches {launches}")
-    check(max(errs, default=0.0) <= GEN_TOL, f"{name}: logits differ by "
-          f"{max(errs)} > {GEN_TOL}")
+    check(max(errs, default=0.0) <= tol, f"{name}: logits differ by "
+          f"{max(errs, default=0.0)} > {tol}")
+    if bf16:    # K5 bf16; K6 in the caches' dtype (f32: q widened)
+        launches["k5_by_dtype"] = {
+            k: n - by_dtype0[0][k]
+            for k, n in flash_attention.launches_by_dtype.items()}
+        launches["k6_by_dtype"] = {
+            k: n - by_dtype0[1][k]
+            for k, n in decode_attention.launches_by_dtype.items()}
+        k6_entry = dtype_name(cache_dtype)
+        check(launches["k5_by_dtype"]["bfloat16"] == launches[
+                  "flash_attention"]
+              and launches["k6_by_dtype"][k6_entry] == launches[
+                  "decode_attention"],
+              f"{name} in bf16 over {k6_entry} caches: launches by entry "
+              f"{launches}")
 
     first = first_calls(cfg, rec_flash, rec_dec)
     line = {"name": name, "layers": cfg.num_layers,
@@ -2102,7 +2339,8 @@ def arch_parity(cfg, dev, prompt: int,
             "tied": cfg.tie_embeddings, "params": param_count(m_card),
             "inputs": sorted(batch), "prompt": prompt, "decode_fed": fed,
             "cache_rows": [c.k.shape[1] for c in c_card], "init_s": init_s,
-            "cpu_s": cpu_s, "card_s": card_s, "tol": GEN_TOL,
+            "cpu_s": cpu_s, "card_s": card_s, "tol": tol,
+            "dtype": str(dtype), "cache_dtype": str(cache_dtype),
             "max_abs_err_per_step": errs, "tokens_checked": tokens_checked,
             "near_ties": near_ties, "launches": launches,
             "k6_calls": rec_dec.calls, **first}
@@ -2114,8 +2352,12 @@ def arch_parity(cfg, dev, prompt: int,
             prefill_capacity=[c["capacity"] for c in pre[:n_moe]],
             prefill_dropped_cpu=[int(c["dropped"]) for c in pre[:n_moe]],
             prefill_dropped_card=[int(c["dropped"]) for c in pre[n_moe:]],
-            route_tie_tol=ROUTE_TIE_TOL, routing_flips=flips,
+            route_tie_tol=route_tol, routing_flips=flips,
             steps_not_compared=not_compared)
+        if bf16:
+            line.update(moe_bf16_tol=MOE_BF16_TOL,
+                        blocks_on_the_cpus_inputs=moe_block_parity(
+                            pre, n_moe, name))
     del m_cpu, m_card, c_cpu, c_card, rec_flash, rec_dec, routes
     gc.collect()
     torch.cuda.empty_cache()
@@ -2432,7 +2674,8 @@ STATE_FIELDS = {"RwkvCache": ("wkv", "shift_t", "shift_c"),
                 "MambaCache": ("ssm", "conv")}
 
 
-def state_parity(cfg, dev, state_tol: float, chunk: int) -> dict:
+def state_parity(cfg, dev, state_tol: float, chunk: int, dtype=None,
+                 cache_dtype=None) -> dict:
     """(b) of ``rwkv6_arch`` and ``hybrid_zamba2``: ``cfg`` (cut in depth)
     at full width on the card and the CPU, one set of weights drawn on the
     CPU from the seed and copied to the card; for each prompt of
@@ -2445,7 +2688,10 @@ def state_parity(cfg, dev, state_tol: float, chunk: int) -> dict:
     and K6 call within :func:`attn_tol` of the plain versions; a block at
     several layers (a shared block) must hold one parameter storage on the
     card and a KV cache of its own at each layer.  ``chunk``: the
-    recurrent form's chunk, for the printout."""
+    recurrent form's chunk, for the printout.  With ``dtype`` bf16
+    (``bf16_serving`` (b)): the weights drawn in bf16, every step computed
+    in bf16 over caches of ``cache_dtype``, the logits held within
+    ``GEN_BF16_TOL`` and the states within ``state_tol`` as given."""
     import copy
     import gc
     import torch
@@ -2456,8 +2702,10 @@ def state_parity(cfg, dev, state_tol: float, chunk: int) -> dict:
     from repro_torch.models import model as model_mod
 
     name, cpu = cfg.name, torch.device("cpu")
+    tol = GEN_TOL if dtype is None else GEN_BF16_TOL
+    dtype, cache_dtype = dtype or torch.float32, cache_dtype or torch.float32
     t0 = time.perf_counter()
-    m_cpu = init_params(cfg, seed=SEED, device="cpu")
+    m_cpu = init_params(cfg, seed=SEED, device="cpu", dtype=dtype)
     m_card = copy.deepcopy(m_cpu).to(dev)
     init_s = time.perf_counter() - t0
     layers_of = {}
@@ -2482,17 +2730,21 @@ def state_parity(cfg, dev, state_tol: float, chunk: int) -> dict:
                                                                  rec_dec)
         for prompt in STATE_PROMPTS:
             toks = torch.randint(0, cfg.vocab_size, (1, prompt), generator=g)
-            c_cpu = init_cache(cfg, 1, prompt + DENSE_STEPS, device=cpu)
-            c_card = init_cache(cfg, 1, prompt + DENSE_STEPS, device=dev)
+            c_cpu = init_cache(cfg, 1, prompt + DENSE_STEPS, device=cpu,
+                               dtype=cache_dtype)
+            c_card = init_cache(cfg, 1, prompt + DENSE_STEPS, device=dev,
+                                dtype=cache_dtype)
             for group in shared:
                 check(len({c_card[i].k.data_ptr() for i in group})
                       == len(group), f"{name}: layers {group} share a KV "
                       f"cache")
             t0 = time.perf_counter()
-            l_cpu, _ = prefill(m_cpu, {"tokens": toks}, c_cpu)
+            l_cpu, _ = prefill(m_cpu, {"tokens": toks}, c_cpu,
+                               compute_dtype=dtype)
             t1 = time.perf_counter()
-            l_card, _ = prefill(m_card, {"tokens": toks.to(dev)}, c_card)
-            lk = l_card[0].cpu()
+            l_card, _ = prefill(m_card, {"tokens": toks.to(dev)}, c_card,
+                                compute_dtype=dtype)
+            lk = l_card[0].float().cpu()
             cpu_s, card_s = t1 - t0, time.perf_counter() - t1
             state_err = max((rel_err(getattr(c, f), getattr(k, f))
                              for c, k in zip(c_card, c_cpu)
@@ -2502,10 +2754,10 @@ def state_parity(cfg, dev, state_tol: float, chunk: int) -> dict:
                   f"prefill state differs by {state_err} > {state_tol}")
             errs, checked, ties = [], 0, 0
             for step in range(DENSE_STEPS + 1):
-                lc = l_cpu[0]
+                lc = l_cpu[0].float()
                 errs.append(float((lk - lc).abs().max()))
                 top2 = torch.topk(lc, 2).values
-                if float(top2[0] - top2[1]) > 2 * GEN_TOL:
+                if float(top2[0] - top2[1]) > 2 * tol:
                     check(int(lk.argmax()) == int(lc.argmax()), f"{name}: "
                           f"prompt {prompt}: greedy token differs at step "
                           f"{step}")
@@ -2516,15 +2768,16 @@ def state_parity(cfg, dev, state_tol: float, chunk: int) -> dict:
                     break
                 nxt = lc.argmax().reshape(1, 1)  # the same token into both
                 t0 = time.perf_counter()
-                l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, prompt + step)
+                l_cpu, _ = decode_step(m_cpu, nxt, c_cpu, prompt + step,
+                                       compute_dtype=dtype)
                 t1 = time.perf_counter()
                 l_card, _ = decode_step(m_card, nxt.to(dev), c_card,
-                                        prompt + step)
-                lk = l_card[0].cpu()
+                                        prompt + step, compute_dtype=dtype)
+                lk = l_card[0].float().cpu()
                 cpu_s += t1 - t0
                 card_s += time.perf_counter() - t1
-            check(max(errs) <= GEN_TOL, f"{name}: prompt {prompt}: logits "
-                  f"differ by {max(errs)} > {GEN_TOL}")
+            check(max(errs) <= tol, f"{name}: prompt {prompt}: logits "
+                  f"differ by {max(errs)} > {tol}")
             runs.append({"prompt": prompt, "chunks": -(-prompt // chunk)
                          if prompt > 1 else "recurrent", "cpu_s": cpu_s,
                          "card_s": card_s, "prefill_state_rel_err": state_err,
@@ -2543,7 +2796,8 @@ def state_parity(cfg, dev, state_tol: float, chunk: int) -> dict:
             "pattern": list(cfg.block_pattern), "d_model": cfg.d_model,
             "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
             "params": param_count(m_card), "init_s": init_s,
-            "tol": GEN_TOL, "state_tol": state_tol,
+            "tol": tol, "state_tol": state_tol, "dtype": str(dtype),
+            "cache_dtype": str(cache_dtype),
             "decode_steps": DENSE_STEPS, "prompts": runs,
             "launches": launches,
             "shared_blocks": [{"layers": group, "params": sum(
@@ -2658,6 +2912,7 @@ def kv_int8(dev, recorded) -> dict:
     phase's line; its ``"row"`` holds the inputs the ``kernels`` line times
     K7 at."""
     import torch
+    from repro_torch.kernels._attention import dtype_name
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_q8, decode_attention_q8_ref)
     from repro_torch.models.quantization import (
@@ -2824,7 +3079,7 @@ def kv_int8(dev, recorded) -> dict:
               f"allowance")
         extra[name] = {"shape": list(q.shape), "cache": list(ck.q.shape),
                        "lengths": lens, "window": window,
-                       "dtype": str(dtype)[6:], "max_abs_err": err,
+                       "dtype": dtype_name(dtype), "max_abs_err": err,
                        "err_over_allowance": ratio}
 
     ck = one[0][0]
@@ -3195,6 +3450,197 @@ def continuous_batching(ctx) -> tuple:
         "phase_s": time.perf_counter() - t_phase}
     del b
     return line, {"call": log.k6_call, "max_abs_err": k6_err}
+
+
+def bf16_serving(ctx) -> tuple:
+    """The ``bf16_serving`` phase (module docstring): (a) the main path's
+    generator drawn in bf16 at full width, serving the main path's first
+    ``BF16_BATCHES`` batches through ``ContinuousBatcher(compute_dtype=
+    bf16)`` behind the main index; (b) the cut parities in bf16.  Returns
+    the phase's line and (a)'s first K5 call with its error, for the
+    ``kernels`` line."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels._attention import dtype_name
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_q8)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ivf_topk import topk_ip
+    from repro_torch.kernels.slab_topk import slab_topk
+    from repro_torch.models import init_cache, init_params, prefill
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.mamba2 import CHUNK as SSD_CHUNK
+    from repro_torch.models.rwkv6 import CHUNK as WKV_CHUNK
+    from repro_torch.serving import ContinuousBatcher
+
+    t_phase = time.perf_counter()
+    dev, ds, engine = ctx["dev"], ctx["ds"], ctx["engine"]
+    bf16 = torch.bfloat16
+    cfg = ctx["gen"].cfg
+    layers = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=SEED, device=dev, dtype=bf16)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    check(weight_bytes == cfg.param_count() * 2 and {
+        p.dtype for p in model.parameters()} == {bf16},
+        f"bf16_serving: {weight_bytes} weight bytes, want "
+        f"{cfg.param_count() * 2} in bf16")
+    b = ContinuousBatcher(cfg, model, num_slots=BATCH, max_len=BATCHER_LEN,
+                          compute_dtype=bf16, device=dev)
+    check(all(c.k.dtype == torch.float32 for c in b.caches),
+          "bf16_serving: the batcher's caches are not f32")
+    rec_flash = Recorder(model_mod.flash_attention)
+    rec_dec = Recorder(model_mod.decode_attention)
+    log = BatcherLog(b, rec_dec)
+    saved = (model_mod.flash_attention, model_mod.decode_attention)
+    model_mod.flash_attention, model_mod.decode_attention = rec_flash, log
+    q8_before = decode_attention_q8.launches
+    per_batch, flat = [], []
+    zero_launches()
+    try:
+        for i in range(BF16_BATCHES):
+            lo, hi = i * BATCH, (i + 1) * BATCH
+            n_adm, n_tick = len(log.admit_s), len(log.tick_s)
+            t0 = time.perf_counter()
+            resp = engine.answer_batch(
+                [f"query-{j}" for j in range(lo, hi)], ds.query_embs[lo:hi],
+                ds.get_chunks, batcher=b)
+            wall = time.perf_counter() - t0
+            flat += resp
+            ticks = log.tick_s[n_tick:]
+            per_batch.append({
+                "wall_s": wall,
+                "retrieval_s": sum(r.ttft_wall_s for r in resp),
+                "prefill_s": sum(log.admit_s[n_adm:]),
+                "decode_s": sum(ticks), "ticks": len(ticks),
+                "ms_a_tick": 1e3 * sum(ticks) / len(ticks)})
+    finally:
+        model_mod.flash_attention, model_mod.decode_attention = saved
+    peak = torch.cuda.max_memory_allocated()
+    n_req = BF16_BATCHES * BATCH
+    launches = {"ivf_topk": topk_ip.launches,
+                "slab_topk": dict(slab_topk.launches_by_mode),
+                "flash_attention": dict(flash_attention.launches_by_mask),
+                "flash_attention_by_dtype":
+                    dict(flash_attention.launches_by_dtype),
+                "decode_attention": decode_attention.launches,
+                "decode_attention_by_dtype":
+                    dict(decode_attention.launches_by_dtype),
+                "decode_attention_q8":
+                    decode_attention_q8.launches - q8_before}
+    n_ticks = sum(p["ticks"] for p in per_batch)
+    want = {"flash_attention": {"causal": layers * n_req, "non_causal": 0},
+            "flash_attention_by_dtype": {"float32": 0,
+                                         "bfloat16": layers * n_req},
+            "decode_attention": layers * n_ticks,
+            "decode_attention_by_dtype": {"float32": layers * n_ticks,
+                                          "bfloat16": 0},
+            "decode_attention_q8": 0, "ivf_topk": BF16_BATCHES}
+    got = {key: launches[key] for key in want}
+    check(got == want and launches["slab_topk"]["fp32"] == BF16_BATCHES
+          and n_ticks == BF16_BATCHES * NEW_TOKENS,
+          f"bf16_serving (a): launches {launches} in {n_ticks} ticks; want "
+          f"{want}, K2 fp32 {BF16_BATCHES}, "
+          f"{BF16_BATCHES * NEW_TOKENS} ticks")
+    check(all(len(r.output_tokens) == NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in r.output_tokens)
+              for r in flat), "bf16_serving: generated tokens out of range")
+    swaps, mismatches = near_tie_mismatches(
+        [r.chunk_ids for r in flat], ctx["main_ids"][:n_req],
+        ctx["main_vals"][:n_req])
+    check(mismatches == 0, f"bf16_serving: {mismatches} ids differ from the "
+          f"main path's outside near-ties")
+    # the first K5 call (bf16) and K6 call (q widened, the batcher's
+    # per-slot lengths) against the plain versions on the card
+    first = first_calls(cfg, rec_flash, Recorder(None))
+    (q6, kc6, vc6, lens6), kw6 = rec_dec.first[None]
+    lens6 = getattr(lens6, "lengths", lens6)
+    err6, ratio6 = attn_err(decode_attention(q6, kc6, vc6, lens6, **kw6),
+                            decode_plain(q6, kc6, vc6, lens6, kw6["window"]))
+    check(ratio6 <= 1, f"bf16_serving: first K6 call's error {err6} is "
+          f"{ratio6} x its allowance")
+    first["k6_first"] = {"shape": list(q6.shape), "cache": list(kc6.shape),
+                         "lengths": lens6.tolist(), "max_abs_err": err6,
+                         "tol": attn_tol(q6.shape[-1]),
+                         "err_over_allowance": ratio6}
+    check(first["k5_first"]["shape"][1] <= MAX_PROMPT
+          and rec_flash.first[None][0][0].dtype == bf16
+          and q6.dtype == kc6.dtype == torch.float32,
+          f"bf16_serving: first calls {first}")
+    f32_engine = ctx["f32_engine"]
+    line_a = {
+        "generator": cfg.name, "layers": layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "weight_dtype": "bfloat16",
+        "compute_dtype": "bfloat16", "cache_dtype": "float32",
+        "weight_bytes": weight_bytes, "draw_s": draw_s,
+        "max_memory_allocated": peak, "slots": BATCH,
+        "max_len": BATCHER_LEN, "batches": BF16_BATCHES,
+        "new_tokens": NEW_TOKENS, "per_batch": per_batch,
+        "launches": launches, "ids_equal_main_path": True,
+        "near_tie_swaps": swaps,
+        "gen_tokens": [r.output_tokens for r in flat[:3]], **first,
+        "continuous_batching_f32_engine_batch": {
+            "wall_s": f32_engine["wall_s"],
+            "prefill_s": sum(f32_engine["admissions_s"]),
+            "decode_s": sum(f32_engine["ticks_s"]),
+            "ms_a_tick": 1e3 * sum(f32_engine["ticks_s"])
+            / len(f32_engine["ticks_s"]),
+            "weight_bytes": cfg.param_count() * 4}}
+    k5_call_ = rec_flash.first[None]
+    del b, model, log, rec_dec, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the cuts, card against CPU, in bf16
+    cut = lambda name, n: dataclasses.replace(get_config(name), num_layers=n)
+    parts = {}
+    for caches in (torch.float32, bf16):
+        parts[f"{GENERATOR}_{dtype_name(caches)}_caches"] = arch_parity(
+            cut(GENERATOR, PARITY_LAYERS), dev, MAX_PROMPT, dtype=bf16,
+            cache_dtype=caches)
+    parts[MOE_GEN] = arch_parity(cut(MOE_GEN, PARITY_LAYERS), dev,
+                                 MAX_PROMPT, dtype=bf16)
+    parts[HYBRID_GEN] = state_parity(cut(HYBRID_GEN, HYBRID_PARITY_LAYERS),
+                                     dev, STATE_BF16_TOL, SSD_CHUNK,
+                                     dtype=bf16)
+    rwkv = cut(RWKV_GEN, PARITY_LAYERS)
+    parts[RWKV_GEN] = state_parity(rwkv, dev, STATE_BF16_TOL, WKV_CHUNK,
+                                   dtype=bf16, cache_dtype=bf16)
+    # over f32 shift caches bf16 rwkv6 is refused before any work, as the
+    # reference's layer scan refuses it
+    m_rwkv = init_params(rwkv, seed=SEED, device=dev, dtype=bf16)
+    caches = init_cache(rwkv, 1, MAX_PROMPT, device=dev)
+    counts0 = (flash_attention.launches, decode_attention.launches)
+    try:
+        prefill(m_rwkv, {"tokens": torch.zeros((1, 8), dtype=torch.long,
+                                               device=dev)}, caches,
+                compute_dtype=bf16)
+        refused = None
+    except TypeError as err:
+        refused = str(err)
+    check(refused is not None and "init_cache" in refused
+          and counts0 == (flash_attention.launches, decode_attention.launches)
+          and all(float(t.abs().sum()) == 0 for c in caches
+                  for t in (c.wkv, c.shift_t, c.shift_c)),
+          f"bf16_serving (b): rwkv6 in bf16 over f32 caches: {refused}")
+    parts["rwkv6_over_f32_caches"] = {"raises": "TypeError",
+                                      "message": refused}
+    del m_rwkv, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"phase": "bf16_serving", "nvidia_smi": ctx["smi"],
+            "full_width": line_a, "cut_parity": parts,
+            "gen_bf16_tol": GEN_BF16_TOL,
+            "phase_s": time.perf_counter() - t_phase}, {
+                "call": k5_call_,
+                "max_abs_err": first["k5_first"]["max_abs_err"],
+                "launches": launches}
 
 
 def encode_phase(dev, texts) -> dict:
@@ -5158,6 +5604,7 @@ def check_attention(rec_flash, rec_dec, dense_calls, swa_calls,
     ``moe_archs`` (a)."""
     import dataclasses
     import torch
+    from repro_torch.kernels._attention import dtype_name
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import (
         decode_attention, decode_attention_q8, decode_attention_q8_ref)
@@ -5170,7 +5617,7 @@ def check_attention(rec_flash, rec_dec, dense_calls, swa_calls,
     def held(name, got, ref, entry):
         err, ratio = attn_err(got, ref)
         check(ratio <= 1, f"{name}: error {err} is {ratio} x its allowance")
-        entry.update(dtype=str(got.dtype)[6:], max_abs_err=err,
+        entry.update(dtype=dtype_name(got.dtype), max_abs_err=err,
                      tol=attn_tol(got.shape[-1]), err_over_allowance=ratio)
         out[name] = entry
 
@@ -5526,10 +5973,19 @@ def k5_row(name, q, k, v, causal, launches, err, k5_dev,
     with its mask); ``k5_dev``: :func:`k5_device_ms_at` at it, with the
     same ``with_lse``, which times the training entry (:func:`k5_call`)
     and adds the serving entry's device ms beside it."""
+    import torch
     (b, sq, h, d), skv = q.shape, k.shape[1]
     pairs = int(flash_mask(sq, skv, causal, window, "cpu").sum())
-    lim = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-                4 * b * h * d * pairs, F32_TC_FLOPS_PER_S)
+    if q.dtype == torch.bfloat16:
+        # q . K bf16 x bf16, one bf16 product; P . V f32 x bf16, three
+        # (:func:`bound`); the training entry writes the f32 output and lse
+        out_bytes = (q.numel() + b * h * sq) * 4 if with_lse else \
+            q.numel() * 2
+        lim = bound((q.numel() + k.numel() + v.numel()) * 2 + out_bytes,
+                    2 * 4 * b * h * d * pairs, BF16_FLOPS_PER_S)
+    else:
+        lim = bound((2 * q.numel() + k.numel() + v.numel()) * 4,
+                    4 * b * h * d * pairs, F32_TC_FLOPS_PER_S)
     return {
         "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -5733,20 +6189,25 @@ def cold_l2_device_ms(fn, event: str, calls: int = 100) -> dict:
 def bwd_ptxas(lines) -> object:
     """``ptxas``'s registers and spill stores per entry of K5's backward
     (``flash_bwd_prep``, and the tensor-core passes ``flash_bwd_dkv`` /
-    ``flash_bwd_dq`` at head dims 64, 80, 128, 256: 9), checking that none
-    spills; "not rebuilt" when the library was built before this run."""
+    ``flash_bwd_dq`` at head dims 64, 80, 128, 256, each f32 and bf16: 18),
+    checking that none spills; "not rebuilt" when the library was built
+    before this run."""
     import re
     if not lines:
         return "not rebuilt in this run"
     out = {}
     for ln in lines:
-        kind = re.search(r"flash_bwd_(prep|dkv|dq)(?:ILi(\d+)E)?", ln)
+        kind = re.search(r"flash_bwd_(prep|dkv|dq)I(f|13__nv_bfloat16)"
+                         r"(?:Li(\d+)E)?", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         spill = re.search(r"(\d+) bytes spill stores", ln)
         check(kind and regs and spill, f"unread ptxas line: {ln}")
-        key = kind[1] if kind[2] is None else f"{kind[1]} D={kind[2]}"
+        dtype = "f32" if kind[2] == "f" else "bf16"
+        key = (f"{kind[1]} {dtype}" if kind[3] is None
+               else f"{kind[1]} {dtype} D={kind[3]}")
         out[key] = [int(regs[1]), int(spill[1])]
-    check(len(out) == 9, f"flash_attention_bwd: {len(out)} entries, not 9")
+    check(len(out) == 18, f"flash_attention_bwd: {len(out)} entries, not "
+          f"18")
     spilled = {k: v for k, v in out.items() if v[1]}
     check(not spilled, f"flash_attention_bwd spills: {spilled}")
     return {"registers_and_spill_bytes": out}
@@ -5757,35 +6218,49 @@ def bwd_bound(q, k, causal: bool, window: int) -> tuple:
     D): q, k, v, out, dout, lse read once and dq, dk, dv written once,
     against the five products (S, dP, dV, dK, dQ: 2 FLOP a pair and dim
     each) at the card's fp32-accurate peak, 3xTF32 on the tensor cores
-    (as for K5's forward), whatever unit the kernel runs them on."""
+    (as for K5's forward), whatever unit the kernel runs them on.  bf16
+    operands (out and lse stay f32), by :func:`bound`'s rule: S and dP one
+    bf16 product each (bf16 x bf16), dV, dK and dQ three each (P or dS in
+    f32 against bf16), 11 at bf16's 989 TFLOP/s."""
+    import torch
     (b, sq, h, d), skv = q.shape, k.shape[1]
-    nbytes = (4 * q.numel() + 4 * k.numel() + b * h * sq) * 4
     pairs = int(flash_mask(sq, skv, causal, window, "cpu").sum())
+    if q.dtype == torch.bfloat16:
+        nbytes = (3 * q.numel() + 4 * k.numel()) * 2 + (
+            q.numel() + b * h * sq) * 4
+        return bound(nbytes, 2 * 11 * b * h * d * pairs, BF16_FLOPS_PER_S)
+    nbytes = (4 * q.numel() + 4 * k.numel() + b * h * sq) * 4
     return bound(nbytes, 10 * b * h * d * pairs, F32_TC_FLOPS_PER_S)
 
 
-def bwd_check(dev, name: str, shape: tuple, seed: int) -> tuple:
+def bwd_check(dev, name: str, shape: tuple, seed: int,
+              dtype=None) -> tuple:
     """K5's backward (``flash_attention_bwd``) at one shape on the card,
     against ``flash_attention_bwd_ref`` on the same inputs (q, k, v, dout
     ~ N(0, 1); out and lse from K5 asked for its lse, whose output must be
     bitwise K5's without it; the lse within :func:`attn_tol` of the plain
     one on the rows with a valid key).  dq, dk and dv within ``BWD_TOL``
-    relative Frobenius; a second call bitwise the first.  Returns (its
-    entry, the inputs)."""
+    relative Frobenius; a second call bitwise the first.  With ``dtype``
+    bf16 (``train_lm_bf16`` (a)): the inputs rounded to bf16, K5's f32
+    output rounded to nearest bitwise its serving bf16 output, the
+    gradients within ``BWD_BF16_TOL`` and bitwise the f32 entry's on the
+    widened inputs, rounded.  Returns (its entry, the inputs)."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd, flash_attention_bwd_ref, flash_attention_lse_ref)
     from repro_torch.kernels.flash_attention import ops as fa_ops
     b, sq, skv, h, kh, d, causal, window = shape
+    dtype = dtype or torch.float32
+    tol = BWD_TOL if dtype == torch.float32 else BWD_BF16_TOL
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, sq, h, d), device=dev, generator=g)
-    k, v = (torch.randn((b, skv, kh, d), device=dev, generator=g)
+    q = torch.randn((b, sq, h, d), device=dev, generator=g).to(dtype)
+    k, v = (torch.randn((b, skv, kh, d), device=dev, generator=g).to(dtype)
             for _ in range(2))
-    dout = torch.randn((b, sq, h, d), device=dev, generator=g)
+    dout = torch.randn((b, sq, h, d), device=dev, generator=g).to(dtype)
     out0, _ = fa_ops._launch(q, k, v, causal, window)
     out, lse = fa_ops._launch(q, k, v, causal, window, with_lse=True)
-    check(torch.equal(out, out0), f"{name}: K5's output with its lse is "
-          f"not bitwise its output without")
+    check(torch.equal(out.to(dtype), out0), f"{name}: K5's output with its "
+          f"lse is not bitwise its output without")
     heads = lambda *ts: [t.transpose(1, 2) for t in ts]
     lse_ref = flash_attention_lse_ref(*heads(q, k), causal=causal,
                                       window=window)
@@ -5800,20 +6275,30 @@ def bwd_check(dev, name: str, shape: tuple, seed: int) -> tuple:
                                           window=window))
     err = {}
     for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.float(), w.float()
         rel = float(torch.linalg.norm(a - w)) / max(
             float(torch.linalg.norm(w)), 1e-30)
         err[gname] = {"rel_frobenius": rel,
                       "max_abs": float((a - w).abs().max())}
-        check(rel <= BWD_TOL, f"{name}: {gname} relative error {rel} > "
-              f"{BWD_TOL}")
+        check(rel <= tol, f"{name}: {gname} relative error {rel} > {tol}")
     again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
                                 window=window)
     check(all(torch.equal(x, y) for x, y in zip(again, got)),
           f"{name}: two calls differ")
+    extra = {}
+    if dtype != torch.float32:   # the f32 entry on the widened inputs
+        wide = flash_attention_bwd(q.float(), k.float(), v.float(), out, lse,
+                                   dout.float(), causal=causal,
+                                   window=window)
+        extra["bitwise_f32_entry_widened"] = all(
+            torch.equal(a, w.to(dtype)) for a, w in zip(got, wide))
+        check(extra["bitwise_f32_entry_widened"], f"{name}: the bf16 entry "
+              f"is not the f32 entry's result on the widened inputs")
     torch.cuda.synchronize()
     entry = {"shape_b_sq_skv_h_kh_d": [b, sq, skv, h, kh, d],
-             "causal": causal, "window": window, "rows_with_no_key": dead,
-             "lse_max_abs_err": lse_err, "err": err, "tol": BWD_TOL,
+             "dtype": str(dtype), "causal": causal, "window": window,
+             "rows_with_no_key": dead, "lse_max_abs_err": lse_err,
+             "err": err, "tol": tol, **extra,
              "ms": cuda_ms(lambda: flash_attention_bwd(
                  q, k, v, out, lse, dout, causal=causal, window=window),
                  5 if sq * skv > 1 << 22 else 50)}
@@ -5868,43 +6353,40 @@ def bwd_device_ms(q, k, v, out, lse, dout, causal: bool, window: int,
             if library else None, "calls": calls}
 
 
-def train_lm(ctx) -> tuple:
-    """The training path (``repro_torch.train``): K5's backward against its
-    plain version at ``BWD_SHAPES``; (b) TRAIN_ARCH's first PARITY_LAYERS
-    layers at full width, the loss and every gradient on the card against
-    the CPU; (c) TRAIN_ARCH at full width taking TRAIN_STEPS AdamW steps;
-    (d) the overfit of ``tests/test_serving_train.py`` on the card against
-    the CPU.  Returns (the phase's line, its ``kernels`` rows)."""
-    import copy
-    import dataclasses
-    import gc
-    import math
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_ref)
-    from repro_torch.launch.train import synthetic_lm_batch
-    from repro_torch.models import init_params, loss_fn, param_count
-    from repro_torch.train import make_train_step, train_state_init
+def train_counts() -> dict:
+    """K5's launches by mask and by dtype, its windowed ones, and its
+    backward's launches by dtype, since :func:`zero_launches`."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    return {"flash_attention": dict(flash_attention.launches_by_mask),
+            "flash_attention_windowed": flash_attention.launches_windowed,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "flash_attention_by_dtype":
+                dict(flash_attention.launches_by_dtype),
+            "flash_attention_bwd_by_dtype":
+                dict(flash_attention_bwd.launches_by_dtype)}
 
-    dev, smi = ctx["dev"], ctx["smi"]
-    t_phase = time.perf_counter()
-    cpu = torch.device("cpu")
 
-    def counts():
-        return {"flash_attention": dict(flash_attention.launches_by_mask),
-                "flash_attention_windowed":
-                    flash_attention.launches_windowed,
-                "flash_attention_bwd": flash_attention_bwd.launches}
+def train_want(fwd: int, bwd: int, dtype: str = "float32") -> dict:
+    """The :func:`train_counts` of ``fwd`` causal K5 launches and ``bwd``
+    backward launches, every one of them ``dtype``'s entry."""
+    by = lambda n: {"float32": 0, "bfloat16": 0, dtype: n}
+    return {"flash_attention": {"causal": fwd, "non_causal": 0},
+            "flash_attention_windowed": 0, "flash_attention_bwd": bwd,
+            "flash_attention_by_dtype": by(fwd),
+            "flash_attention_bwd_by_dtype": by(bwd)}
 
-    def want(fwd, bwd):
-        return {"flash_attention": {"causal": fwd, "non_causal": 0},
-                "flash_attention_windowed": 0, "flash_attention_bwd": bwd}
 
-    # ---- (a) the backward kernel against its plain version ------------
-    checks, full_inputs, shape_dev = {}, None, {}
+def bwd_shapes(dev, dtype=None) -> tuple:
+    """(a) of ``train_lm`` and ``train_lm_bf16``: K5's backward at every
+    shape of ``BWD_SHAPES`` against its plain version (:func:`bwd_check`),
+    non-causal D 80's batch of 2 bitwise its elements, and at every shape
+    but the full-width one its device ms beside SDPA's backward.  Returns
+    (the checks, the device ms by shape, the full-width shape's
+    inputs)."""
+    checks, shape_dev, full_inputs = {}, {}, None
     for i, (name, shape) in enumerate(BWD_SHAPES.items()):
-        checks[name], inputs = bwd_check(dev, name, shape, SEED + i)
+        checks[name], inputs = bwd_check(dev, name, shape, SEED + i, dtype)
         causal, window = shape[6], shape[7]
         if name == "non_causal_d80":
             checks[name]["batch_bitwise_elements"] = bwd_batch_equal(
@@ -5919,6 +6401,18 @@ def train_lm(ctx) -> tuple:
         del inputs
     check(checks["masked_rows"]["rows_with_no_key"] > 0,
           "masked_rows has no row without a key")
+    return checks, shape_dev, full_inputs
+
+
+def bwd_full_row(name: str, checks: dict, full_inputs, shape_dev: dict,
+                 note: str = "") -> tuple:
+    """K5's backward at the full-width shape: its ``kernels`` row (ms,
+    device ms, bound, plain ms, SDPA's backward's ms and device ms; the
+    launches filled in by the caller), the device ms of both there, and the
+    record of the training entry of K5 at the same inputs for its own row
+    (q, k, v, its error, its device ms)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_bwd_ref)
     q, k, v, out, lse, dout = full_inputs
     full = BWD_SHAPES["stablelm_1p6b"]
     bwd_fn = lambda: flash_attention_bwd(q, k, v, out, lse, dout,
@@ -5926,17 +6420,16 @@ def train_lm(ctx) -> tuple:
     lib_fn = sdpa_bwd(q, k, v, dout, True)
     bwd_dev = device_ms({"flash_attention_bwd": bwd_fn,
                          "sdpa_bwd": lib_fn}, 10)
-    shape_dev = {"stablelm_1p6b": {
+    shape_dev["stablelm_1p6b"] = {
         "kernel_device_ms": bwd_dev["flash_attention_bwd"][
             "device_ms_per_call"],
-        "sdpa_bwd_device_ms": bwd_dev["sdpa_bwd"]["device_ms_per_call"]},
-        **shape_dev}
+        "sdpa_bwd_device_ms": bwd_dev["sdpa_bwd"]["device_ms_per_call"]}
     lim = bwd_bound(q, k, True, 0)
     plain_ms = cuda_ms(lambda: flash_attention_bwd_ref(
         *(t.transpose(1, 2) for t in (q, k, v, out)), lse,
         dout.transpose(1, 2), causal=True), 2)
-    bwd_row = {
-        "name": "flash_attention_bwd", "route": "cuda",
+    row = {
+        "name": name, "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:83",
         "gradient_of": "K5: port only, the JAX package differentiates "
@@ -5948,17 +6441,35 @@ def train_lm(ctx) -> tuple:
         "library_ms": cuda_ms(lib_fn, 10),
         "device_ms": bwd_dev["flash_attention_bwd"]["device_ms_per_call"],
         "library_device_ms": bwd_dev["sdpa_bwd"]["device_ms_per_call"],
-        "shape": list(full)}
-    k5_err = attn_err(k5_call(q, k, v, True, with_lse=True)()[0],
-                      flash_plain(q, k, v, True))[0]
+        "shape": list(full), "dtype": str(q.dtype)}
+    if note:
+        row["note"] = note
+    k5_err = attn_err(k5_call(q, k, v, True, with_lse=True)()[0].to(
+        q.dtype), flash_plain(q, k, v, True))[0]
     k5_dev = k5_device_ms_at(q, k, v, True, with_lse=True)
-    k5_rec = (q, k, v, k5_err, k5_dev)
-    del full_inputs, out, lse, dout, lib_fn
-    gc.collect()
-    torch.cuda.empty_cache()
+    return row, bwd_dev, (q, k, v, k5_err, k5_dev)
 
-    # ---- (b) PARITY_LAYERS layers at full width, card vs CPU ----------
-    cfg = get_config(TRAIN_ARCH)
+
+def train_cut(cfg, dev, dtype=None) -> dict:
+    """(b) of ``train_lm`` and ``train_lm_bf16``: ``cfg``'s first
+    PARITY_LAYERS layers at full width, one set of f32 weights drawn on the
+    CPU and copied to the card, the loss and every parameter's gradient on
+    TRAIN_PARITY_BATCH x TRAIN_PARITY_SEQ tokens card against CPU, computed
+    in ``dtype`` (f32 unless given): within ``TRAIN_LOSS_TOL`` /
+    ``TRAIN_GRAD_TOL``, or ``TRAIN_BF16_LOSS_TOL`` / ``TRAIN_BF16_GRAD_TOL``
+    in bf16; K5 two launches a layer (its forward and recompute) and its
+    backward one, every one ``dtype``'s entry.  In bf16 also
+    :func:`block_grad_control`, after the launches are counted."""
+    import copy
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.kernels._attention import dtype_name
+    from repro_torch.models import init_params, loss_fn, param_count
+    dtype = dtype or torch.float32
+    f32 = dtype == torch.float32
+    loss_tol, grad_tol = ((TRAIN_LOSS_TOL, TRAIN_GRAD_TOL) if f32 else
+                          (TRAIN_BF16_LOSS_TOL, TRAIN_BF16_GRAD_TOL))
     cut = dataclasses.replace(cfg, num_layers=PARITY_LAYERS)
     t0 = time.perf_counter()
     m_cpu = init_params(cut, seed=SEED, device="cpu")
@@ -5974,37 +6485,104 @@ def train_lm(ctx) -> tuple:
         m.requires_grad_(True)
         b = {key: t.to(m.device) for key, t in batch.items()}
         t0 = time.perf_counter()
-        loss, _ = loss_fn(m, b)
+        loss, _ = loss_fn(m, b, compute_dtype=dtype)
         grads[where] = torch.autograd.grad(loss, list(m.parameters()))
         losses[where] = float(loss.detach())
         if where == "card":
             torch.cuda.synchronize()
         secs[where] = time.perf_counter() - t0
-    parity_counts = counts()
-    check(parity_counts == want(2 * PARITY_LAYERS, PARITY_LAYERS),
-          f"parity launches {parity_counts}")
+    counts = train_counts()
+    check(counts == train_want(2 * PARITY_LAYERS, PARITY_LAYERS,
+                               dtype_name(dtype)),
+          f"parity launches {counts}")
     loss_err = abs(losses["card"] - losses["cpu"]) / losses["cpu"]
-    check(loss_err <= TRAIN_LOSS_TOL, f"parity loss {losses}")
+    check(loss_err <= loss_tol, f"parity loss {losses}")
     worst = ("", 0.0)
     for (pname, _), a, w in zip(m_cpu.named_parameters(), grads["card"],
                                 grads["cpu"]):
         rel = float(torch.linalg.norm(a.cpu() - w)) / max(
             float(torch.linalg.norm(w)), 1e-30)
         worst = max(worst, (pname, rel), key=lambda x: x[1])
-    check(worst[1] <= TRAIN_GRAD_TOL, f"parity gradient {worst}")
-    parity = {"layers": PARITY_LAYERS, "tokens": [TRAIN_PARITY_BATCH,
-                                                  TRAIN_PARITY_SEQ],
-              "params": param_count(m_cpu), "init_s": init_s,
-              "loss": losses, "loss_rel_err": loss_err,
-              "loss_tol": TRAIN_LOSS_TOL,
-              "worst_grad": {"param": worst[0], "rel_frobenius": worst[1]},
-              "grad_tol": TRAIN_GRAD_TOL, "seconds": secs,
-              "launches": parity_counts}
+    check(worst[1] <= grad_tol, f"parity gradient {worst}")
+    line = {"layers": PARITY_LAYERS, "tokens": [TRAIN_PARITY_BATCH,
+                                                TRAIN_PARITY_SEQ],
+            "params": param_count(m_cpu), "compute_dtype": str(dtype),
+            "init_s": init_s, "loss": losses, "loss_rel_err": loss_err,
+            "loss_tol": loss_tol,
+            "worst_grad": {"param": worst[0], "rel_frobenius": worst[1]},
+            "grad_tol": grad_tol, "seconds": secs, "launches": counts}
+    if not f32:
+        line["one_block_control"] = block_grad_control(
+            m_cpu, m_card, cut, toks[:, :-1])
     del m_cpu, m_card, grads
     gc.collect()
     torch.cuda.empty_cache()
+    return line
 
-    # ---- (c) full width, TRAIN_STEPS AdamW steps -----------------------
+
+def block_grad_control(m_cpu, m_card, cfg, tokens) -> dict:
+    """``train_lm_bf16`` (b)'s precision control at one block: the
+    feed-forward half of block 0 of the cut (``x + mlp(rms_norm(x))``, the
+    block's own functions and weights) on the CPU and on the card, fed the
+    same bf16 input (the embedded ``tokens``) and cotangent (N(0, 1) from
+    the seed, rounded to bf16).  The gradients of its ``up`` and ``down``
+    card against CPU within ``TRAIN_BF16_LAST_GRAD_TOL`` relative
+    Frobenius, and the card's f32 half, on the widened input and
+    cotangent, not.  The whole block is no such control on the card: its
+    attention half puts the two devices' bf16 ~u apart (PERF.md §6)."""
+    import torch
+    from repro_torch.models.layers import mlp, rms_norm
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        x = m_cpu.embed_inputs({"tokens": tokens}, bf16)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        SEED)).to(bf16)
+    b, s, _ = x.shape
+
+    def grads(m, dtype):
+        blk = m.blocks[0]
+        xt = x.to(m.device, dtype).requires_grad_(True)
+        out = xt + mlp(blk.gate, blk.up, blk.down,
+                       rms_norm(xt, blk.norm2, cfg.norm_eps))
+        got = torch.autograd.grad(out, [blk.up, blk.down],
+                                  g.to(m.device, dtype))
+        return [t.cpu() for t in got]
+
+    rel = lambda a, w: float(torch.linalg.norm(a - w)) / max(
+        float(torch.linalg.norm(w)), 1e-30)
+    want = grads(m_cpu, bf16)
+    card = [rel(a, w) for a, w in zip(grads(m_card, bf16), want)]
+    f32 = [rel(a, w) for a, w in zip(grads(m_card, torch.float32), want)]
+    line = {"block": 0, "half": "feed-forward", "params": ["up", "down"],
+            "tokens": [b, s],
+            "card_bf16_rel_frobenius": card,
+            "card_f32_rel_frobenius": f32,
+            "tol": TRAIN_BF16_LAST_GRAD_TOL}
+    check(max(card) <= TRAIN_BF16_LAST_GRAD_TOL < min(f32),
+          f"one block's gradients card vs CPU: {line}")
+    return line
+
+
+def train_full_width(cfg, dev, dtype=None) -> dict:
+    """(c) of ``train_lm`` and ``train_lm_bf16``: ``cfg`` at full width,
+    its f32 parameters drawn on the card, TRAIN_STEPS steps of
+    ``make_train_step(peak_lr=TRAIN_LR, compute_dtype=dtype)`` on
+    ``synthetic_lm_batch`` at TRAIN_BATCH x TRAIN_SEQ tokens: finite losses
+    and grad norms > 0, step 0's loss within 0.5 of ln(vocab), the
+    parameters bitwise unchanged by step 0 (lr 0) and every one moved by
+    the last, K5 exactly 2 x layers x steps launches and its backward
+    layers x steps, all of ``dtype``'s entry; then one more step profiled,
+    its device ms split into K5 forward, K5 backward, GEMMs, casts (in
+    bf16: the f32 weights and their gradients converted per product) and
+    the rest."""
+    import gc
+    import math
+    import torch
+    from repro_torch.kernels._attention import dtype_name
+    from repro_torch.launch.train import synthetic_lm_batch
+    from repro_torch.models import init_params, param_count
+    from repro_torch.train import make_train_step, train_state_init
+    dtype = dtype or torch.float32
     allocated_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -6015,7 +6593,7 @@ def train_lm(ctx) -> tuple:
     state = train_state_init(model)
     params = list(model.parameters())
     start = [p.detach().clone() for p in params]
-    step = make_train_step(cfg, peak_lr=TRAIN_LR)
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, compute_dtype=dtype)
     rng = np.random.default_rng(SEED)
     batches = [synthetic_lm_batch(rng, cfg, TRAIN_BATCH, TRAIN_SEQ + 1,
                                   device=dev)
@@ -6032,13 +6610,16 @@ def train_lm(ctx) -> tuple:
         if i == 0:
             check(all(torch.equal(p, s) for p, s in zip(params, start)),
                   "step 0 (lr 0) moved a parameter")
-    full_counts = counts()
+    counts = train_counts()
     layers = cfg.num_layers
-    check(full_counts == want(2 * layers * TRAIN_STEPS, layers * TRAIN_STEPS),
-          f"full-width launches {full_counts}")
+    check(counts == train_want(2 * layers * TRAIN_STEPS, layers * TRAIN_STEPS,
+                               dtype_name(dtype)),
+          f"full-width launches {counts}")
     unmoved = [n for (n, p), s in zip(model.named_parameters(), start)
                if torch.equal(p, s)]
     check(not unmoved, f"parameters not moved by step 2: {unmoved}")
+    check(all(p.dtype == torch.float32 for p in params),
+          "a parameter left f32")
     check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
               and m["grad_norm"] > 0 for m in metrics),
           f"non-finite or zero metrics {metrics}")
@@ -6054,28 +6635,67 @@ def train_lm(ctx) -> tuple:
 
     prof = profiled(one_step, events=True)
     split = {"k5_forward": 0.0, "k5_backward": 0.0, "gemm": 0.0, "rest": 0.0}
+    if dtype != torch.float32:
+        split["cast"] = 0.0
     for ev, (_, ms) in prof.pop("events").items():
         low = ev.lower()
         key = ("k5_forward" if "flash_fwd" in ev else
                "k5_backward" if "flash_bwd" in ev else
-               "gemm" if "gemm" in low or "gemv" in low else "rest")
+               "gemm" if "gemm" in low or "gemv" in low or "nvjet" in low
+               else "cast" if "cast" in split and "copy" in low else "rest")
         split[key] += ms
     steady = step_s[1:]
-    full_width = {
+    line = {
         "arch": cfg.name, "layers": layers, "d_model": cfg.d_model,
         "heads": [cfg.num_heads, cfg.head_dim], "d_ff": cfg.d_ff,
         "vocab": cfg.vocab_size, "params": n_params,
-        "param_bytes": n_params * 4, "tokens": [TRAIN_BATCH, TRAIN_SEQ],
-        "peak_lr": TRAIN_LR, "draw_s": draw_s,
-        "allocated_before_bytes": allocated_before,
+        "param_bytes": n_params * 4, "compute_dtype": str(dtype),
+        "tokens": [TRAIN_BATCH, TRAIN_SEQ], "peak_lr": TRAIN_LR,
+        "draw_s": draw_s, "allocated_before_bytes": allocated_before,
         "metrics": metrics, "ln_vocab": ln_v, "step_s": step_s,
         "s_per_step_1_2": sum(steady) / len(steady),
         "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * len(steady) / sum(steady),
-        "max_memory_allocated": peak, "launches": full_counts,
+        "max_memory_allocated": peak, "launches": counts,
         "profiled_step": {**prof, "device_ms_split": split}}
     del state, holder, one_step, model, params, batches, step
     gc.collect()
     torch.cuda.empty_cache()
+    return line
+
+
+def train_lm(ctx) -> tuple:
+    """The training path (``repro_torch.train``): K5's backward against its
+    plain version at ``BWD_SHAPES``; (b) TRAIN_ARCH's first PARITY_LAYERS
+    layers at full width, the loss and every gradient on the card against
+    the CPU; (c) TRAIN_ARCH at full width taking TRAIN_STEPS AdamW steps;
+    (d) the overfit of ``tests/test_serving_train.py`` on the card against
+    the CPU.  Returns (the phase's line, its ``kernels`` rows)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train import make_train_step, train_state_init
+
+    dev, smi = ctx["dev"], ctx["smi"]
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+
+    # ---- (a) the backward kernel against its plain version ------------
+    checks, shape_dev, full_inputs = bwd_shapes(dev)
+    bwd_row, bwd_dev, k5_rec = bwd_full_row("flash_attention_bwd", checks,
+                                            full_inputs, shape_dev)
+    del full_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (b) PARITY_LAYERS layers at full width, card vs CPU ----------
+    cfg = get_config(TRAIN_ARCH)
+    parity = train_cut(cfg, dev)
+    parity_counts = parity["launches"]
+
+    # ---- (c) full width, TRAIN_STEPS AdamW steps -----------------------
+    full_width = train_full_width(cfg, dev)
+    full_counts = full_width["launches"]
 
     # ---- (d) the overfit, card vs CPU ----------------------------------
     small = cfg.reduced(num_layers=2, d_model=128)
@@ -6096,8 +6716,8 @@ def train_lm(ctx) -> tuple:
             state, m = step(state, b)
             losses[where].append(m["loss"])
         fit_s[where] = time.perf_counter() - t0
-        fit_counts = counts()
-    check(fit_counts == want(2 * 2 * OVERFIT_STEPS, 2 * OVERFIT_STEPS),
+        fit_counts = train_counts()
+    check(fit_counts == train_want(2 * 2 * OVERFIT_STEPS, 2 * OVERFIT_STEPS),
           f"overfit launches {fit_counts}")
     fit = losses["card"]
     check(fit[-1] < 0.7 * fit[0], f"no overfit on the card: {fit[::8]}")
@@ -6128,6 +6748,51 @@ def train_lm(ctx) -> tuple:
             "bwd_full_width": bwd_row,
             "bwd_vs_sdpa_device": bwd_dev, "parity": parity,
             "full_width": full_width, "overfit": overfit,
+            "phase_s": time.perf_counter() - t_phase}
+    return line, [bwd_row, k5_train]
+
+
+def train_lm_bf16(ctx) -> tuple:
+    """The ``train_lm_bf16`` phase (module docstring): ``train_lm``'s (a),
+    (b) and (c) with ``compute_dtype=torch.bfloat16`` (K5's and its
+    backward's bf16 entries).  Returns (the phase's line, its ``kernels``
+    rows)."""
+    import gc
+    import torch
+    from repro_torch.configs import get_config
+
+    dev, smi = ctx["dev"], ctx["smi"]
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    checks, shape_dev, full_inputs = bwd_shapes(dev, bf16)
+    bwd_row, bwd_dev, k5_rec = bwd_full_row(
+        "flash_attention_bwd_bf16", checks, full_inputs, shape_dev,
+        note="library: SDPA's bf16 backward (flash, or memory-efficient "
+             "under a boolean mask) rounds P and dS to bf16 before its "
+             "products, a slightly different function from K5's gradient, "
+             "which keeps them f32")
+    del full_inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    parity = train_cut(cfg, dev, bf16)
+    full_width = train_full_width(cfg, dev, bf16)
+    full_counts = full_width["launches"]
+    bwd_row["launches_by_phase"] = {
+        "train_lm_bf16_full_width": full_counts["flash_attention_bwd"],
+        "train_lm_bf16_parity": parity["launches"]["flash_attention_bwd"]}
+    bwd_row["launches"] = sum(bwd_row["launches_by_phase"].values())
+    q, k, v, k5_err, k5_dev = k5_rec
+    fwd_by_phase = {"train_lm_bf16_full_width":
+                    full_counts["flash_attention"]["causal"]}
+    k5_train = k5_row("flash_attention_stablelm_1p6b_train_bf16", q, k, v,
+                      True, sum(fwd_by_phase.values()), k5_err, k5_dev,
+                      with_lse=True)
+    k5_train["launches_by_phase"] = fwd_by_phase
+    line = {"phase": "train_lm_bf16", "nvidia_smi": smi,
+            "bwd_checks": checks, "bwd_shapes_device_ms": shape_dev,
+            "bwd_full_width": bwd_row, "bwd_vs_sdpa_device": bwd_dev,
+            "parity": parity, "full_width": full_width,
             "phase_s": time.perf_counter() - t_phase}
     return line, [bwd_row, k5_train]
 
@@ -6373,6 +7038,11 @@ def main() -> int:
         "dev": dev, "gen": gen, "engine": engine, "ds": ds,
         "per_batch": per_batch})
     emit(batching)
+    bf16s, bf16_k5 = bf16_serving({
+        "dev": dev, "gen": gen, "engine": engine, "ds": ds, "smi": smi,
+        "main_ids": main_ids, "main_vals": main_vals,
+        "f32_engine": batching["engine"]})
+    emit(bf16s)
     enc = encode_phase(dev, ds.texts[:ENC_TEXTS])
     emit(enc)
     online, reuse = online_index({"ds": ds, "cost": cost, "dev": dev,
@@ -6403,6 +7073,8 @@ def main() -> int:
         ("continuous_batching", batching["trace"]["launches"], True),
         ("continuous_batching_engine", batching["engine"]["launches"],
          True),
+        ("bf16_serving", {n: bf16_k5["launches"][n] for n in (
+            "ivf_topk", "slab_topk", "decode_attention")}, True),
         ("encode", {"flash_attention": enc["launches"]}, False),
         ("online_index", online["launches"], False),
         ("staged_pipeline", pipe["launches"], True),
@@ -6666,6 +7338,13 @@ def main() -> int:
                           n_path("decode_attention_batcher"),
                           k6_batcher["max_abs_err"],
                           decode_device_ms(q, kc, vc, lens)))
+    (q, k, v), kw = bf16_k5["call"]
+    name = "flash_attention_bf16_batcher"
+    by_row[name] = {"bf16_serving": bf16_k5["launches"][
+        "flash_attention_by_dtype"]["bfloat16"]}
+    kernels.append(k5_row(name, q, k, v, kw["causal"], n_path(name),
+                          bf16_k5["max_abs_err"],
+                          k5_device_ms_at(q, k, v, kw["causal"])))
     for row in kernels:
         row["launches_by_phase"] = by_row[row["name"]]
 
@@ -6714,6 +7393,17 @@ def main() -> int:
     train, train_rows = train_lm({"dev": dev, "smi": smi})
     emit(train)
     kernels += train_rows
+    train16, train16_rows = train_lm_bf16({"dev": dev, "smi": smi})
+    emit(train16)
+    kernels += train16_rows
+    # a bound is the least time the card could take: a library call of
+    # the same function under it means the bound misses a faster unit
+    under = [(r["name"], r["bound_ms"], r["library_ms"],
+              r.get("library_device_ms")) for r in kernels
+             if r["library_ms"] is not None and min(
+                 r["library_ms"], r.get("library_device_ms") or np.inf)
+             < r["bound_ms"]]
+    check(not under, f"library times under their bounds: {under}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -46,7 +46,7 @@ from repro_torch.models.model import AttnBlock, Model
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
-                    device: DeviceLike = None) -> Model:
+                    device: DeviceLike = None, dtype=None) -> Model:
     """A :class:`Model` holding the JAX params ``tree`` (numpy leaves):
     ``{"embed", "blocks": ({"norm1", "wq", "wk", "wv", "wo", "norm2",
     "mlp": {"gate", "up", "down"}}, ...), "final_norm"[, "lm_head"]}``, one
@@ -57,10 +57,20 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, *,
     ``Wcv``), a ``"mamba2"`` position ``"norm1"`` and ``"mixer": {"in_z",
     ..., "out_proj"}``; a ``"shared_attn"`` position holds ``None`` and
     ``tree["shared"]`` the block, unstacked, as an ``"attn"`` position's
-    leaves."""
+    leaves.
+
+    Leaves of f32 or of bf16 (the ``ml_dtypes`` numpy type that
+    ``jax.numpy.bfloat16`` arrays give, as ``init_params(dtype=
+    jnp.bfloat16)`` makes them): each is widened through ``np.float32``,
+    which is exact, then cast to the model's dtype: ``dtype`` if given,
+    else bf16 when the tree's embedding is bf16, else f32."""
     dev = resolve_device(device)
-    model = Model(cfg, device=dev)
-    as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(dev)
+    if dtype is None:
+        dtype = (torch.bfloat16 if np.dtype(tree["embed"].dtype).name
+                 == "bfloat16" else torch.float32)
+    model = Model(cfg, device=dev, dtype=dtype)
+    as_t = lambda a: torch.from_numpy(np.array(a, np.float32)).to(
+        device=dev, dtype=dtype)
     with torch.no_grad():
         model.embed.copy_(as_t(tree["embed"]))
         model.final_norm.copy_(as_t(tree["final_norm"]))
@@ -96,7 +106,8 @@ def _block_tree(blocks: Sequence, stacked: bool = True) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     per = [dict(b.named_parameters()) for b in blocks]
     for name in per[0]:
-        arr = np.stack([p[name].detach().cpu().numpy() for p in per])
+        arr = np.stack([p[name].detach().cpu().to(torch.float32).numpy()
+                        for p in per])
         *head, leaf = _block_path(blocks[0], name)
         reduce(lambda d, k: d.setdefault(k, {}), head, tree)[leaf] = \
             arr if stacked else arr[0]
@@ -108,9 +119,10 @@ def params_to_jax(model: Model) -> Dict[str, Any]:
     :func:`params_from_jax` reads: ``"blocks"`` a tuple with one entry per
     pattern position, each leaf stacked over ``depth_repeat``; a
     ``"shared_attn"`` position ``None`` and ``"shared"`` its one block,
-    unstacked."""
+    unstacked.  A bf16 model's leaves come back widened to f32, which is
+    exact (numpy has no bf16 of its own)."""
     cfg = model.cfg
-    host = lambda t: t.detach().cpu().numpy().copy()
+    host = lambda t: t.detach().cpu().to(torch.float32).numpy().copy()
     tree: Dict[str, Any] = {"embed": host(model.embed),
                             "final_norm": host(model.final_norm)}
     if model.lm_head is not None:

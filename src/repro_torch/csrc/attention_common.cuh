@@ -29,6 +29,13 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
+// two adjacent elements (p 8-byte aligned for f32, 4-byte for bf16)
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
 
 // one 16-byte copy from global to shared memory (zero-filled unless valid)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -79,6 +86,16 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
   mma(c, ah, bh);
 }
 
+// c += a . b for a split A and a B exact in TF32 (a bf16 operand widened:
+// its lo is 0, so that product is not issued): lo.hi + hi.hi, 3xTF32's
+// order less the product of B's lo
+__device__ __forceinline__ void mma2(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2]) {
+  mma(c, al, bh);
+  mma(c, ah, bh);
+}
+
 // c += a . b in 3xTF32 for a split A and a B of two f32 values: exact in
 // TF32 (bf16 K / V: lo is 0, one product fewer) or split here.
 template <bool kExact>
@@ -87,8 +104,7 @@ __device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
                                      float b1) {
   if constexpr (kExact) {
     const uint32_t bh[2] = {__float_as_uint(b0), __float_as_uint(b1)};
-    mma(c, al, bh);
-    mma(c, ah, bh);
+    mma2(c, ah, al, bh);
   } else {
     uint32_t bh[2], bl[2];
     split(b0, bh[0], bl[0]);

@@ -170,14 +170,21 @@ __device__ __forceinline__ void stage(T* dst, const T* src, long long stride,
   }
 }
 
-// kLse: also write each row's log-sum-exp (f32 only; the training path's
-// forward, whose backward reads it); the serving entries are kLse = false,
-// and compile as if the store were not there.
+// kLse: the training path's forward, whose backward reads what it writes:
+// each row's log-sum-exp in f32, and the output in f32 (Out<T, kLse>:
+// for bf16 operands too, the value the serving entry rounds, so the
+// backward's Di = rowsum(dO o O) is the reference's, from its f32 output);
+// the serving entries are kLse = false, write q's dtype, and compile as if
+// the lse's store were not there.
+template <class T, bool kLse>
+using Out = typename std::conditional<kLse, float, T>::type;
+
 template <class T, int D, int kGroups, bool kLse>
 __global__ void __launch_bounds__(
     kThreads, (kLse ? 1 : Layout<T, D, kGroups>::kMinBlocks))
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ out, Strides qs,
+          const T* __restrict__ v, Out<T, kLse>* __restrict__ out,
+          Strides qs,
           Strides ks_, Strides vs_, Strides os, int sq, int skv, int group,
           int causal, int window, float scale, int vec,
           float* __restrict__ lse) {
@@ -406,7 +413,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
         lse[((long long)b * gridDim.y + head) * sq + rows[r]] =
             m[r] + logf(den);
     }
-    T* op = out + b * os.b + (long long)rows[r] * os.s + head * os.h + 2 * t;
+    Out<T, kLse>* op =
+        out + b * os.b + (long long)rows[r] * os.s + head * os.h + 2 * t;
 #pragma unroll
     for (int n = 0; n < kSteps; ++n) {
       attn::store(op + 8 * n, o[n][2 * r] / den);
@@ -423,7 +431,8 @@ bool aligned16(const T* p, const Strides& s) {
 }
 
 template <class T, int D, int kGroups, bool kLse>
-int launch(const T* q, const T* k, const T* v, T* out, const Strides& qs,
+int launch(const T* q, const T* k, const T* v, Out<T, kLse>* out,
+           const Strides& qs,
            const Strides& ks, const Strides& vs, int b, int sq, int skv,
            int h, int kh, int causal, int window, float scale, float* lse,
            cudaStream_t stream) {
@@ -451,13 +460,14 @@ int launch(const T* q, const T* k, const T* v, T* out, const Strides& qs,
 }  // namespace
 
 // dtype 0: float32, 1: bfloat16.  Strides are in elements; out is a
-// contiguous (B, Sq, H, D) tensor of q's dtype.  lse, when not null (f32
-// only), is a contiguous (B, H, Sq) f32 tensor that takes each row's
-// log-sum-exp of its scaled, masked scores, m + log(max(l, 1e-20)) from
-// the row's final (m, l) (the backward's input, flash_attention_bwd.cu);
-// out is the same with or without it.  Returns a cudaError_t
-// (cudaErrorInvalidValue for a head dim other than 64, 80, 128 or 256, a
-// bf16 call asking for the lse, or shapes the grid cannot hold).
+// contiguous (B, Sq, H, D) tensor of q's dtype, or f32 when lse is given.
+// lse, when not null, is a contiguous (B, H, Sq) f32 tensor that takes
+// each row's log-sum-exp of its scaled, masked scores, m + log(max(l,
+// 1e-20)) from the row's final (m, l) (the backward's input,
+// flash_attention_bwd.cu); out holds the same values with or without it,
+// in f32 with it (a bf16 call's serving output is those values rounded to
+// nearest).  Returns a cudaError_t (cudaErrorInvalidValue for a head dim
+// other than 64, 80, 128 or 256, or shapes the grid cannot hold).
 extern "C" int flash_attention(int dtype, const void* q, const void* k,
                                const void* v, void* out, long long qsb,
                                long long qss, long long qsh, long long ksb,
@@ -478,17 +488,14 @@ extern "C" int flash_attention(int dtype, const void* q, const void* k,
     const auto* vp = static_cast<const T*>(v);
     auto* op = static_cast<T*>(out);
     if (lse != nullptr) {
-      if constexpr (std::is_same<T, float>::value) {
-        auto* lp = static_cast<float*>(lse);
-        return causal ? launch<T, D, 2, true>(qp, kp, vp, op, qs, ks, vs, b,
-                                              sq, skv, h, kh, 1, window,
-                                              scale, lp, stream)
-                      : launch<T, D, 1, true>(qp, kp, vp, op, qs, ks, vs, b,
-                                              sq, skv, h, kh, 0, window,
-                                              scale, lp, stream);
-      } else {
-        return (int)cudaErrorInvalidValue;   // the lse is f32 only
-      }
+      auto* of = static_cast<float*>(out);
+      auto* lp = static_cast<float*>(lse);
+      return causal ? launch<T, D, 2, true>(qp, kp, vp, of, qs, ks, vs, b,
+                                            sq, skv, h, kh, 1, window, scale,
+                                            lp, stream)
+                    : launch<T, D, 1, true>(qp, kp, vp, of, qs, ks, vs, b,
+                                            sq, skv, h, kh, 0, window, scale,
+                                            lp, stream);
     }
     return causal ? launch<T, D, 2, false>(qp, kp, vp, op, qs, ks, vs, b, sq,
                                            skv, h, kh, 1, window, scale,

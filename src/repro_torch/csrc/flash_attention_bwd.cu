@@ -10,9 +10,9 @@
 // torch.autograd.Function in kernels/flash_attention/ops.py).
 //
 // Contract (the plain version, kernels/flash_attention/ref.py::
-// flash_attention_bwd_ref): contiguous f32 q, out, dout (B, Sq, H, D), k, v
-// (B, Skv, KH, D), lse (B, H, Sq), the row log-sum-exp that K5 writes when
-// asked.  With S = (q . k) * D^-0.5 under K5's masks (causal keeps
+// flash_attention_bwd_ref): contiguous q, dout (B, Sq, H, D), k, v (B, Skv,
+// KH, D), all f32 or all bf16, and the f32 out (B, Sq, H, D) and lse (B, H,
+// Sq) that K5 writes when asked for the lse (out before any rounding).  With S = (q . k) * D^-0.5 under K5's masks (causal keeps
 // k <= q, a window > 0 keeps k > q - window, positions from 0 for q and
 // k):
 //   P = exp(S - lse) where the mask keeps (i, j), else 0 -- but a row with
@@ -22,8 +22,30 @@
 //   the mask keeps (i, j), else 0 (the masked scores are constants);
 //   dQ = dS K D^-0.5, dK = dS^T Q D^-0.5,
 // dK and dV summed over the H / KH query heads of each kv head.  dq, dk,
-// dv are written contiguous, in the layouts of q and k.  Head dims 64, 80,
-// 128 and 256, H % KH == 0.
+// dv are written contiguous, in the layouts and the dtype of q and k.  Head
+// dims 64, 80, 128 and 256, H % KH == 0.
+//
+// bf16 (the training path under compute_dtype=bfloat16): the f32 gradient
+// of the widened inputs, rounded once to bf16 at the store, which is what
+// jax.grad of the reference's bf16 attention gives (it computes in f32 on
+// widened operands and rounds its output; under GQA it also rounds each
+// query head's share of dK and dV before their bf16 sum, where this sums
+// in f32).  The one choice: Di is taken from K5's f32 output, before its
+// rounding to bf16, as the reference differentiates through its f32
+// output.  FlashAttention-2's form, Di from the bf16 output, moves Di by up
+// to 2^-8 sum_d |dO_d O_d| a row (bf16's unit roundoff);
+// tests/test_torch_bf16_train.py measures what that costs the plain
+// version against jax.grad: 1.7e-3 to 2.0e-3 relative in dq and dk, where
+// the f32 output gives 1e-5 to 3e-5.  A bf16 operand widens exactly into TF32 (its lo part is 0), so
+// the lo products of bf16 operands are not issued: S, dP (bf16 x bf16) take
+// one product, hi.hi; dV, dK, dQ (P or dS in f32 x bf16) two, lo.hi +
+// hi.hi.  Every product and sum is then the f32 entry's on the widened
+// inputs (the skipped products add exact zeros), so a bf16 call gives the
+// f32 entry's result on the widened inputs, rounded.  The bf16 rows a block
+// keeps (K, V in dkv; Q, dO in dq) are widened into the same f32 tiles by
+// plain loads; the streamed tiles are copied raw in bf16 by cp.async and
+// widened into (hi, 0) pairs by the split pass; the shared memory layout is
+// the f32 entries'.
 //
 // What bounds it on this card: the operations.  At stablelm-1.6b's
 // training shape (1, 4096, 32, 64) causal, the five products (S, dP, dV,
@@ -164,21 +186,43 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                :: "r"(s), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-// rows r0 .. r0 + kRows - 1 of a (rows, ld) f32 matrix into dst (pitch
-// kPitch floats) by cp.async, rows at or past ``limit`` as zeros
-template <int D, int kRows, int kPitch>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+// rows r0 .. r0 + kRows - 1 of a (rows, ld) matrix of T into dst (pitch
+// kPitch elements of T) by cp.async, rows at or past ``limit`` as zeros
+template <int D, int kRows, int kPitch, class T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
                                            long long ld, int r0, int limit) {
-  constexpr int kChunks = D / 4;   // 16-byte copies a row
+  constexpr int kVec = 16 / (int)sizeof(T);
+  constexpr int kChunks = D / kVec;   // 16-byte copies a row
   constexpr int kCopies = kRows * kChunks;
 #pragma unroll
   for (int i = 0; i < (kCopies + kThreads - 1) / kThreads; ++i) {
     const int c = threadIdx.x + i * kThreads;
     if (kCopies % kThreads != 0 && c >= kCopies) break;
-    const int r = c / kChunks, e = (c - r * kChunks) * 4;
+    const int r = c / kChunks, e = (c - r * kChunks) * kVec;
     const bool ok = r0 + r < limit;
     cp_async16(dst + r * kPitch + e,
                src + (ok ? (long long)(r0 + r) * ld : 0) + e, ok);
+  }
+}
+
+// A block's fixed rows (kRows of D, pitch kPitch floats) as f32: f32 rows
+// by cp.async (stage_rows), bf16 rows widened by plain loads (exact), each
+// visible to the block after its next barrier
+template <int D, int kRows, int kPitch, class T>
+__device__ __forceinline__ void stage_fixed(float* dst, const T* src,
+                                            long long ld, int r0,
+                                            int limit) {
+  if constexpr (std::is_same<T, float>::value) {
+    stage_rows<D, kRows, kPitch>(dst, src, ld, r0, limit);
+  } else {
+    for (int i = threadIdx.x; i < kRows * D / 2; i += kThreads) {
+      const int r = i / (D / 2), c = (i - r * (D / 2)) * 2;
+      const float2 x = r0 + r < limit
+          ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                src + (long long)(r0 + r) * ld + c))
+          : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(dst + r * kPitch + c) = x;
+    }
   }
 }
 
@@ -196,22 +240,41 @@ __device__ __forceinline__ int swz(int r, int c) {
   return r * D + (c ^ swz_of(r));
 }
 
+// four elements of a raw tile as f32
+__device__ __forceinline__ float4 widen4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 widen4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
 // The raw (kRows, D) tiles of two tensors into their split tiles: every
-// element x as (hi, lo), x = hi + lo (attention_common.cuh's split)
-template <int D, int kRows>
-__device__ __forceinline__ void split_tiles(const float* raw,
-                                            float2* out) {
+// element x as (hi, lo), x = hi + lo (attention_common.cuh's split; a bf16
+// element widens exactly into TF32: hi = x, lo = 0)
+template <int D, int kRows, class T>
+__device__ __forceinline__ void split_tiles(const T* raw, float2* out) {
   constexpr int kN = 2 * kRows * D / 4;   // 4-element groups, both tensors
 #pragma unroll 4
   for (int i = threadIdx.x; i < kN; i += kThreads) {
     const int m = i / (kRows * D / 4), rest = i - m * (kRows * D / 4);
     const int r = rest / (D / 4), c = (rest - r * (D / 4)) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(raw + 4 * i);
+    const float4 x = widen4(raw + 4 * i);
     uint32_t h[4], l[4];
-    split(x.x, h[0], l[0]);
-    split(x.y, h[1], l[1]);
-    split(x.z, h[2], l[2]);
-    split(x.w, h[3], l[3]);
+    if constexpr (std::is_same<T, float>::value) {
+      split(x.x, h[0], l[0]);
+      split(x.y, h[1], l[1]);
+      split(x.z, h[2], l[2]);
+      split(x.w, h[3], l[3]);
+    } else {
+      h[0] = __float_as_uint(x.x), h[1] = __float_as_uint(x.y);
+      h[2] = __float_as_uint(x.z), h[3] = __float_as_uint(x.w);
+      l[0] = l[1] = l[2] = l[3] = 0u;
+    }
     float4* o = reinterpret_cast<float4*>(out + m * kRows * D + swz<D>(r, c));
     o[0] = make_float4(__uint_as_float(h[0]), __uint_as_float(l[0]),
                        __uint_as_float(h[1]), __uint_as_float(l[1]));
@@ -243,15 +306,24 @@ __device__ __forceinline__ bool keeps(int i, int j, int causal, int window) {
 }
 
 // A fragment of 16 rows of an f32 tile at dims 8s .. 8s + 7 (row g, dim
-// t and so on), split: ``p`` points at (row g, dim t) of step 0
-template <int kP>
+// t and so on), split: ``p`` points at (row g, dim t) of step 0.  kExact:
+// the rows are widened bf16, exact in TF32, so hi is the value (lo unset,
+// never read)
+template <int kP, bool kExact>
 __device__ __forceinline__ void split_rows(const float* p, int s,
                                            uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
-  split(p[8 * s], hi[0], lo[0]);
-  split(p[8 * kP + 8 * s], hi[1], lo[1]);
-  split(p[8 * s + 4], hi[2], lo[2]);
-  split(p[8 * kP + 8 * s + 4], hi[3], lo[3]);
+  if constexpr (kExact) {
+    hi[0] = __float_as_uint(p[8 * s]);
+    hi[1] = __float_as_uint(p[8 * kP + 8 * s]);
+    hi[2] = __float_as_uint(p[8 * s + 4]);
+    hi[3] = __float_as_uint(p[8 * kP + 8 * s + 4]);
+  } else {
+    split(p[8 * s], hi[0], lo[0]);
+    split(p[8 * kP + 8 * s], hi[1], lo[1]);
+    split(p[8 * s + 4], hi[2], lo[2]);
+    split(p[8 * kP + 8 * s + 4], hi[3], lo[3]);
+  }
 }
 
 // Two products of one shape at once: c[j] += (16 rows at ``a``) . (rows
@@ -260,7 +332,8 @@ __device__ __forceinline__ void split_rows(const float* p, int s,
 // dO V^T.  Each A fragment is split once a dim step and used for every j.
 // Row 8j + g of a split tile has the swizzle of g, so column 8s + t + 4u
 // lies at 8s + off[s & 1][u]; steps go in pairs, so s & 1 is known.
-template <int D, int kJ, int kP>
+// kExact (bf16 operands, both sides exact in TF32): one product, hi.hi.
+template <int D, int kJ, int kP, bool kExact>
 __device__ __forceinline__ void row_products(float (&c)[kJ][4],
                                              float (&d)[kJ][4],
                                              const float* a, const float* a2,
@@ -286,16 +359,21 @@ __device__ __forceinline__ void row_products(float (&c)[kJ][4],
     for (int p = 0; p < 2; ++p) {
       const int s = 2 * s2 + p;
       uint32_t ah[4], al[4], a2h[4], a2l[4];
-      split_rows<kP>(a, s, ah, al);
-      split_rows<kP>(a2, s, a2h, a2l);
+      split_rows<kP, kExact>(a, s, ah, al);
+      split_rows<kP, kExact>(a2, s, a2h, a2l);
       const int o0 = 8 * s + off[p][0], o1 = 8 * s + off[p][1];
 #pragma unroll
       for (int j = 0; j < kJ; ++j) {   // B: row 8j + g, dims 8s + t, + 4
         uint32_t xh[2], xl[2], yh[2], yl[2];
         unpair(br[8 * j * D + o0], br[8 * j * D + o1], xh, xl);
         unpair(br2[8 * j * D + o0], br2[8 * j * D + o1], yh, yl);
-        mma3(c[j], ah, al, xh, xl);
-        mma3(d[j], a2h, a2l, yh, yl);
+        if constexpr (kExact) {
+          attn::mma(c[j], ah, xh);
+          attn::mma(d[j], a2h, yh);
+        } else {
+          mma3(c[j], ah, al, xh, xl);
+          mma3(d[j], a2h, a2l, yh, yl);
+        }
       }
     }
   }
@@ -317,8 +395,9 @@ __device__ __forceinline__ void split_acc(const float (&c)[4],
 // n at columns d0 + 8n + g).  The tensor core's f32 sums round toward
 // zero, so a running sum fed by thousands of products drifts (4.5e-5
 // relative at 4,096 rows): each tile is summed from zero, kC dim slices at
-// a time, and then added to ``acc`` in f32.
-template <int D, int kN, int kC, int kJ>
+// a time, and then added to ``acc`` in f32.  kExact: B is widened bf16
+// (lo 0), so its lo product is not issued (attention_common.cuh's mma2).
+template <int D, int kN, int kC, int kJ, bool kExact>
 __device__ __forceinline__ void add_tile(float (&acc)[kN][4],
                                          const float (&a)[kJ][4],
                                          const float2* b, int d0) {
@@ -350,7 +429,11 @@ __device__ __forceinline__ void add_tile(float (&acc)[kN][4],
         uint32_t bh[2], bl[2];
         unpair(r0[o + off[0][(c0 + n) & 1]], r1[o + off[1][(c0 + n) & 1]],
                bh, bl);
-        mma3(part[n], ah, al, bh, bl);
+        if constexpr (kExact) {
+          attn::mma2(part[n], ah, al, bh);
+        } else {
+          mma3(part[n], ah, al, bh, bl);
+        }
       }
     }
 #pragma unroll
@@ -360,17 +443,20 @@ __device__ __forceinline__ void add_tile(float (&acc)[kN][4],
   }
 }
 
-// Di[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]; a warp a row
+// Di[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in f32, O K5's f32
+// output; a warp a row
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_prep(const float* __restrict__ out, const float* __restrict__ dout,
+flash_bwd_prep(const float* __restrict__ out, const T* __restrict__ dout,
                float* __restrict__ di, int rows, int sq, int h, int d) {
   const int row = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;                 // row = (b * Sq + i) * H + head
   const float* o = out + (long long)row * d;
-  const float* g = dout + (long long)row * d;
+  const T* g = dout + (long long)row * d;
   float s = 0.f;
-  for (int c = lane; c < d; c += 32) s += o[c] * g[c];
+  for (int c = lane; c < d; c += 32)
+    s += o[c] * attn::widen(g[c]);
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
     s += __shfl_xor_sync(kFull, s, off);
@@ -380,21 +466,23 @@ flash_bwd_prep(const float* __restrict__ out, const float* __restrict__ dout,
   }
 }
 
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ di,
-              float* __restrict__ dk, float* __restrict__ dv, int sq, int skv,
+              T* __restrict__ dk, T* __restrict__ dv, int sq, int skv,
               int h, int kh, int causal, int window, float scale) {
   using Ly = KvLayout<D>;
+  constexpr bool kExact = sizeof(T) == 2;   // bf16: exact in TF32
   constexpr int kBK = Ly::kBK, kBQ = Ly::kBQ, kP = Ly::kP;
   constexpr int kN = D / 8 / Ly::kSplit;    // a warp's 8-dim slices of dK
   constexpr int kJ = kBQ / 8;               // 8-row slices of a q tile
   extern __shared__ __align__(16) float smem[];
   float* const ks = smem;                   // kBK x kP
   float* const vs = ks + kBK * kP;
-  float* const raw = smem + Ly::kRaw;       // Q then dO, kBQ x D each
+  T* const raw =                            // Q then dO, kBQ x D each
+      reinterpret_cast<T*>(smem + Ly::kRaw);
   const float2* const qsp =                 // split Q then dO
       reinterpret_cast<const float2*>(smem + Ly::kSplitAt);
   const float2* const dosp = qsp + kBQ * D;
@@ -410,10 +498,10 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   const float inv_skv = 1.f / (float)skv;
   const float scale2 = scale * kLog2e;      // exp(x) = 2^(x log2 e)
 
-  stage_rows<D, kBK, kP>(ks, k + ((long long)b * skv * kh + hk) * D, ldk,
-                         k0, skv);
-  stage_rows<D, kBK, kP>(vs, v + ((long long)b * skv * kh + hk) * D, ldk,
-                         k0, skv);
+  stage_fixed<D, kBK, kP>(ks, k + ((long long)b * skv * kh + hk) * D, ldk,
+                          k0, skv);
+  stage_fixed<D, kBK, kP>(vs, v + ((long long)b * skv * kh + hk) * D, ldk,
+                          k0, skv);
 
   // the q tiles this KV tile meets: those holding rows in [lo, hi] under
   // the masks, [a0, a1), then those holding rows with no valid key at all,
@@ -462,7 +550,8 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < n_steps; ++i) {
     cp_async_wait<0>();
     __syncthreads();   // tile i landed; every warp is done with tile i - 1
-    split_tiles<D, kBQ>(raw, reinterpret_cast<float2*>(smem + Ly::kSplitAt));
+    split_tiles<D, kBQ>(raw,
+                        reinterpret_cast<float2*>(smem + Ly::kSplitAt));
     __syncthreads();   // the split tiles are whole, the raw ones free
     if (i + 1 < n_steps) {   // the next tile's copy runs under this one
       stage_step(i + 1);
@@ -475,7 +564,7 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
     // S^T = K Q^T, dP^T = V dO^T: [row slice j][0, 1] key g, rows
     // q0 + 8j + 2t, +1; [2, 3] key g + 8
     float st[kJ][4], dpt[kJ][4];
-    row_products<D, kJ, kP>(st, dpt, kw, vw, qsp, dosp);
+    row_products<D, kJ, kP, kExact>(st, dpt, kw, vw, qsp, dosp);
 
     // P^T and dS^T in place, the masks where the warp's keys and the
     // tile's rows need them
@@ -507,8 +596,8 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
     }
 
     // dV += P^T dO, dK += dS^T Q (the warp's dims)
-    add_tile<D, kN, Ly::kC, kJ>(dva, st, dosp, d0);
-    add_tile<D, kN, Ly::kC, kJ>(dka, dpt, qsp, d0);
+    add_tile<D, kN, Ly::kC, kJ, kExact>(dva, st, dosp, d0);
+    add_tile<D, kN, Ly::kC, kJ, kExact>(dka, dpt, qsp, d0);
   }
   cp_async_wait<0>();   // K and V, when no step ran
 
@@ -519,30 +608,31 @@ flash_bwd_dkv(const float* __restrict__ q, const float* __restrict__ k,
     const long long off =
         ((long long)b * skv + j) * ldk + (long long)hk * D + d0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kN; ++n) {
-      *reinterpret_cast<float2*>(dk + off + 8 * n) =
-          make_float2(dka[n][2 * r] * scale, dka[n][2 * r + 1] * scale);
-      *reinterpret_cast<float2*>(dv + off + 8 * n) =
-          make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+    for (int n = 0; n < kN; ++n) {   // rounded once, for a bf16 call
+      attn::store2(dk + off + 8 * n, dka[n][2 * r] * scale,
+                   dka[n][2 * r + 1] * scale);
+      attn::store2(dv + off + 8 * n, dva[n][2 * r], dva[n][2 * r + 1]);
     }
   }
 }
 
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, const float* __restrict__ dout,
+flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, const T* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ di,
-             float* __restrict__ dq, int sq, int skv, int h, int kh,
+             T* __restrict__ dq, int sq, int skv, int h, int kh,
              int causal, int window, float scale) {
   using Ly = QLayout<D>;
+  constexpr bool kExact = sizeof(T) == 2;   // bf16: exact in TF32
   constexpr int kBQ = Ly::kBQ, kBK = Ly::kBK, kP = Ly::kP;
   constexpr int kN = D / 8 / Ly::kSplit;    // a warp's 8-dim slices of dQ
   constexpr int kJ = kBK / 8;               // 8-key slices of a KV tile
   extern __shared__ __align__(16) float smem[];
   float* const qs = smem;                   // kBQ x kP
   float* const dos = qs + kBQ * kP;
-  float* const raw = smem + Ly::kRaw;       // K then V, kBK x D each
+  T* const raw =                            // K then V, kBK x D each
+      reinterpret_cast<T*>(smem + Ly::kRaw);
   const float2* const ksp =                 // split K then V
       reinterpret_cast<const float2*>(smem + Ly::kSplitAt);
   const float2* const vsp = ksp + kBK * D;
@@ -558,8 +648,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const long long row0 = (long long)b * sq * h + head;
   const float scale2 = scale * kLog2e;      // exp(x) = 2^(x log2 e)
 
-  stage_rows<D, kBQ, kP>(qs, q + row0 * D, ldq, q0, sq);
-  stage_rows<D, kBQ, kP>(dos, dout + row0 * D, ldq, q0, sq);
+  stage_fixed<D, kBQ, kP>(qs, q + row0 * D, ldq, q0, sq);
+  stage_fixed<D, kBQ, kP>(dos, dout + row0 * D, ldq, q0, sq);
 
   // the keys the tile's rows may attend (rows with none get dS = 0)
   const int q1 = min(q0 + kBQ, sq) - 1;
@@ -567,8 +657,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   const int jhi = causal ? min(q1, skv - 1) : skv - 1;
   const int t0 = jlo / kBK;
   const int n_steps = jlo <= jhi ? jhi / kBK - t0 + 1 : 0;
-  const float* const kb = k + ((long long)b * skv * kh + hk) * D;
-  const float* const vb = v + ((long long)b * skv * kh + hk) * D;
+  const T* const kb = k + ((long long)b * skv * kh + hk) * D;
+  const T* const vb = v + ((long long)b * skv * kh + hk) * D;
   auto stage_step = [&](int i) {
     stage_rows<D, kBK, D>(raw, kb, ldk, (t0 + i) * kBK, skv);
     stage_rows<D, kBK, D>(raw + kBK * D, vb, ldk, (t0 + i) * kBK, skv);
@@ -598,7 +688,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < n_steps; ++i) {
     cp_async_wait<0>();
     __syncthreads();   // tile i landed; every warp is done with tile i - 1
-    split_tiles<D, kBK>(raw, reinterpret_cast<float2*>(smem + Ly::kSplitAt));
+    split_tiles<D, kBK>(raw,
+                        reinterpret_cast<float2*>(smem + Ly::kSplitAt));
     __syncthreads();   // the split tiles are whole, the raw ones free
     if (i + 1 < n_steps) {   // the next tile's copy runs under this one
       stage_step(i + 1);
@@ -609,7 +700,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     // S = Q K^T, dP = dO V^T: [key slice j][0, 1] row g, keys
     // kv0 + 8j + 2t, +1; [2, 3] row g + 8
     float sc[kJ][4], dp[kJ][4];
-    row_products<D, kJ, kP>(sc, dp, qw, dow, ksp, vsp);
+    row_products<D, kJ, kP, kExact>(sc, dp, qw, dow, ksp, vsp);
 
     // dS = P o (dP - Di) in place, the masks where needed
     const bool edge = kv0 + kBK > skv || w0 + 16 > sq ||
@@ -630,19 +721,19 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
       }
 
     // dQ += dS K (the warp's dims)
-    add_tile<D, kN, Ly::kC, kJ>(dqa, dp, ksp, d0);
+    add_tile<D, kN, Ly::kC, kJ, kExact>(dqa, dp, ksp, d0);
   }
   cp_async_wait<0>();   // Q and dO, when no step ran
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= sq) continue;
-    float* out = dq + ((long long)b * sq + rows[r]) * ldq +
-                 (long long)head * D + d0 + 2 * t;
+    T* out = dq + ((long long)b * sq + rows[r]) * ldq +
+             (long long)head * D + d0 + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kN; ++n)
-      *reinterpret_cast<float2*>(out + 8 * n) =
-          make_float2(dqa[n][2 * r] * scale, dqa[n][2 * r + 1] * scale);
+    for (int n = 0; n < kN; ++n)   // rounded once, for a bf16 call
+      attn::store2(out + 8 * n, dqa[n][2 * r] * scale,
+                   dqa[n][2 * r + 1] * scale);
   }
 }
 
@@ -655,11 +746,11 @@ int set_smem(Kernel kernel, int bytes) {
   return (int)err;
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const float* out,
-           const float* dout, const float* lse, float* di, float* dq,
-           float* dk, float* dv, int b, int sq, int skv, int h, int kh,
-           int causal, int window, float scale, cudaStream_t stream) {
+template <class T, int D>
+int launch(const T* q, const T* k, const T* v, const float* out,
+           const T* dout, const float* lse, float* di, T* dq, T* dk, T* dv,
+           int b, int sq, int skv, int h, int kh, int causal, int window,
+           float scale, cudaStream_t stream) {
   using Kv = KvLayout<D>;
   using Qd = QLayout<D>;
   const long long rows = (long long)b * sq * h;
@@ -667,30 +758,32 @@ int launch(const float* q, const float* k, const float* v, const float* out,
   const long long q_tiles = (sq + Qd::kBQ - 1) / Qd::kBQ;
   if (rows > 0x7fffffffLL / 2 || kv_tiles > 65535 || q_tiles > 65535)
     return (int)cudaErrorInvalidValue;
-  flash_bwd_prep<<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads, 0,
-                   stream>>>(out, dout, di, (int)rows, sq, h, D);
+  flash_bwd_prep<T><<<(unsigned)((rows + kWarps - 1) / kWarps), kThreads,
+                      0, stream>>>(out, dout, di, (int)rows, sq, h, D);
   int err = (int)cudaGetLastError();
   if (err) return err;
-  if ((err = set_smem(flash_bwd_dkv<D>, Kv::kBytes))) return err;
-  flash_bwd_dkv<D><<<dim3(kh, b, (unsigned)kv_tiles), kThreads, Kv::kBytes,
-                     stream>>>(q, k, v, dout, lse, di, dk, dv, sq, skv, h,
-                               kh, causal, window, scale);
+  if ((err = set_smem(flash_bwd_dkv<T, D>, Kv::kBytes))) return err;
+  flash_bwd_dkv<T, D><<<dim3(kh, b, (unsigned)kv_tiles), kThreads,
+                        Kv::kBytes, stream>>>(q, k, v, dout, lse, di, dk, dv,
+                                              sq, skv, h, kh, causal, window,
+                                              scale);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = set_smem(flash_bwd_dq<D>, Qd::kBytes))) return err;
-  flash_bwd_dq<D><<<dim3(h, b, (unsigned)q_tiles), kThreads, Qd::kBytes,
-                    stream>>>(q, k, v, dout, lse, di, dq, sq, skv, h, kh,
-                              causal, window, scale);
+  if ((err = set_smem(flash_bwd_dq<T, D>, Qd::kBytes))) return err;
+  flash_bwd_dq<T, D><<<dim3(h, b, (unsigned)q_tiles), kThreads, Qd::kBytes,
+                       stream>>>(q, k, v, dout, lse, di, dq, sq, skv, h, kh,
+                                 causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// f32 only.  Every tensor is contiguous: q, out, dout, dq (B, Sq, H, D); k,
-// v, dk, dv (B, Skv, KH, D); lse and the scratch di (B, H, Sq).  q, k, v
-// and dout start at a multiple of 16 bytes (cp.async).  Returns a
-// cudaError_t (cudaErrorInvalidValue for a head dim other than 64, 80, 128
-// or 256, or shapes the grid cannot hold).
-extern "C" int flash_attention_bwd(const void* q, const void* k,
+// dtype 0: float32, 1: bfloat16, of q, k, v, dout, dq, dk and dv; out, lse
+// and the scratch di are f32.  Every tensor is contiguous: q, out, dout, dq
+// (B, Sq, H, D); k, v, dk, dv (B, Skv, KH, D); lse and di (B, H, Sq).  q,
+// k, v and dout start at a multiple of 16 bytes (cp.async).  Returns a
+// cudaError_t (cudaErrorInvalidValue for a dtype code other than 0 or 1, a
+// head dim other than 64, 80, 128 or 256, or shapes the grid cannot hold).
+extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
                                    const void* v, const void* out,
                                    const void* dout, const void* lse,
                                    void* di, void* dq, void* dk, void* dv,
@@ -704,14 +797,15 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) %
       16)
     return (int)cudaErrorInvalidValue;
-  return attn::by_dim<float, 64, 80, 128, 256>(d, [&](auto, auto dim) {
+  return attn::dispatch<64, 80, 128, 256>(dtype, d, [&](auto t, auto dim) {
+    using T = typename decltype(t)::type;
     constexpr int D = decltype(dim)::value;
-    return launch<D>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(out),
-        static_cast<const float*>(dout), static_cast<const float*>(lse),
-        static_cast<float*>(di), static_cast<float*>(dq),
-        static_cast<float*>(dk), static_cast<float*>(dv), b, sq, skv, h, kh,
-        causal, window, scale, stream);
+    return launch<T, D>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const float*>(out),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<float*>(di), static_cast<T*>(dq), static_cast<T*>(dk),
+        static_cast<T*>(dv), b, sq, skv, h, kh, causal, window, scale,
+        stream);
   });
 }

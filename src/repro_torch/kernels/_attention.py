@@ -11,6 +11,12 @@ import torch
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the C interface's codes
 
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """The key of a wrapper's ``launches_by_dtype``: ``"float32"`` or
+    ``"bfloat16"``."""
+    return str(dtype).removeprefix("torch.")
+
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong

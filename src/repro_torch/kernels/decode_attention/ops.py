@@ -34,7 +34,9 @@ checked where it lies: on the card that waits for the device, once per
 call.  :func:`decode_lengths` makes that check once and returns a
 :class:`DecodeLengths` (the (B,) int32 tensor on the card) that every
 layer of a decode step passes on unchecked.  ``decode_attention.launches``
-and ``decode_attention_q8.launches`` count kernel launches.
+and ``decode_attention_q8.launches`` count kernel launches, and each
+one's ``launches_by_dtype`` its launches by q's dtype (``"float32"`` /
+``"bfloat16"``; for K6 also the cache's).
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ import torch
 from repro_torch.kernels import _build, _tiled
 from repro_torch.kernels._attention import (DTYPES, F, I, L, P,
                                             check_operands, check_strides,
-                                            raise_on_error)
+                                            dtype_name, raise_on_error)
 from repro_torch.kernels.decode_attention.ref import (decode_attention_q8_ref,
                                                       decode_attention_ref)
 
@@ -166,7 +168,8 @@ def _launch(op, q: torch.Tensor, cache: tuple,
     """Launches ``op``'s C entry (``decode_attention`` or
     ``decode_attention_q8``) over the ``cache`` tensors, passed in the
     entry's order, each with its (B, S, KH) strides, on the current
-    stream's counters and scratch; counts the launch on ``op``."""
+    stream's counters and scratch; counts the launch on ``op``, in all and
+    by q's dtype."""
     check_strides(op.__name__, q, *cache)
     (b, _, h, d), (smax, kh) = q.shape, cache[0].shape[1:3]
     dev = q.device
@@ -185,6 +188,7 @@ def _launch(op, q: torch.Tensor, cache: tuple,
 
     raise_on_error(op.__name__, _tiled.on_card(dev, call))
     op.launches += 1
+    op.launches_by_dtype[dtype_name(q.dtype)] += 1
     return out
 
 
@@ -208,6 +212,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 decode_attention.launches = 0
+decode_attention.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def decode_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
@@ -234,3 +239,4 @@ def decode_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
 
 
 decode_attention_q8.launches = 0
+decode_attention_q8.launches_by_dtype = {"float32": 0, "bfloat16": 0}

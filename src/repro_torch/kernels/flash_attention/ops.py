@@ -10,18 +10,21 @@ kernel that fails to build or launch raises.  The op takes what the kernel
 builds, on either device: head dims 64, 80, 128 and 256, f32 or bf16, H %
 KH == 0, any Sq, Skv >= 1.  ``flash_attention.launches`` counts kernel
 launches, ``flash_attention.launches_by_mask`` the same split into causal
-and non-causal, and ``flash_attention.launches_windowed`` those with a
-window > 0.
+and non-causal, ``flash_attention.launches_by_dtype`` by the entry's dtype
+(``"float32"`` / ``"bfloat16"``), and ``flash_attention.launches_windowed``
+those with a window > 0.
 
 Under grad mode, with an input that requires grad, ``flash_attention``
 goes through a ``torch.autograd.Function``: on CUDA tensors the forward
 launches the same kernel, asking it for each row's log-sum-exp too, and
 the backward launches the hand-written gradient kernel
 (``csrc/flash_attention_bwd.cu``, :func:`flash_attention_bwd`); on CPU
-tensors the two plain versions.  f32 only (a bf16 input that requires
-grad raises).  Without grad (serving, ``encode``) the op launches the
-kernel as before, with no log-sum-exp.  ``flash_attention_bwd.launches``
-counts gradient calls on the card.
+tensors the two plain versions.  f32 or bf16: in bf16 the lse is f32 and
+the gradients are the f32 gradient of the widened inputs, rounded once to
+bf16.  Without grad (serving, ``encode``) the op launches the kernel as
+before, with no log-sum-exp.  ``flash_attention_bwd.launches`` counts
+gradient calls on the card, ``flash_attention_bwd.launches_by_dtype`` the
+same by dtype.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._attention import (DTYPES, F, I, L, P,
                                             check_operands, check_strides,
-                                            raise_on_error)
+                                            dtype_name, raise_on_error)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_lse_ref,
                                                      flash_attention_ref)
@@ -55,7 +58,7 @@ def _lib():
 @functools.cache
 def _bwd_lib():
     lib = _build.load("flash_attention_bwd")
-    lib.flash_attention_bwd.argtypes = [P] * 10 + [I] * 8 + [F, P]
+    lib.flash_attention_bwd.argtypes = [I] + [P] * 10 + [I] * 8 + [F, P]
     lib.flash_attention_bwd.restype = I
     return lib
 
@@ -75,10 +78,13 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q, k, v, causal: bool, window: int, with_lse: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(out, the rows' log-sum-exp (B, H, Sq) f32 if ``with_lse``)."""
+    """(out, the rows' log-sum-exp (B, H, Sq) f32 if ``with_lse``).  out is
+    in q's dtype, or with ``with_lse`` in f32: the values that the serving
+    entry rounds to q's dtype (the backward reads them)."""
     check_strides("flash_attention", q, k, v)
     (b, sq, h, d), skv, kh = q.shape, k.shape[1], k.shape[2]
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, sq, h, d), device=q.device,
+                      dtype=torch.float32 if with_lse else q.dtype)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     with torch.cuda.device(q.device):
@@ -92,6 +98,7 @@ def _launch(q, k, v, causal: bool, window: int, with_lse: bool = False
     flash_attention.launches += 1
     flash_attention.launches_by_mask[
         "causal" if causal else "non_causal"] += 1
+    flash_attention.launches_by_dtype[dtype_name(q.dtype)] += 1
     flash_attention.launches_windowed += int(window > 0)
     return out, lse
 
@@ -117,12 +124,14 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool, window: int):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _bwd_lib().flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, sq, skv, h, kh, d, int(causal),
             window, d ** -0.5, stream)
     raise_on_error("flash_attention_bwd", err)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_dtype[dtype_name(q.dtype)] += 1
     return dq, dk, dv
 
 
@@ -132,15 +141,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0) -> Tuple[torch.Tensor, torch.Tensor,
                                                   torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention` at q (B, Sq, H, D), k, v
-    (B, Skv, KH, D), given its output ``out``, the rows' log-sum-exp
-    ``lse`` (B, H, Sq) and ``dout`` (B, Sq, H, D); f32 only.  CUDA tensors
-    launch ``csrc/flash_attention_bwd.cu``, CPU tensors take
-    ``flash_attention_bwd_ref``."""
+    (B, Skv, KH, D), given its output ``out`` (B, Sq, H, D) in f32, before
+    any rounding to q's dtype (what the forward asked for its lse
+    returns), the rows' log-sum-exp ``lse`` (B, H, Sq) f32 and ``dout``
+    (B, Sq, H, D); q, k, v and dout all f32 or all bf16, the gradients in
+    their dtype.  CUDA tensors launch ``csrc/flash_attention_bwd.cu``, CPU
+    tensors take ``flash_attention_bwd_ref``."""
     _check(q, k, v, window)
-    if q.dtype != torch.float32:
-        raise NotImplementedError(
-            f"flash_attention's gradient is f32 only, got {q.dtype} (bf16 "
-            f"comes with compute_dtype, ROADMAP item 3)")
+    if out.shape != q.shape or dout.shape != q.shape or \
+            lse.shape != (q.shape[0], q.shape[2], q.shape[1]):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)} and lse "
+                         f"{tuple(lse.shape)} for q {tuple(q.shape)}")
+    if dout.dtype != q.dtype or out.dtype != torch.float32 or \
+            lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd takes dout of q's dtype "
+                        f"{q.dtype} and an f32 out and lse, got "
+                        f"{dout.dtype}, {out.dtype}, {lse.dtype}")
     if q.device.type == "cuda":
         return _launch_bwd(q, k, v, out, lse, dout, causal, window)
     if q.device.type == "cpu":
@@ -152,6 +169,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -160,17 +178,20 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
+        """Saves the f32 output (before its rounding to q's dtype) and the
+        rows' lse for the backward."""
         if q.device.type == "cuda":
             out, lse = _launch(q, k, v, causal, window, with_lse=True)
         else:
             qh, kh, vh = _heads(q, k, v)
-            out = flash_attention_ref(qh, kh, vh, causal=causal,
+            out = flash_attention_ref(qh.float(), kh.float(), vh.float(),
+                                      causal=causal,
                                       window=window).transpose(1, 2)
             lse = flash_attention_lse_ref(qh, kh, causal=causal,
                                           window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
-        return out
+        return out.to(q.dtype)
 
     @staticmethod
     def backward(ctx, dout):
@@ -190,10 +211,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, window)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if q.dtype != torch.float32:
-            raise NotImplementedError(
-                f"flash_attention's gradient is f32 only, got {q.dtype} "
-                f"(bf16 comes with compute_dtype, ROADMAP item 3)")
         return _FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, window)[0]
@@ -207,4 +224,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_mask = {"causal": 0, "non_causal": 0}
+flash_attention.launches_by_dtype = {"float32": 0, "bfloat16": 0}
 flash_attention.launches_windowed = 0

@@ -74,8 +74,11 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_ref` at (q, k, v), given its
-    output ``out``, the rows' ``lse`` (B, H, Sq) and the output's gradient
-    ``dout`` (B, H, Sq, D), in f32, cast to the inputs' dtypes:
+    output ``out`` (read in f32: the kernel's path gives it the f32 output
+    before any rounding to q's dtype), the rows' ``lse`` (B, H, Sq) f32 and
+    the output's gradient ``dout`` (B, H, Sq, D), in f32, cast to the
+    inputs' dtypes (bf16 inputs: the f32 gradient of the widened inputs,
+    rounded once):
 
     - P = exp(S - lse) where the masks keep (i, j), else 0; a row with no
       valid key has the uniform P = 1 / Skv that the forward gives it;

@@ -31,11 +31,22 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
     return (xf * (1.0 + weight.to(torch.float32))).to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x).  Below f32 each op rounds to x's
+    dtype, and XLA's sigmoid is 1 / (1 + exp(-x)), so that is what runs
+    there (bitwise the reference's bf16 silu; ``torch``'s fused op rounds
+    once and differs in ~40% of bf16 elements); f32 keeps the fused op."""
+    if x.dtype == torch.float32:
+        return torch.nn.functional.silu(x)
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp(gate: torch.Tensor, up: torch.Tensor, down: torch.Tensor,
         x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``(silu(x @ gate) * (x @ up)) @ down``."""
-    h = torch.nn.functional.silu(x @ gate) * (x @ up)
-    return h @ down
+    """SwiGLU: ``(silu(x @ gate) * (x @ up)) @ down``, each weight cast to
+    x's dtype for its product, as the reference does."""
+    h = silu(x @ gate.to(x.dtype)) * (x @ up.to(x.dtype))
+    return h @ down.to(x.dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float) -> np.ndarray:

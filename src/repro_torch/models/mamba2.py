@@ -44,7 +44,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, rms_norm, silu
 
 CHUNK = 64
 
@@ -115,13 +115,16 @@ def init_mamba2(cfg: ModelConfig, generator: torch.Generator,
 
 def _causal_conv(x: Tensor, w: Tensor, carry: Optional[Tensor] = None
                  ) -> Tuple[Tensor, Tensor]:
-    """Depthwise causal conv.  x (B, S, C), w (W, C), carry (B, W - 1, C)
-    (None: zeros).  Returns (out (B, S, C), the new carry: the last W - 1
-    rows of ``carry`` then ``x``, old rows among them when S < W - 1)."""
+    """Depthwise causal conv.  x (B, S, C), w (W, C) (cast to x's dtype),
+    carry (B, W - 1, C) (None: zeros).  Returns (out (B, S, C), the new
+    carry: the last W - 1 rows of ``carry`` then ``x``, old rows among them
+    when S < W - 1), both in the wider of x's and the carry's dtypes, as the
+    reference's concatenation promotes (a bf16 x over an f32 carry: f32)."""
     width, s = w.shape[0], x.shape[1]
     if carry is None:
         carry = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
-    xp = torch.cat([carry.to(x.dtype), x], dim=1)
+    w = w.to(x.dtype)
+    xp = torch.cat([carry, x], dim=1)
     out = xp[:, :s] * w[0]                   # the reference's sum, in order
     for i in range(1, width):
         out = out + xp[:, i:i + s] * w[i]
@@ -196,18 +199,18 @@ def mamba2_mixer(params: Mapping[str, Tensor], x: Tensor, cfg: ModelConfig,
     bsz, s, _ = x.shape
     d_in, n = cfg.ssm_inner_dim, cfg.ssm_state_size
     nh, hd = cfg.ssm_num_heads, cfg.ssm_head_dim
-    z = x @ params["in_z"]
+    proj = lambda name: x @ params[name].to(x.dtype)
+    z = proj("in_z")
     # the reference's three depthwise convs as one over their channels side
     # by side (a depthwise conv splits exactly: the same products a channel)
-    xbc = torch.cat([x @ params["in_x"], x @ params["in_b"],
-                     x @ params["in_c"]], dim=-1)
+    xbc = torch.cat([proj("in_x"), proj("in_b"), proj("in_c")], dim=-1)
     w = torch.cat([params["conv_x"], params["conv_b"], params["conv_c"]],
                   dim=-1)
     xbc, new_conv = _causal_conv(xbc, w, None if cache is None
                                  else cache.conv)
-    xs, b, c = nn.functional.silu(xbc).split([d_in, n, n], dim=-1)
+    xs, b, c = silu(xbc).split([d_in, n, n], dim=-1)
     xs = xs.reshape(bsz, s, nh, hd)
-    dt = softplus((x @ params["in_dt"]).to(torch.float32)
+    dt = softplus(proj("in_dt").to(torch.float32)
                   + params["dt_bias"])                     # (B, S, nh)
     log_a = -torch.exp(params["A_log"]) * dt               # <= 0
     x_dt = xs.to(torch.float32) * dt[..., None]
@@ -219,8 +222,8 @@ def mamba2_mixer(params: Mapping[str, Tensor], x: Tensor, cfg: ModelConfig,
         y, state = ssd_chunked(x_dt, log_a, b, c, state0)
     y = y + xs.to(y.dtype) * params["D"][:, None].to(y.dtype)
     y = y.reshape(bsz, s, d_in).to(x.dtype)
-    y = rms_norm(y * nn.functional.silu(z), params["gate_norm"], cfg.norm_eps)
-    out = y @ params["out_proj"]
+    y = rms_norm(y * silu(z), params["gate_norm"], cfg.norm_eps)
+    out = y @ params["out_proj"].to(x.dtype)
     if cache is None:
         return out, MambaCache(state, new_conv)
     cache.ssm.copy_(state)

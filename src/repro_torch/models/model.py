@@ -69,6 +69,24 @@ group: every attention layer launches ``flash_attention`` twice a step
 (the forward and its recompute) and its backward once.  The
 kernels have no logit softcap (nor have the TPU kernels), so a config with
 one raises on the card.
+
+``compute_dtype`` (float32 by default; bfloat16) follows the reference op
+by op: the inputs are embedded, then cast to it; every product casts its
+weight to the residual stream's dtype (so f32 parameters are rounded per
+product and the residual adds are bf16 adds); ``rms_norm`` and RoPE
+compute in f32 and round back; attention computes in f32 on its widened
+inputs and rounds its output to q's dtype; decode writes k / v in the
+cache's dtype; ``loss_fn`` takes the log-softmax of f32 logits.  On the
+card a bf16 prefill launches ``flash_attention``'s bf16 entry, and a bf16
+decode step ``decode_attention``'s bf16 entry over a bf16 cache or, over an
+f32 cache (the batcher's, as the reference's), its f32 entry on q widened
+to f32, rounded back: ``attend_decode``'s own function.  An f32 q over a
+bf16 cache, which no caller of the reference makes, runs the plain
+function on the CPU and raises ``NotImplementedError`` on the card.  An
+``"rwkv6"`` layer over shift caches wider than the compute dtype raises
+``TypeError`` before any work, as the reference's layer scan does (its
+carry would change dtype); ``init_cache(dtype=torch.bfloat16)`` is the
+cache that runs it in bf16.
 """
 from __future__ import annotations
 
@@ -90,7 +108,7 @@ from repro_torch.models.layers import (apply_mrope, apply_rope, dense_init,
                                        mlp, rms_norm, rope_frequencies)
 from repro_torch.models.mamba2 import MambaCache, init_mamba2, mamba2_mixer
 from repro_torch.models.moe import init_moe, moe_block
-from repro_torch.models.rwkv6 import RwkvBlock
+from repro_torch.models.rwkv6 import RwkvBlock, RwkvCache
 
 MOE_KINDS = ("moe", "swa_moe")
 WINDOW_KINDS = ("swa", "swa_moe")
@@ -147,10 +165,11 @@ class AttnBlock(nn.Module):
         valid tokens it attends over, the current one included.  Returns
         (x, the MoE load-balance loss, or None without experts)."""
         b, s, _ = x.shape
+        dt = x.dtype                  # each weight cast to it per product
         h = rms_norm(x, self.norm1, cfg.norm_eps)
-        q = (h @ self.wq).view(b, s, cfg.num_heads, cfg.head_dim)
-        k = (h @ self.wk).view(b, s, cfg.num_kv_heads, cfg.head_dim)
-        v = (h @ self.wv).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        q = (h @ self.wq.to(dt)).view(b, s, cfg.num_heads, cfg.head_dim)
+        k = (h @ self.wk.to(dt)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
+        v = (h @ self.wv.to(dt)).view(b, s, cfg.num_kv_heads, cfg.head_dim)
         if cfg.use_mrope:
             q = apply_mrope(q, positions, inv_freq, cfg.mrope_sections)
             k = apply_mrope(k, positions, inv_freq, cfg.mrope_sections)
@@ -165,11 +184,18 @@ class AttnBlock(nn.Module):
                 f"kernel on the card (the TPU kernels have no softcap)")
         if mode == "decode":
             assert cache is not None and s == 1
+            widen = q.dtype != cache.k.dtype
+            if card and widen and cache.k.dtype != torch.float32:
+                raise NotImplementedError(
+                    f"decode of a {q.dtype} q over a {cache.k.dtype} cache "
+                    f"has no kernel entry on the card (no caller of the "
+                    f"reference makes it)")
             cache.insert(k, v, cache_len)
-            if card:
-                out = decode_attention(q, cache.k, cache.v, lengths,
+            if card:   # over an f32 cache: the f32 entry on q widened
+                out = decode_attention(q.float() if widen else q, cache.k,
+                                       cache.v, lengths,
                                        window=0 if cache.circular
-                                       else window)
+                                       else window).to(q.dtype)
             else:
                 out = attn_lib.attend_decode(q, cache.k, cache.v, lengths,
                                              window=window, logit_cap=cap,
@@ -186,7 +212,7 @@ class AttnBlock(nn.Module):
             else:
                 out = attn_lib.attend_reference(q, k, v, causal=causal,
                                                 window=window, logit_cap=cap)
-        x = x + out.reshape(b, s, cfg.q_dim) @ self.wo
+        x = x + out.reshape(b, s, cfg.q_dim) @ self.wo.to(dt)
         h = rms_norm(x, self.norm2, cfg.norm_eps)
         if self.moe is None:
             return x + mlp(self.gate, self.up, self.down, h), None
@@ -221,10 +247,13 @@ class MambaBlock(nn.Module):
 
 
 class Model(nn.Module):
-    """Token embedding, ``num_layers`` blocks, final norm, output head."""
+    """Token embedding, ``num_layers`` blocks, final norm, output head.
+    The weights are drawn in f32 from the generator, then each is cast to
+    ``dtype`` as soon as it is drawn (the same values as ``Model(cfg)``
+    cast, without its f32 copy of the whole model on the device)."""
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, dtype=torch.float32):
         super().__init__()
         bad = sorted(set(cfg.block_pattern) - set(KINDS))
         if bad:
@@ -234,26 +263,27 @@ class Model(nn.Module):
         g = torch.Generator(device=dev).manual_seed(seed)
         self.cfg = cfg
         self.embed = _param(dense_init((cfg.vocab_size, cfg.d_model), g, dev,
-                                       scale=0.02))
+                                       scale=0.02).to(dtype))
         blocks, shared = [], None
         for i in range(cfg.num_layers):
             kind = cfg.block_pattern[i % len(cfg.block_pattern)]
             if kind == "shared_attn":       # drawn once, at its first layer
                 if shared is None:
-                    shared = AttnBlock(cfg, g, dev, kind)
+                    shared = AttnBlock(cfg, g, dev, kind).to(dtype)
                 blocks.append(shared)
             elif kind == "rwkv6":
-                blocks.append(RwkvBlock(cfg, g, dev))
+                blocks.append(RwkvBlock(cfg, g, dev).to(dtype))
             elif kind == "mamba2":
-                blocks.append(MambaBlock(cfg, g, dev))
+                blocks.append(MambaBlock(cfg, g, dev).to(dtype))
             else:
-                blocks.append(AttnBlock(cfg, g, dev, kind))
+                blocks.append(AttnBlock(cfg, g, dev, kind).to(dtype))
         self.blocks = nn.ModuleList(blocks)
         self.attends = any(isinstance(b, AttnBlock) for b in blocks)
-        self.final_norm = _param(torch.zeros((cfg.d_model,), device=dev))
+        self.final_norm = _param(torch.zeros((cfg.d_model,), dtype=dtype,
+                                             device=dev))
         self.lm_head = (None if cfg.tie_embeddings else
                         _param(dense_init((cfg.d_model, cfg.vocab_size), g,
-                                          dev)))
+                                          dev).to(dtype)))
         self.register_buffer("inv_freq", torch.from_numpy(
             rope_frequencies(cfg.head_dim, cfg.rope_theta)).to(dev),
             persistent=False)
@@ -262,22 +292,24 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def embed_inputs(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """(B, S, d) f32: ``batch["embeds"]`` if given, else the embedding
-        of ``batch["tokens"]``; ``batch["vision_embeds"]`` (B, P, d), if
-        given, replaces the first P positions (an image prefix)."""
+    def embed_inputs(self, batch: Dict[str, torch.Tensor],
+                     compute_dtype=torch.float32) -> torch.Tensor:
+        """(B, S, d) in ``compute_dtype``: ``batch["embeds"]`` if given,
+        else the embedding of ``batch["tokens"]``, cast;
+        ``batch["vision_embeds"]`` (B, P, d), if given, cast and written
+        over the first P positions (an image prefix)."""
         embeds = batch.get("embeds")
         if embeds is not None:
-            x = embeds.to(torch.float32)
+            x = embeds.to(compute_dtype)
         else:
-            x = self.embed[batch["tokens"]]
+            x = self.embed[batch["tokens"]].to(compute_dtype)
         ve = batch.get("vision_embeds")
         if ve is not None:
             if ve.shape[0] != x.shape[0] or ve.shape[1] > x.shape[1] or \
                     ve.shape[2] != x.shape[2]:
                 raise ValueError(f"vision_embeds {tuple(ve.shape)} do not "
                                  f"fit the inputs {tuple(x.shape)}")
-            x = torch.cat([ve.to(torch.float32), x[:, ve.shape[1]:]], dim=1)
+            x = torch.cat([ve.to(compute_dtype), x[:, ve.shape[1]:]], dim=1)
         return x
 
     def positions(self, b: int, s: int,
@@ -313,6 +345,16 @@ class Model(nn.Module):
             raise ValueError(f"{self.cfg.name}: positions "
                              f"{tuple(positions.shape)} for inputs "
                              f"{tuple(x.shape)}")
+        if caches is not None:
+            for c in caches:
+                if isinstance(c, RwkvCache) and torch.promote_types(
+                        c.shift_t.dtype, x.dtype) != x.dtype:
+                    raise TypeError(
+                        f"{self.cfg.name}: an rwkv6 layer computing in "
+                        f"{x.dtype} over {c.shift_t.dtype} shift caches "
+                        f"would return a wider stream than it takes, as the "
+                        f"reference's layer scan refuses; make the caches "
+                        f"with init_cache(dtype={x.dtype})")
         lengths = cache_len + 1
         if mode == "decode" and x.is_cuda and self.attends:
             lengths = decode_lengths(lengths, b, x.device)
@@ -337,17 +379,19 @@ class Model(nn.Module):
         return x, aux_total
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The head in x's dtype, its weight cast per product."""
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         if self.lm_head is None:
-            return x @ self.embed.T
-        return x @ self.lm_head
+            return x @ self.embed.to(x.dtype).T
+        return x @ self.lm_head.to(x.dtype)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device: DeviceLike = None) -> Model:
+                device: DeviceLike = None, dtype=torch.float32) -> Model:
     """A :class:`Model` with random weights drawn on ``device`` (the card
-    unless ``"cpu"``) from ``torch.Generator().manual_seed(seed)``."""
-    return Model(cfg, seed=seed, device=device)
+    unless ``"cpu"``) from ``torch.Generator().manual_seed(seed)`` in f32,
+    then cast to ``dtype`` (the reference's ``init_params(dtype=)``)."""
+    return Model(cfg, seed=seed, device=device, dtype=dtype)
 
 
 def param_count(model: Model) -> int:
@@ -363,17 +407,13 @@ def forward(model: Model, batch: Dict[str, torch.Tensor], *,
     reference's ``forward(mode="train")`` (serving's modes are
     :func:`prefill` and :func:`decode_step`).  Under grad mode each block
     runs under ``torch.utils.checkpoint``, as the reference checkpoints
-    each group in train mode.  fp32 only, on one device:
-    ``compute_dtype`` other than float32 raises (ROADMAP item 3), and so
-    does ``dist`` (the multi-device item 5)."""
+    each group in train mode.  The logits are in ``compute_dtype``.  On
+    one device: ``dist`` raises (the multi-device item 5)."""
     if dist is not None:
         raise NotImplementedError("forward(dist=...): the port runs on one "
                                   "device (multi-device is ROADMAP item 5)")
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(f"forward(compute_dtype={compute_dtype}):"
-                                  f" the port's model is fp32 only "
-                                  f"(compute_dtype is ROADMAP item 3)")
-    x, aux = model.run(model.embed_inputs(batch), batch.get("positions"),
+    x, aux = model.run(model.embed_inputs(batch, compute_dtype),
+                       batch.get("positions"),
                        causal=True, mode="train", caches=None, cache_len=0,
                        attn_impl=attn_impl, remat=torch.is_grad_enabled())
     if aux is None:
@@ -402,12 +442,13 @@ def loss_fn(model: Model, batch: Dict[str, torch.Tensor], *,
 
 @torch.no_grad()
 def prefill(model: Model, batch: Dict[str, torch.Tensor],
-            caches: List[Cache], *, attn_impl: str = "auto"
-            ) -> Tuple[torch.Tensor, List[Cache]]:
-    """Run the full prompt (``batch`` as the module docstring says),
-    filling ``caches`` in place.  Returns (last-position logits (B, vocab),
-    caches)."""
-    x, _ = model.run(model.embed_inputs(batch), batch.get("positions"),
+            caches: List[Cache], *, compute_dtype=torch.float32,
+            attn_impl: str = "auto") -> Tuple[torch.Tensor, List[Cache]]:
+    """Run the full prompt (``batch`` as the module docstring says) in
+    ``compute_dtype``, filling ``caches`` in place.  Returns (last-position
+    logits (B, vocab) in ``compute_dtype``, caches)."""
+    x, _ = model.run(model.embed_inputs(batch, compute_dtype),
+                     batch.get("positions"),
                      causal=True, mode="prefill", caches=caches, cache_len=0,
                      attn_impl=attn_impl)
     return model.logits(x[:, -1]), caches
@@ -415,17 +456,19 @@ def prefill(model: Model, batch: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def decode_step(model: Model, tokens_or_embeds: torch.Tensor,
-                caches: List[Cache], cache_len: Union[int, torch.Tensor]
+                caches: List[Cache], cache_len: Union[int, torch.Tensor], *,
+                compute_dtype=torch.float32
                 ) -> Tuple[torch.Tensor, List[Cache]]:
-    """One-token serve step: tokens (B, 1) (the audio model decodes codec
-    ids) or embeds (B, 1, d), at position ``cache_len``, one for every
-    slot or a (B,) integer tensor of per-slot positions (every M-RoPE
-    stream at it).  Returns (logits (B, vocab), caches updated in
-    place)."""
+    """One-token serve step in ``compute_dtype``: tokens (B, 1) (the audio
+    model decodes codec ids) or embeds (B, 1, d), at position
+    ``cache_len``, one for every slot or a (B,) integer tensor of per-slot
+    positions (every M-RoPE stream at it).  Returns (logits (B, vocab) in
+    ``compute_dtype``, caches updated in place)."""
     if isinstance(cache_len, torch.Tensor):
         cache_len = cache_len.to(device=model.device, dtype=torch.long)
     key = "tokens" if tokens_or_embeds.dim() == 2 else "embeds"
-    x, _ = model.run(model.embed_inputs({key: tokens_or_embeds}), None,
+    x, _ = model.run(model.embed_inputs({key: tokens_or_embeds},
+                                        compute_dtype), None,
                      causal=True, mode="decode", caches=caches,
                      cache_len=cache_len, attn_impl="auto")
     return model.logits(x[:, 0]), caches
@@ -433,11 +476,13 @@ def decode_step(model: Model, tokens_or_embeds: torch.Tensor,
 
 @torch.no_grad()
 def encode(model: Model, batch: Dict[str, torch.Tensor], *,
-           attn_impl: str = "auto") -> torch.Tensor:
-    """Bidirectional mean-pooled, unit-norm sentence embedding.  Padded
-    tokens are attended; ``batch["attn_mask"]`` only selects what is
-    pooled."""
-    x, _ = model.run(model.embed_inputs(batch), batch.get("positions"),
+           compute_dtype=torch.float32, attn_impl: str = "auto"
+           ) -> torch.Tensor:
+    """Bidirectional mean-pooled, unit-norm sentence embedding, in
+    ``compute_dtype``.  Padded tokens are attended; ``batch["attn_mask"]``
+    only selects what is pooled."""
+    x, _ = model.run(model.embed_inputs(batch, compute_dtype),
+                     batch.get("positions"),
                      causal=False, mode="train", caches=None, cache_len=0,
                      attn_impl=attn_impl)
     x = rms_norm(x, model.final_norm, model.cfg.norm_eps)

@@ -34,7 +34,7 @@ from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, silu
 
 
 class Routing(NamedTuple):
@@ -132,7 +132,7 @@ def moe_block(params: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     buf = buf[:-1].view(num_experts, c, d)
 
     # expert FFN, batched over experts
-    h = torch.nn.functional.silu(torch.bmm(buf, params["gate"].to(dtype)))
+    h = silu(torch.bmm(buf, params["gate"].to(dtype)))
     h = h * torch.bmm(buf, params["up"].to(dtype))
     y = torch.bmm(h, params["down"].to(dtype)).reshape(num_experts * c, d)
     y = torch.cat([y, y.new_zeros((1, d))])

@@ -34,7 +34,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, rms_norm, silu
 
 DECAY_LORA = 64
 CHUNK = 32
@@ -104,7 +104,9 @@ def init_rwkv6(cfg: ModelConfig, generator: torch.Generator,
 
 def token_shift(x: Tensor, carry: Tensor) -> Tuple[Tensor, Tensor]:
     """x (B, S, d), carry (B, d), the previous segment's last token:
-    returns (each position's previous token (B, S, d), x's last token)."""
+    returns (each position's previous token (B, S, d) in x's dtype, x's
+    last token).  A carry wider than x is refused before this is reached
+    (``Model.run``), as the reference refuses it."""
     prev = torch.cat([carry[:, None].to(x.dtype), x[:, :-1]], dim=1)
     return prev, x[:, -1]
 
@@ -187,8 +189,9 @@ class RwkvBlock(nn.Module):
         h = rms_norm(x, self.norm_c, cfg.norm_eps)
         prev, shift_c = token_shift(h, h.new_zeros((b, d)) if cache is None
                                     else cache.shift_c)
-        xk = h + self.mu_c * (prev - h)
-        x = x + torch.relu(xk @ self.Wck).square() @ self.Wcv
+        dt = h.dtype                  # each weight cast to it per product
+        xk = h + self.mu_c.to(dt) * (prev - h)
+        x = x + torch.relu(xk @ self.Wck.to(dt)).square() @ self.Wcv.to(dt)
         if cache is not None:
             cache.wkv.copy_(state)
             cache.shift_t.copy_(shift_t)
@@ -203,17 +206,20 @@ class RwkvBlock(nn.Module):
         nh, hd = self.heads, self.head_dim
         prev, shift_t = token_shift(h, h.new_zeros((b, d)) if cache is None
                                     else cache.shift_t)
-        delta = prev - h
-        xr, xk, xv, xg, xw = (h + self.mu[i] * delta for i in range(5))
-        r = (xr @ self.Wr).view(b, s, nh, hd)
-        k = (xk @ self.Wk).view(b, s, nh, hd)
-        v = (xv @ self.Wv).view(b, s, nh, hd)
-        g = nn.functional.silu(xg @ self.Wg)
-        ww = self.w0 + torch.tanh(xw.to(torch.float32) @ self.w1) @ self.w2
+        delta, dt, f32 = prev - h, h.dtype, torch.float32
+        mu = self.mu.to(dt)
+        xr, xk, xv, xg, xw = (h + mu[i] * delta for i in range(5))
+        r = (xr @ self.Wr.to(dt)).view(b, s, nh, hd)
+        k = (xk @ self.Wk.to(dt)).view(b, s, nh, hd)
+        v = (xv @ self.Wv.to(dt)).view(b, s, nh, hd)
+        g = silu(xg @ self.Wg.to(dt))
+        # the decay in f32 (bf16 weights widened exactly, as jnp promotes)
+        ww = self.w0.to(f32) + torch.tanh(xw.to(f32) @ self.w1.to(f32)) \
+            @ self.w2.to(f32)
         logw = -torch.exp(torch.clamp(ww, -20.0, 10.0)).view(b, s, nh, hd)
         state0 = (h.new_zeros((b, nh, hd, hd), dtype=torch.float32)
                   if cache is None else cache.wkv)
         wkv = wkv6_recurrent if s == 1 else wkv6_chunked
         o, state = wkv(r, k, v, logw, self.u, state0)
-        o = o.reshape(b, s, d).to(h.dtype) * g
-        return o @ self.Wo, state, shift_t
+        o = o.reshape(b, s, d).to(dt) * g
+        return o @ self.Wo.to(dt), state, shift_t

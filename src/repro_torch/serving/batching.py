@@ -30,6 +30,15 @@ lengths that differ from slot to slot (an ``"rwkv6"`` or ``"mamba2"``
 layer none).  Nothing here catches a kernel's error: a card run never
 takes a plain version.
 
+``compute_dtype`` (float32 by default) is the reference's: every prefill
+and decode step computes in it, over caches that stay ``init_cache``'s
+default f32, as the reference's are (so a bf16 step's decode attention on
+the card is the f32 kernel entry on q widened to f32, and an ``"rwkv6"``
+model refuses bf16 here, as the reference's batcher does: its layer scan
+raises over f32 shift caches).  The greedy token is ``argmax``, whose
+first index wins a tie, as ``jnp.argmax``'s does: bf16 logits tie more
+often.
+
 ``lens`` and ``next_tok`` stay numpy arrays on the host, as in the
 reference.  A tick copies the slots' greedy tokens back to the host once.
 
@@ -69,12 +78,12 @@ class SlotState:
 
 class ContinuousBatcher:
     """``params`` is a port :class:`Model` already on ``device`` (the card
-    unless ``"cpu"``); the model computes in fp32, so there is no
+    unless ``"cpu"``), in any dtype; the model computes in
     ``compute_dtype``."""
 
     def __init__(self, cfg: ModelConfig, params: Model, *,
                  num_slots: int = 4, max_len: int = 256,
-                 device: DeviceLike = None):
+                 compute_dtype=torch.float32, device: DeviceLike = None):
         self.device = resolve_device(device)
         if not same_device(params.device, self.device):
             raise ValueError(f"params are on {params.device}, the batcher "
@@ -83,6 +92,7 @@ class ContinuousBatcher:
         self.params = params
         self.num_slots = num_slots
         self.max_len = max_len
+        self.compute_dtype = compute_dtype
         self.caches = init_cache(cfg, num_slots, max_len, device=self.device)
         self.lens = np.zeros(num_slots, np.int32)       # per-slot cache len
         self.next_tok = np.zeros(num_slots, np.int32)
@@ -112,7 +122,8 @@ class ContinuousBatcher:
         # and beyond hold zeros and a recurrent state starts from zeros, as
         # in the reference's copy of a fresh row
         rows = [c.fresh_row(slot) for c in self.caches]
-        last_logits, _ = prefill(self.params, {"tokens": toks}, rows)
+        last_logits, _ = prefill(self.params, {"tokens": toks}, rows,
+                                 compute_dtype=self.compute_dtype)
         self.lens[slot] = L
         self.next_tok[slot] = int(last_logits[0].argmax())
         self.slots[slot] = SlotState(request_id=request_id,
@@ -127,7 +138,8 @@ class ContinuousBatcher:
         toks = torch.from_numpy(self.next_tok.astype(np.int64)).to(
             self.device).reshape(-1, 1)
         lens = torch.from_numpy(self.lens.astype(np.int64)).to(self.device)
-        logits, _ = decode_step(self.params, toks, self.caches, lens)
+        logits, _ = decode_step(self.params, toks, self.caches, lens,
+                                compute_dtype=self.compute_dtype)
         nxt = logits.argmax(-1).cpu().numpy()           # one copy a tick
         for i in active:
             s = self.slots[i]

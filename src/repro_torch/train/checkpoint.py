@@ -58,9 +58,9 @@ def save_checkpoint(path: str, model: Model) -> None:
 
 
 def load_checkpoint(path: str, like: Model) -> Model:
-    """A new :class:`Model` of ``like``'s config, on ``like``'s device,
-    holding the parameters in ``path``; raises if an entry is missing or
-    its shape is not ``like``'s."""
+    """A new :class:`Model` of ``like``'s config, on ``like``'s device and
+    in its dtype, holding the parameters in ``path``; raises if an entry is
+    missing or its shape is not ``like``'s."""
     template = params_to_jax(like)
     leaves = {}
     with np.load(path) as data:
@@ -73,4 +73,4 @@ def load_checkpoint(path: str, like: Model) -> Model:
                                  f"the model's is {v.shape}")
             leaves[key] = arr.astype(v.dtype)
     return params_from_jax(_unflatten(template, leaves), like.cfg,
-                           device=like.device)
+                           device=like.device, dtype=like.embed.dtype)

@@ -125,15 +125,39 @@ def test_without_grad_the_op_is_unchanged():
 
 
 def test_bf16_gradient_raises():
-    q = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16, requires_grad=True)
-    k = torch.zeros((1, 8, 2, 64), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        flash_attention(q, k, k)
-    with pytest.raises(NotImplementedError, match="f32 only"):
-        flash_attention_bwd(q.detach(), k, k, q.detach(),
-                            torch.zeros((1, 2, 8)), q.detach())
+    """bf16 under grad mode (it raised before bf16 training): the
+    ``autograd.Function``'s CPU route returns the bf16 output and gives
+    bf16 gradients, bitwise ``flash_attention_bwd_ref`` on the f32 output
+    (before its rounding) and the f32 lse; the wrapper refuses a bf16 out
+    or lse and a dout of another dtype; serving under ``no_grad`` returns
+    bf16 as before.  (The bf16 gradient against ``jax.grad``:
+    ``tests/test_torch_bf16_train.py``.)"""
+    (q, k, v, g), kw = _inputs("windowed", seed=3)
+    bf = torch.bfloat16
+    tq, tk, tv, tg = (torch.from_numpy(a).transpose(1, 2).to(bf).contiguous()
+                      for a in (q, k, v, g))
+    tq.requires_grad_()
+    out = flash_attention(tq, tk, tv, **kw)
+    assert out.dtype == bf and out.grad_fn is not None
+    (dq,) = torch.autograd.grad(out, (tq,), tg)
+    heads = lambda *ts: [t.detach().transpose(1, 2) for t in ts]
+    out32 = flash_attention_ref(*(t.float() for t in heads(tq, tk, tv)),
+                                **kw)
+    assert torch.equal(out.detach().transpose(1, 2), out32.to(bf))
+    lse = flash_attention_lse_ref(*heads(tq, tk), **kw)
+    want = flash_attention_bwd_ref(*heads(tq, tk, tv), out32, lse,
+                                   *heads(tg), **kw)
+    assert dq.dtype == bf and torch.equal(dq.transpose(1, 2), want[0])
+    out32 = out32.transpose(1, 2)
+    grads = flash_attention_bwd(tq.detach(), tk, tv, out32, lse, tg, **kw)
+    for a, w in zip(grads, want):
+        assert a.dtype == bf and torch.equal(a.transpose(1, 2), w)
+    for bad in ((out32.to(bf), lse, tg), (out32, lse.to(bf), tg),
+                (out32, lse, tg.float())):
+        with pytest.raises(TypeError, match="f32 out and lse"):
+            flash_attention_bwd(tq.detach(), tk, tv, *bad, **kw)
     with torch.no_grad():                     # serving takes bf16 as before
-        assert flash_attention(q, k, k).dtype == torch.bfloat16
+        assert flash_attention(tq, tk, tv, **kw).dtype == bf
 
 
 def test_cpu_bwd_wrapper_is_the_plain_version_in_model_layout():

@@ -160,7 +160,11 @@ def test_forward_refuses_what_the_port_lacks():
     batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="item 5"):
         forward(model, batch, dist=object())
-    with pytest.raises(NotImplementedError, match="item 3"):
-        forward(model, batch, compute_dtype=torch.bfloat16)
+    # bf16 raised here before compute_dtype came to the port: its logits
+    # are bf16 now (held to the reference: tests/test_torch_bf16_train.py)
+    logits, aux = forward(model, batch, compute_dtype=torch.bfloat16)
+    assert logits.dtype == torch.bfloat16 and aux.dtype == torch.float32
+    assert logits.shape == (1, 4, tc.vocab_size) and float(aux) == 0.0
     logits, aux = forward(model, batch)
+    assert logits.dtype == torch.float32
     assert logits.shape == (1, 4, tc.vocab_size) and float(aux) == 0.0

@@ -16,6 +16,9 @@ Tolerances (f32 on both sides, TF32 off):
   rows' log-sum-exp within ``LSE_TOL`` = 1e-5 x max(1, D / 64) of the
   plain one (scores of |s| < ~5 summed over D products, a few ulps of f32
   apart; measured 8.1e-6 at D = 256).
+- ``BWD_BF16_TOL`` = 1e-3 relative Frobenius on the bf16 entries' dq, dk
+  and dv (the comment above it says why); they must also be bitwise the
+  f32 entry's on the widened inputs, rounded.
 - ``STEP_TOL`` = 1e-5 relative on the loss and 1e-4 on the gradient
   norm (the card's fp32 GEMMs and attention kernels against the CPU's
   plain PyTorch, as ``chip_smoke.py``'s ``GEN_TOL`` reasons), and
@@ -128,6 +131,95 @@ def test_card_bwd_batch_equals_its_elements(cuda, case):
         one = flash_attention_bwd(*(t[e:e + 1] for t in inputs),
                                   causal=causal, window=window)
         assert all(torch.equal(w[e:e + 1], o) for w, o in zip(whole, one))
+
+
+# bf16 (K5's and K5′'s bf16 entries): the kernel's f32 sums differ from the
+# plain version's by ~1e-6, so the two gradients, each rounded once to bf16,
+# differ by one bf16 ulp (2**-7 relative) only where such a sum falls on
+# the other side of a rounding boundary: a fraction ~1e-6 / 2**-8 of the
+# elements.  1e-3 relative Frobenius bounds that with room; a kernel whose
+# every element missed by a rounding would lie ~2e-3 off.
+BWD_BF16_TOL = 1e-3
+
+
+def _bf16_inputs(cuda, case):
+    b, sq, skv, h, kh, d, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(sq + 1)
+    q = torch.randn((b, sq, h, d), device=cuda, generator=g)
+    k, v = (torch.randn((b, skv, kh, d), device=cuda, generator=g)
+            for _ in range(2))
+    dout = torch.randn((b, sq, h, d), device=cuda, generator=g)
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v, dout))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_card_bwd_bf16_matches_the_plain_version(cuda, case):
+    """K5 asked for its lse on bf16 operands writes the f32 output, which
+    its serving entry rounds (bitwise); the lse as for f32; K5′'s bf16
+    entry within ``BWD_BF16_TOL`` of the plain version, bitwise the f32
+    entry on the widened inputs rounded to bf16 (the skipped products of
+    bf16 operands add exact zeros), and bitwise from call to call."""
+    b, sq, skv, h, kh, d, causal, window = case
+    q, k, v, dout = _bf16_inputs(cuda, case)
+    out0, _ = fa_ops._launch(q, k, v, causal, window)
+    out, lse = fa_ops._launch(q, k, v, causal, window, with_lse=True)
+    assert out0.dtype == torch.bfloat16 and out.dtype == torch.float32
+    assert torch.equal(out.to(torch.bfloat16), out0)
+    heads = lambda *ts: [t.transpose(1, 2) for t in ts]
+    want_lse = flash_attention_lse_ref(*heads(q, k), causal=causal,
+                                       window=window)
+    live = want_lse > -1e29
+    assert float((lse - want_lse)[live].abs().max()) <= \
+        LSE_TOL * max(1, d / 64)
+    before = dict(flash_attention_bwd.launches_by_dtype)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                              window=window)
+    assert flash_attention_bwd.launches_by_dtype["bfloat16"] == \
+        before["bfloat16"] + 1
+    want = heads(*flash_attention_bwd_ref(*heads(q, k, v), out.transpose(
+        1, 2), lse, *heads(dout), causal=causal, window=window))
+    wide = flash_attention_bwd(q.float(), k.float(), v.float(), out, lse,
+                               dout.float(), causal=causal, window=window)
+    for a, w, f in zip(got, want, wide):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert _rel(a.float(), w.float()) <= BWD_BF16_TOL
+        assert torch.equal(a, f.to(torch.bfloat16))
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal,
+                                window=window)
+    assert all(torch.equal(x, y) for x, y in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(3, 129, 129, 4, 2, 64, True, 0),
+                                  (2, 90, 40, 4, 2, 256, True, 16)])
+def test_card_bwd_bf16_batch_equals_its_elements(cuda, case):
+    b, sq, skv, h, kh, d, causal, window = case
+    q, k, v, dout = _bf16_inputs(cuda, case)
+    out, lse = fa_ops._launch(q, k, v, causal, window, with_lse=True)
+    inputs = (q, k, v, out, lse, dout)
+    whole = flash_attention_bwd(*inputs, causal=causal, window=window)
+    for e in range(b):
+        one = flash_attention_bwd(*(t[e:e + 1] for t in inputs),
+                                  causal=causal, window=window)
+        assert all(torch.equal(w[e:e + 1], o) for w, o in zip(whole, one))
+
+
+@pytest.mark.gpu
+def test_card_decode_refuses_an_f32_q_over_a_bf16_cache(cuda):
+    """No caller of the reference decodes an f32 q over a bf16 cache, and
+    K6 has no entry for it: on the card the step raises before any launch
+    (the CPU runs the plain function: tests/test_torch_bf16_model.py)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.models import decode_step, init_cache
+    cfg = get_config("sheared-llama-2.7b").reduced(num_layers=1, d_model=128)
+    model = init_params(cfg, seed=0, device=cuda)
+    caches = init_cache(cfg, 1, 8, device=cuda, dtype=torch.bfloat16)
+    before = decode_attention.launches
+    with pytest.raises(NotImplementedError, match="no kernel entry"):
+        decode_step(model, torch.ones((1, 1), dtype=torch.long,
+                                      device=cuda), caches, 0)
+    assert decode_attention.launches == before
 
 
 @pytest.mark.gpu
